@@ -7,10 +7,14 @@ every Pallas kernel on the ported path is a CUDA C++ kernel for Hopper
 tensor each kernel wrapper runs the kernel's plain PyTorch version instead,
 which is what the CPU tests hold against the JAX package.
 
-Ported so far: single-device FP8 MoE serving (``models``, ``serving``) and
-its four kernels — :func:`fp8_gemm`, :func:`m_grouped_gemm_masked`,
-:func:`flash_decode_gqa_inplace`, :func:`flash_prefill_gqa`. The package
-never imports ``jax`` or ``deepgemm_ascend_tpu``.
+Ported so far: single-device MoE serving (``models``, ``serving``) with FP8
+or W8A8 int8 experts (``models.params_with_int8_experts``), and seven
+kernels — :func:`fp8_gemm`, :func:`m_grouped_gemm_masked`,
+:func:`flash_decode_gqa_inplace`, :func:`flash_prefill_gqa`, and the int8
+family :func:`int8_gemm`, :func:`m_grouped_int8_gemm_contiguous`,
+:func:`m_grouped_int8_gemm_masked` (with :func:`make_contiguous_layout`,
+which plans the contiguous layout). The package never imports ``jax`` or
+``deepgemm_ascend_tpu``.
 """
 
 from .config import GemmConfig, KernelType, SwizzleDir
@@ -18,7 +22,10 @@ from .ops.flash_decode import flash_decode_gqa_inplace
 from .ops.flash_prefill import flash_prefill_gqa
 from .ops.fp8_gemm import (exact_mode, expand_weight_scales, fp8_gemm,
                            fp8_gemm_with_config)
-from .ops.grouped_gemm import m_grouped_gemm_masked
+from .ops.grouped_gemm import make_contiguous_layout, m_grouped_gemm_masked
+from .ops.int8_gemm import (int8_gemm, int8_gemm_with_config,
+                            m_grouped_int8_gemm_contiguous,
+                            m_grouped_int8_gemm_masked)
 
 __version__ = "0.1.0"
 
@@ -26,5 +33,7 @@ __all__ = [
     "GemmConfig", "KernelType", "SwizzleDir",
     "exact_mode", "expand_weight_scales", "flash_decode_gqa_inplace",
     "flash_prefill_gqa", "fp8_gemm", "fp8_gemm_with_config",
-    "m_grouped_gemm_masked", "__version__",
+    "int8_gemm", "int8_gemm_with_config", "make_contiguous_layout",
+    "m_grouped_gemm_masked", "m_grouped_int8_gemm_contiguous",
+    "m_grouped_int8_gemm_masked", "__version__",
 ]

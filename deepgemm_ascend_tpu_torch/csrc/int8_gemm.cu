@@ -1,0 +1,428 @@
+// K7, K9, K6: W8A8 int8 GEMMs for Hopper (sm_90a).
+//
+// Replaces three kernels of deepgemm_ascend_tpu/ops/int8_gemm.py:
+//   K7 _int8_kernel (:45)          dense          -> dga_int8_gemm
+//   K9 _int8_grouped_kernel (:217) contiguous MoE -> dga_int8_grouped_contiguous
+//   K6 _int8_masked_kernel (:371)  masked MoE     -> dga_int8_grouped_masked
+// All three compute
+//     out[i, j] = (sum_k a_q[i, k] * b_q[k, j]) * a_s[i] * b_s[j]
+// with one exact int32 K-sum and one f32 epilogue. They differ only in how
+// rows map to experts, so one tile routine (int8_tile) serves all three:
+//   K7: a plain 2-D grid of 64 x 64 output tiles;
+//   K9: grid y walks the layout's m-tiles (block_m rows, one expert each) and
+//       the 64-row kernel tiles inside each, so a kernel tile never spans two
+//       experts whatever block_m is; an expert id of -1 stores zeros and
+//       loads nothing;
+//   K6: grid z walks the experts; a tile whose first row is at or past
+//       masked_m[e] stores zeros and returns before any load, as K3 does.
+//
+// Numerics. mma.sync m16n8k32 s8 x s8 -> s32 sums exactly, in any order, so
+// the int32 accumulators are held across the whole K loop and a permutation
+// of k inside a step (applied to A and B alike) changes nothing. The
+// epilogue converts with cvt.rn.f32.s32 (__int2float_rn) and multiplies
+// (acc * a_s) * b_s with __fmul_rn, never folding a_s * b_s and never
+// contracted, then rounds to bf16 (RN) or stores f32: the order of the JAX
+// kernels (int8_gemm.py:71-72, :246, :402). The result therefore equals the
+// plain PyTorch version bit for bit.
+//
+// Any M, N and K: the K tail and the M and N edges are zero-filled in shared
+// memory (int8 garbage would corrupt the exact sum) and masked on store.
+// Rows and B are read with 16-byte loads where K (and, for B stored (k, n),
+// N) is a multiple of 16 and the pointers are aligned, else byte by byte.
+// B stored (k, n) is transposed through shared memory: ldmatrix .trans
+// works on 16-bit elements only.
+//
+// Bound on the card: the weight bytes at decode (m = 16, or a few rows per
+// expert), int8 tensor-core work at prefill. This is the simple design:
+// 64 x 64 tiles, 4 warps of 32 x 32, 128-deep K steps staged in shared
+// memory through registers (the next step's global loads are in flight
+// during this step's math; no cp.async/TMA ring), no split-K for the
+// few-block decode shapes, mma.sync at a fraction of the wgmma s8 rate.
+// Idle masked tiles still cost a block and a zero store each.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBM = 64;
+constexpr int kBN = 64;
+constexpr int kBK = 128;
+constexpr int kThreads = 128;            // 4 warps in a 2 x 2 layout
+constexpr int kPitch = kBK + 16;         // smem row pitch in bytes: conflict-free fragment reads
+constexpr int kMaxGridY = 65535;
+
+struct Args {
+  const int8_t* a;     // (rows, k) row-major, k contiguous
+  const float* a_s;    // one scale per row
+  const int8_t* b;     // B_KMAJOR: (n, k) with row stride ldb; else (k, n) with row stride ldb
+  const float* b_s;    // one scale per output column
+  int n, k;
+  long long ldb;
+  bool vec_a, vec_b;   // 16-byte loads are legal
+};
+
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ float epilogue(int acc, float a_s, float b_s) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), a_s), b_s);
+}
+
+__device__ __forceinline__ void store1(float* c, float x) { *c = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* c, float x) { *c = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store2(float* c, float x, float y) {
+  *reinterpret_cast<float2*>(c) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* c, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(x, y);
+}
+
+// Stores x, y at columns col, col + 1 (col even) of a row of n columns,
+// dropping what lies past n; a pair store needs an even n to be aligned.
+template <typename OutT>
+__device__ __forceinline__ void store_cols(OutT* row, int col, int n, float x, float y) {
+  if (col + 1 < n && (n & 1) == 0) {
+    store2(row + col, x, y);
+  } else {
+    if (col < n) store1(row + col, x);
+    if (col + 1 < n) store1(row + col + 1, y);
+  }
+}
+
+// Zeros over rows [m0, m_end) and columns [n0, n0 + kBN) of c (n columns).
+template <typename OutT>
+__device__ void zero_tile(OutT* c, int n, int m0, int m_end, int n0) {
+  for (int idx = threadIdx.x; idx < kBM * kBN / 2; idx += kThreads) {
+    const int r = m0 + idx / (kBN / 2);
+    const int col = n0 + (idx % (kBN / 2)) * 2;
+    if (r < m_end) store_cols(c + (size_t)r * n, col, n, 0.f, 0.f);
+  }
+}
+
+constexpr int kChunks = kBM * kBK / 16 / kThreads;   // 16-byte chunks per thread per tile
+
+__device__ __forceinline__ uint4 ldg16(const int8_t* ptr) {
+  return __ldg(reinterpret_cast<const uint4*>(ptr));
+}
+
+// One K step of the operands that take 16-byte loads, held in registers
+// between the global load and the shared-memory store.
+struct Staged {
+  uint4 a[kChunks];
+  uint4 b[kChunks];
+};
+
+template <bool B_KMAJOR>
+__device__ __forceinline__ void load_vec(const Args& p, Staged& s, int m0, int m_end, int n0,
+                                         int k0) {
+  const int kr = min(kBK, p.k - k0);   // valid depth of the step; the rest is zero
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int it = 0; it < kChunks; ++it) {
+    const int idx = threadIdx.x + it * kThreads;
+    const int r = idx >> 3, ch = (idx & 7) * 16;     // row, byte offset in a 128-byte row
+    if (p.vec_a)
+      s.a[it] = (m0 + r < m_end && ch < kr) ? ldg16(p.a + (size_t)(m0 + r) * p.k + k0 + ch)
+                                            : zero;
+    if (p.vec_b) {
+      if (B_KMAJOR) {
+        s.b[it] = (n0 + r < p.n && ch < kr) ? ldg16(p.b + (size_t)(n0 + r) * p.ldb + k0 + ch)
+                                            : zero;
+      } else {
+        // 16 neighbouring columns of one k row (kBN / 16 chunks per row).
+        const int kk = idx >> 2, cc = (idx & 3) * 16;
+        s.b[it] = (kk < kr && n0 + cc < p.n) ? ldg16(p.b + (size_t)(k0 + kk) * p.ldb + n0 + cc)
+                                             : zero;
+      }
+    }
+  }
+}
+
+template <bool B_KMAJOR>
+__device__ __forceinline__ void store_vec(const Args& p, const Staged& s, int8_t* As,
+                                          int8_t* Bs) {
+#pragma unroll
+  for (int it = 0; it < kChunks; ++it) {
+    const int idx = threadIdx.x + it * kThreads;
+    const int r = idx >> 3, ch = (idx & 7) * 16;
+    if (p.vec_a) *reinterpret_cast<uint4*>(As + r * kPitch + ch) = s.a[it];
+    if (p.vec_b) {
+      if (B_KMAJOR) {
+        *reinterpret_cast<uint4*>(Bs + r * kPitch + ch) = s.b[it];
+      } else {
+        // Transposed through shared memory: one byte to each of 16 columns.
+        const int kk = idx >> 2, cc = (idx & 3) * 16;
+        const int8_t* bytes = reinterpret_cast<const int8_t*>(&s.b[it]);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) Bs[(cc + j) * kPitch + kk] = bytes[j];
+      }
+    }
+  }
+}
+
+// The operands that 16-byte loads cannot serve (ragged K or N, unaligned
+// pointers), byte by byte straight into shared memory.
+template <bool B_KMAJOR>
+__device__ void load_bytes(const Args& p, int8_t* As, int8_t* Bs, int m0, int m_end, int n0,
+                           int k0) {
+  const int kr = min(kBK, p.k - k0);
+  if (!p.vec_a) {
+    for (int idx = threadIdx.x; idx < kBM * kBK; idx += kThreads) {
+      const int r = idx / kBK, kk = idx % kBK;
+      As[r * kPitch + kk] =
+          (m0 + r < m_end && kk < kr) ? __ldg(p.a + (size_t)(m0 + r) * p.k + k0 + kk) : int8_t(0);
+    }
+  }
+  if (!p.vec_b) {
+    for (int idx = threadIdx.x; idx < kBN * kBK; idx += kThreads) {
+      if (B_KMAJOR) {
+        const int r = idx / kBK, kk = idx % kBK;
+        Bs[r * kPitch + kk] =
+            (n0 + r < p.n && kk < kr) ? __ldg(p.b + (size_t)(n0 + r) * p.ldb + k0 + kk) : int8_t(0);
+      } else {
+        const int kk = idx / kBN, col = idx % kBN;
+        Bs[col * kPitch + kk] =
+            (kk < kr && n0 + col < p.n) ? __ldg(p.b + (size_t)(k0 + kk) * p.ldb + n0 + col)
+                                        : int8_t(0);
+      }
+    }
+  }
+}
+
+// Rows [m0, m_end) (m_end - m0 <= kBM) and columns [n0, n0 + kBN) of
+// C = A . B, C row-major with p.n columns. Rows from m_end and columns from
+// p.n on are neither loaded nor stored. The 16-byte loads of step k + 1 are
+// issued before the math of step k, so their latency hides behind it.
+template <bool B_KMAJOR, typename OutT>
+__device__ void int8_tile(const Args& p, OutT* c, int m0, int m_end, int n0) {
+  __shared__ __align__(16) int8_t As[kBM * kPitch];
+  __shared__ __align__(16) int8_t Bs[kBN * kPitch];   // column-major: k contiguous per column
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
+
+  Staged staged;
+  load_vec<B_KMAJOR>(p, staged, m0, m_end, n0, 0);
+  for (int k0 = 0; k0 < p.k; k0 += kBK) {
+    store_vec<B_KMAJOR>(p, staged, As, Bs);
+    load_bytes<B_KMAJOR>(p, As, Bs, m0, m_end, n0, k0);
+    __syncthreads();
+    if (k0 + kBK < p.k) load_vec<B_KMAJOR>(p, staged, m0, m_end, n0, k0 + kBK);
+
+    // Thread (g, t) holds k = 4t..4t+3 and 16+4t..16+4t+3 of each 32-deep
+    // step, for A rows g and g + 8 and for B column g (PTX m16n8k32 .s8).
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      const int ko = ks * 32 + t * 4;
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int8_t* r0 = As + (wm * 32 + i * 16 + g) * kPitch + ko;
+        const int8_t* r8 = r0 + 8 * kPitch;
+        af[i][0] = ld32(r0);
+        af[i][1] = ld32(r8);
+        af[i][2] = ld32(r0 + 16);
+        af[i][3] = ld32(r8 + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t* col = Bs + (wn * 32 + j * 8 + g) * kPitch + ko;
+        bf[j][0] = ld32(col);
+        bf[j][1] = ld32(col + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: (acc * a_s) * b_s, rounded as written.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + wm * 32 + i * 16 + g;
+    const float s_lo = r < m_end ? p.a_s[r] : 0.f;
+    const float s_hi = r + 8 < m_end ? p.a_s[r + 8] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + wn * 32 + j * 8 + t * 2;
+      const float b0 = col < p.n ? p.b_s[col] : 0.f;
+      const float b1 = col + 1 < p.n ? p.b_s[col + 1] : 0.f;
+      if (r < m_end)
+        store_cols(c + (size_t)r * p.n, col, p.n, epilogue(acc[i][j][0], s_lo, b0),
+                   epilogue(acc[i][j][1], s_lo, b1));
+      if (r + 8 < m_end)
+        store_cols(c + (size_t)(r + 8) * p.n, col, p.n, epilogue(acc[i][j][2], s_hi, b0),
+                   epilogue(acc[i][j][3], s_hi, b1));
+    }
+  }
+}
+
+// K7: dense.
+template <bool B_KMAJOR, typename OutT>
+__global__ void __launch_bounds__(kThreads) int8_gemm_kernel(Args p, int m, OutT* c) {
+  const int m0 = blockIdx.y * kBM;
+  int8_tile<B_KMAJOR, OutT>(p, c, m0, min(m0 + kBM, m), blockIdx.x * kBN);
+}
+
+// K9: contiguous grouped; tile_gids[t] is the expert of rows
+// [t * block_m, (t + 1) * block_m), -1 for a padding tile.
+template <bool B_KMAJOR, typename OutT>
+__global__ void __launch_bounds__(kThreads)
+int8_contiguous_kernel(Args p, const int* tile_gids, int block_m, long long b_e, OutT* c) {
+  const int sub = (block_m + kBM - 1) / kBM;    // kernel tiles per layout tile
+  const int tile = blockIdx.y / sub;
+  const int m0 = tile * block_m + (blockIdx.y % sub) * kBM;
+  const int m_end = min(m0 + kBM, (tile + 1) * block_m);
+  const int n0 = blockIdx.x * kBN;
+  const int e = tile_gids[tile];
+  if (e < 0) {
+    zero_tile(c, p.n, m0, m_end, n0);
+    return;
+  }
+  Args q = p;
+  q.b += (size_t)e * b_e;
+  q.b_s += (size_t)e * p.n;
+  int8_tile<B_KMAJOR, OutT>(q, c, m0, m_end, n0);
+}
+
+// K6: masked grouped over (E, m_max, ·) buffers.
+template <bool B_KMAJOR, typename OutT>
+__global__ void __launch_bounds__(kThreads)
+int8_masked_kernel(Args p, const int* masked_m, int m_max, long long b_e, OutT* c) {
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m_end = min(m0 + kBM, m_max);
+  OutT* ce = c + (size_t)e * m_max * p.n;
+  if (m0 >= masked_m[e]) {
+    zero_tile(ce, p.n, m0, m_end, n0);
+    return;
+  }
+  Args q = p;
+  q.a += (size_t)e * m_max * p.k;
+  q.a_s += (size_t)e * m_max;
+  q.b += (size_t)e * b_e;
+  q.b_s += (size_t)e * p.n;
+  int8_tile<B_KMAJOR, OutT>(q, ce, m0, m_end, n0);
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+
+// B is K-major ((n, k): b_layout 't') when its k stride is 1.
+Args make_args(const void* a, const void* a_s, const void* b, const void* b_s, int n, int k,
+               long long sbk, long long sbn, long long b_e) {
+  const bool kmajor = sbk == 1;
+  Args p;
+  p.a = static_cast<const int8_t*>(a);
+  p.a_s = static_cast<const float*>(a_s);
+  p.b = static_cast<const int8_t*>(b);
+  p.b_s = static_cast<const float*>(b_s);
+  p.n = n;
+  p.k = k;
+  p.ldb = kmajor ? sbn : sbk;
+  p.vec_a = k % 16 == 0 && aligned16(a);
+  p.vec_b = (kmajor ? k % 16 == 0 : n % 16 == 0) && p.ldb % 16 == 0 && b_e % 16 == 0 &&
+            aligned16(b);
+  return p;
+}
+
+int n_blocks(int n) { return (n + kBN - 1) / kBN; }
+
+// Instantiates launch<B_KMAJOR, OutT> for the four (layout, output) pairs.
+template <template <bool, typename> class L, typename... T>
+void dispatch(bool kmajor, int out_f32, T... args) {
+  if (kmajor && out_f32) L<true, float>::run(args...);
+  else if (kmajor) L<true, __nv_bfloat16>::run(args...);
+  else if (out_f32) L<false, float>::run(args...);
+  else L<false, __nv_bfloat16>::run(args...);
+}
+
+template <bool KM, typename OutT>
+struct DenseLaunch {
+  static void run(Args p, int m, void* c, cudaStream_t s) {
+    dim3 grid(n_blocks(p.n), (m + kBM - 1) / kBM);
+    int8_gemm_kernel<KM, OutT><<<grid, kThreads, 0, s>>>(p, m, static_cast<OutT*>(c));
+  }
+};
+
+template <bool KM, typename OutT>
+struct ContiguousLaunch {
+  static void run(Args p, const int* gids, int n_tiles, int block_m, long long b_e, void* c,
+                  cudaStream_t s) {
+    dim3 grid(n_blocks(p.n), n_tiles * ((block_m + kBM - 1) / kBM));
+    int8_contiguous_kernel<KM, OutT><<<grid, kThreads, 0, s>>>(p, gids, block_m, b_e,
+                                                                static_cast<OutT*>(c));
+  }
+};
+
+template <bool KM, typename OutT>
+struct MaskedLaunch {
+  static void run(Args p, const int* masked_m, int e, int m_max, long long b_e, void* c,
+                  cudaStream_t s) {
+    dim3 grid(n_blocks(p.n), (m_max + kBM - 1) / kBM, e);
+    int8_masked_kernel<KM, OutT><<<grid, kThreads, 0, s>>>(p, masked_m, m_max, b_e,
+                                                            static_cast<OutT*>(c));
+  }
+};
+
+}  // namespace
+
+extern "C" int dga_int8_gemm(const void* a, const void* a_s, const void* b, const void* b_s,
+                             void* c, int m, int n, int k, long long sbk, long long sbn,
+                             int out_f32, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || (m + kBM - 1) / kBM > kMaxGridY)
+    return (int)cudaErrorInvalidValue;
+  const Args p = make_args(a, a_s, b, b_s, n, k, sbk, sbn, 0);
+  dispatch<DenseLaunch>(sbk == 1, out_f32, p, m, c, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dga_int8_grouped_contiguous(const void* a, const void* a_s, const void* b,
+                                           const void* b_s, const void* tile_gids, void* c,
+                                           int m, int n, int k, int block_m, long long b_e,
+                                           long long sbk, long long sbn, int out_f32,
+                                           void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || block_m <= 0 || m % block_m)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = m / block_m;
+  if ((long long)n_tiles * ((block_m + kBM - 1) / kBM) > kMaxGridY)
+    return (int)cudaErrorInvalidValue;
+  const Args p = make_args(a, a_s, b, b_s, n, k, sbk, sbn, b_e);
+  dispatch<ContiguousLaunch>(sbk == 1, out_f32, p, static_cast<const int*>(tile_gids),
+                             n_tiles, block_m, b_e, c, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dga_int8_grouped_masked(const void* a, const void* a_s, const void* b,
+                                       const void* b_s, const void* masked_m, void* c, int e,
+                                       int m_max, int n, int k, long long b_e, long long sbk,
+                                       long long sbn, int out_f32, void* stream) {
+  if (e <= 0 || e > kMaxGridY || m_max <= 0 || n <= 0 || k <= 0 ||
+      (m_max + kBM - 1) / kBM > kMaxGridY)
+    return (int)cudaErrorInvalidValue;
+  const Args p = make_args(a, a_s, b, b_s, n, k, sbk, sbn, b_e);
+  dispatch<MaskedLaunch>(sbk == 1, out_f32, p, static_cast<const int*>(masked_m), e, m_max,
+                         b_e, c, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}

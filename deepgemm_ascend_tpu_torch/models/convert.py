@@ -16,6 +16,9 @@ The layouts differ, and are mapped here:
   is not so);
 * ``ExpertWeights``: (E, in, out) + (E, in/128, out) → (E, out, in) +
   (E, out/128, in/128), the same way per expert;
+* ``Int8ExpertWeights`` (told apart by their int8 weights, which travel as
+  they are): (E, in, out) → (E, out, in); the per-channel (E, 1, out)
+  scales keep their layout;
 * embeddings, norms, router and lm_head keep their layout.
 """
 
@@ -32,7 +35,7 @@ from .attention import AttentionParams
 from .config import ModelConfig
 from .layers import BF16Linear, Fp8Linear
 from .model import DenseFFN, LayerParams, ModelParams
-from .moe import ExpertWeights, MoEParams
+from .moe import ExpertWeights, Int8ExpertWeights, MoEParams
 
 
 def _bf16(a: np.ndarray, dev) -> torch.Tensor:
@@ -65,7 +68,17 @@ def _fp8_linear(d: Dict[str, Any], dev) -> Fp8Linear:
                          _compact_panel(d["scales_exp"])).to(dev))
 
 
-def _experts(d: Dict[str, Any], dev) -> ExpertWeights:
+def _experts(d: Dict[str, Any], dev):
+    if d["w1_q"].dtype == np.int8:
+        def kmajor(w):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.swapaxes(w, -1, -2))).to(dev)
+
+        def f32(s):
+            return torch.from_numpy(np.array(s, np.float32)).to(dev)
+        return Int8ExpertWeights(w1_q=kmajor(d["w1_q"]), w1_s=f32(d["w1_s"]),
+                                 w2_q=kmajor(d["w2_q"]), w2_s=f32(d["w2_s"]))
+
     def scales(panel):
         return torch.from_numpy(_compact_panel(panel)).to(dev)
     return ExpertWeights(

@@ -1,8 +1,9 @@
-"""Model building blocks: RMSNorm, RoPE, FP8 and bf16 linear layers.
+"""Model building blocks: RMSNorm, RoPE, FP8, W8A8 int8 and bf16 linear
+layers.
 
-Port of ``deepgemm_ascend_tpu/models/layers.py`` (the int8 ``Int8Linear``
-waits for a later slice). The heavy matmuls go through the FP8 GEMM kernel
-(ops/fp8_gemm.py); the small elementwise math is plain PyTorch, with the
+Port of ``deepgemm_ascend_tpu/models/layers.py``. The heavy matmuls go
+through the FP8 GEMM kernel (ops/fp8_gemm.py) or the int8 one
+(ops/int8_gemm.py); the small elementwise math is plain PyTorch, with the
 JAX package's rounding points:
 
 * ``rms_norm`` computes in f32, casts back to the input type, and only then
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from ..ops import fp8_gemm as fp8mod
+from ..ops import int8_gemm as i8mod
 from ..ops import quant
 
 
@@ -82,6 +84,45 @@ class Fp8Linear:
         x2 = x.reshape(-1, x.shape[-1])
         x_q, x_s = quant.quantize_fp8_act(x2)
         y = fp8mod.fp8_gemm(x_q, x_s, self.w_q, self.scales,
+                            out_dtype=out_dtype, b_layout="t")
+        return y.reshape(*lead, y.shape[-1])
+
+
+@dataclasses.dataclass
+class Int8Linear:
+    """W8A8 linear: y = x @ Wᵀ with W (out, in) int8 and per-output-channel
+    scales (1, out), activations quantized per token on the fly.
+
+    Stored K-major, as :class:`Fp8Linear` is (the JAX package stores (in,
+    out)); the scales are per channel, so the layout leaves them as they
+    are. No model of either package uses it yet: it is the op's layer."""
+
+    w_q: torch.Tensor       # (out, in) int8
+    scales: torch.Tensor    # (1, out) f32
+
+    @classmethod
+    def create(cls, generator: torch.Generator, in_dim: int, out_dim: int,
+               init_scale: Optional[float] = None, *,
+               device) -> "Int8Linear":
+        init_scale = init_scale or (1.0 / (in_dim ** 0.5))
+        w = _normal(generator, (out_dim, in_dim), init_scale, device)
+        w_q, w_s = quant.quantize_int8(w, axis=-1)
+        return cls(w_q=w_q, scales=w_s.t().contiguous())
+
+    @classmethod
+    def from_weights(cls, w: torch.Tensor) -> "Int8Linear":
+        """Quantize a dense (in, out) weight matrix (the JAX package's
+        layout) per output channel."""
+        w_q, w_s = quant.quantize_int8(w.to(torch.float32), axis=0)
+        return cls(w_q=w_q.t().contiguous(), scales=w_s)
+
+    def __call__(self, x: torch.Tensor, *,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+        """x: (..., in) bf16/f32 — activation-quantized per token."""
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        x_q, x_s = quant.quantize_int8(x2, axis=-1)
+        y = i8mod.int8_gemm(x_q, x_s, self.w_q, self.scales,
                             out_dtype=out_dtype, b_layout="t")
         return y.reshape(*lead, y.shape[-1])
 

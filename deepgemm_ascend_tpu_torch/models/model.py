@@ -1,10 +1,11 @@
 """DeepSeek-V2-Lite-style MoE decoder model (the flagship serving model).
 
-Port of ``deepgemm_ascend_tpu/models/model.py`` (the int8-expert conversion
-waits for a later slice). ``init_params`` builds the quantized parameters
-on the device from a ``torch.Generator``; ``forward`` runs prefill or decode
-over an int8 KV cache, updating it in place. The first
-``first_dense_layers`` layers use a dense SwiGLU FFN, the rest MoE.
+Port of ``deepgemm_ascend_tpu/models/model.py``. ``init_params`` builds the
+quantized parameters on the device from a ``torch.Generator``;
+``params_with_int8_experts`` re-quantizes the MoE experts to W8A8 int8;
+``forward`` runs prefill or decode over an int8 KV cache, updating it in
+place. The first ``first_dense_layers`` layers use a dense SwiGLU FFN, the
+rest MoE.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from ..utils.common import resolve_device
 from .attention import AttentionParams, KVCache, attention
 from .config import ModelConfig
 from .layers import Fp8Linear, rms_norm
-from .moe import MoEParams, _swiglu, moe_block
+from .moe import (ExpertWeights, MoEParams, _swiglu,
+                  int8_experts_from_fp8, moe_block)
 
 
 @dataclasses.dataclass
@@ -84,6 +86,24 @@ def init_params(seed: Union[int, torch.Generator], cfg: ModelConfig, *,
     return ModelParams(embed=table((cfg.vocab_size, cfg.hidden_size)),
                        layers=layers, final_norm=ones(),
                        lm_head=table((cfg.hidden_size, cfg.vocab_size)))
+
+
+def params_with_int8_experts(params: ModelParams) -> ModelParams:
+    """Re-quantize every MoE layer's fp8 experts to W8A8 int8
+    (:func:`moe.int8_experts_from_fp8`), layer by layer on the parameters'
+    device. Dense-FFN layers, the shared experts and experts that are
+    already int8 pass through unchanged (the same tensors)."""
+
+    def conv(layer: LayerParams) -> LayerParams:
+        ffn = layer.ffn
+        if isinstance(ffn, MoEParams) and isinstance(ffn.experts,
+                                                     ExpertWeights):
+            ffn = dataclasses.replace(
+                ffn, experts=int8_experts_from_fp8(ffn.experts))
+        return dataclasses.replace(layer, ffn=ffn)
+
+    return dataclasses.replace(params,
+                               layers=[conv(l) for l in params.layers])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int] = None,

@@ -1,11 +1,15 @@
-"""MoE block: top-k routing + masked grouped FP8 GEMM experts.
+"""MoE block: top-k routing + masked grouped GEMM experts, FP8 or W8A8 int8.
 
-Port of ``deepgemm_ascend_tpu/models/moe.py`` for one device with fp8
-experts (the int8 experts and expert parallelism wait for later slices).
-DeepSeek-style: routed experts plus always-on shared expert(s), SwiGLU in
-each expert, FP8 blockwise weights. Dispatch uses the fixed-shape masked
-grouped kernel (K3) for prefill and decode alike: capacity per expert =
-T·top_k, and ``masked_m`` says how many rows are real.
+Port of ``deepgemm_ascend_tpu/models/moe.py`` for one device (expert
+parallelism waits for a later slice). DeepSeek-style: routed experts plus
+always-on shared expert(s), SwiGLU in each expert. The routed experts hold
+FP8 blockwise weights (:class:`ExpertWeights`, kernel K3) or W8A8 int8
+per-channel weights (:class:`Int8ExpertWeights`, kernel K6;
+:func:`int8_experts_from_fp8` converts the former); ``_moe_routed``
+dispatches on the type, and the shared experts stay FP8 (K1) either way.
+Dispatch uses the fixed-shape masked grouped kernel for prefill and decode
+alike: capacity per expert = T·top_k, and ``masked_m`` says how many rows
+are real.
 
 Numerics kept from the JAX package: the router gives bf16 logits from an
 f32 accumulation; ``route_topk`` keeps the lower expert index on tied
@@ -17,12 +21,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ..ops import grouped_gemm as gg
+from ..ops import int8_gemm as i8
 from ..ops import quant
+from ..utils.common import resolve_device
 from .config import ModelConfig
 from .layers import BF16Linear, Fp8Linear
 
@@ -57,10 +63,68 @@ class ExpertWeights:
         return cls(w1_q=w1_q, w1_s=w1_s, w2_q=w2_q, w2_s=w2_s)
 
 
+def _int8_per_channel(w_nk: torch.Tensor):
+    """(E, N, K) float → K-major int8 (E, N, K) and scales (E, 1, N): one
+    symmetric scale per output channel, over K."""
+    w_q, w_s = quant.quantize_int8(w_nk, axis=-1)
+    return w_q.contiguous(), w_s.transpose(1, 2).contiguous()
+
+
+@dataclasses.dataclass
+class Int8ExpertWeights:
+    """Per-expert SwiGLU weights, W8A8 int8 per output channel, K-major:
+
+    w1_q (E, 2·inter, hidden) int8 with w1_s (E, 1, 2·inter) f32;
+    w2_q (E, hidden, inter) int8 with w2_s (E, 1, hidden) f32.
+    The JAX package stores the weights (E, in, out) with the same scales.
+    Per-token activation × per-channel weight scales factor out of the K
+    sum (ops/int8_gemm.py). Drop-in for :class:`ExpertWeights` in
+    ``MoEParams.experts``.
+    """
+
+    w1_q: torch.Tensor
+    w1_s: torch.Tensor
+    w2_q: torch.Tensor
+    w2_s: torch.Tensor
+
+    @classmethod
+    def create(cls, generator: torch.Generator, e: int, hidden: int,
+               inter: int, *, device="cuda") -> "Int8ExpertWeights":
+        dev = resolve_device(device)
+        w1 = torch.randn((e, hidden, 2 * inter), generator=generator,
+                         device=dev) / (hidden ** 0.5)
+        w2 = torch.randn((e, inter, hidden), generator=generator,
+                         device=dev) / (inter ** 0.5)
+        return cls.from_weights(w1, w2)
+
+    @classmethod
+    def from_weights(cls, w1: torch.Tensor,
+                     w2: torch.Tensor) -> "Int8ExpertWeights":
+        """Quantize float expert weights given in the JAX package's layout,
+        w1 (E, hidden, 2·inter) and w2 (E, inter, hidden), per output
+        channel."""
+        w1_q, w1_s = _int8_per_channel(w1.transpose(1, 2))
+        w2_q, w2_s = _int8_per_channel(w2.transpose(1, 2))
+        return cls(w1_q=w1_q, w1_s=w1_s, w2_q=w2_q, w2_s=w2_s)
+
+
+def int8_experts_from_fp8(exp: ExpertWeights) -> Int8ExpertWeights:
+    """Re-quantize fp8 expert weights to W8A8 int8, the fp8-checkpoint →
+    int8 conversion: dequantize the blockwise fp8 weights to f32 (exact:
+    one rounding of value × scale, as in the JAX package), then quantize
+    per output channel. One matrix at a time, so the f32 copy of w1 is
+    freed before w2's is made."""
+    w1_q, w1_s = _int8_per_channel(
+        quant.dequantize_fp8_weight(exp.w1_q, exp.w1_s))
+    w2_q, w2_s = _int8_per_channel(
+        quant.dequantize_fp8_weight(exp.w2_q, exp.w2_s))
+    return Int8ExpertWeights(w1_q=w1_q, w1_s=w1_s, w2_q=w2_q, w2_s=w2_s)
+
+
 @dataclasses.dataclass
 class MoEParams:
     router: BF16Linear                 # (hidden, E)
-    experts: ExpertWeights
+    experts: Union[ExpertWeights, Int8ExpertWeights]
     shared_w1: Optional[Fp8Linear]     # hidden → 2·shared_inter
     shared_w2: Optional[Fp8Linear]
     # Token chunk of moe_block, read from DGA_MOE_TOKEN_CHUNK once, when the
@@ -173,17 +237,23 @@ def _moe_routed(params: MoEParams, x: torch.Tensor,
     buf[e_flat, s_flat] = torch.repeat_interleave(x.to(torch.bfloat16),
                                                   cfg.top_k, dim=0)
 
+    # Expert SwiGLU through the masked grouped GEMM of the experts' type:
+    # fp8 blockwise (K3) or W8A8 int8 with per-token scales (K6).
     exp = params.experts
-    a_q, a_s = quant.quantize_fp8_act(buf)
+    if isinstance(exp, Int8ExpertWeights):
+        quantize = lambda t: quant.quantize_int8(t, axis=-1)  # (E, cap, 1)
+        gemm = i8.m_grouped_int8_gemm_masked
+    else:
+        quantize, gemm = quant.quantize_fp8_act, gg.m_grouped_gemm_masked
+    a_q, a_s = quantize(buf)
     del buf
-    h = gg.m_grouped_gemm_masked(a_q, a_s, exp.w1_q, exp.w1_s, masked_m,
-                                 b_layout="t")
+    h = gemm(a_q, a_s, exp.w1_q, exp.w1_s, masked_m, b_layout="t")
     del a_q, a_s
     h = _swiglu(h)
-    h_q, h_s = quant.quantize_fp8_act(h)
+    h_q, h_s = quantize(h)
     del h
-    y = gg.m_grouped_gemm_masked(h_q, h_s, exp.w2_q, exp.w2_s, masked_m,
-                                 b_layout="t")             # (E, cap, hidden)
+    y = gemm(h_q, h_s, exp.w2_q, exp.w2_s, masked_m,
+             b_layout="t")                                 # (E, cap, hidden)
 
     # Gather back + weighted combine.
     gathered = y[e_flat, s_flat].reshape(t, cfg.top_k, hidden)

@@ -13,10 +13,12 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 stream, never synchronise and allocate nothing: the Python wrappers own
 every buffer.
 
-Each kernel has a :class:`Counter`: ``launches`` is bumped by its wrapper
-right where the kernel is launched, ``plain_calls`` by its plain PyTorch
-version. ``chip_smoke.py`` zeroes them around the main path to show which
-kernels the path really ran.
+A source may export several kernels, each a C entry point with its own
+signature (``csrc/int8_gemm.cu`` holds three). Each kernel has a
+:class:`Counter`, keyed by the kernel's name: ``launches`` is bumped by its
+wrapper right where the kernel is launched, ``plain_calls`` by its plain
+PyTorch version. ``chip_smoke.py`` zeroes them around each serving run to
+show which kernels the run really went through.
 """
 
 from __future__ import annotations
@@ -41,22 +43,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# The one C entry point of each source and its signature (all return an
-# int: the cudaError_t of the launch).
-ENTRIES = {
-    "fp8_gemm": ("dga_fp8_gemm",
+# The two grouped int8 entries take the same arguments (the int8 epilogue
+# needs no scale strides): a, a_s, b, b_s, the expert map, c, four sizes,
+# three B strides, out_f32 and the stream.
+_INT8_GROUPED = [_P] * 6 + [_I] * 4 + [_L] * 3 + [_I, _P]
+# Every kernel: its name (the key of its counter), the source that holds it
+# (csrc/<source>.cu), its C entry point and that entry's signature. Every
+# entry returns an int: the cudaError_t of the launch.
+KERNELS = {
+    "fp8_gemm": ("fp8_gemm", "dga_fp8_gemm",
                  [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P]),
-    "grouped_gemm": ("dga_grouped_gemm_masked",
+    "grouped_gemm": ("grouped_gemm", "dga_grouped_gemm_masked",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                       _L, _L, _I, _I, _P]),
-    "flash_decode": ("dga_flash_decode_inplace",
+    "flash_decode": ("flash_decode", "dga_flash_decode_inplace",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _I, _I, _F, _P]),
-    "flash_prefill": ("dga_flash_prefill",
+    "flash_prefill": ("flash_prefill", "dga_flash_prefill",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _F, _P]),
+    "int8_gemm": ("int8_gemm", "dga_int8_gemm",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]),
+    "int8_grouped_contiguous": ("int8_gemm", "dga_int8_grouped_contiguous",
+                                _INT8_GROUPED),
+    "int8_grouped_masked": ("int8_gemm", "dga_int8_grouped_masked",
+                            _INT8_GROUPED),
 }
-SOURCES = tuple(ENTRIES)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))
 
 
 @dataclasses.dataclass
@@ -72,7 +85,7 @@ class Counter:
         self.plain_calls = 0
 
 
-COUNTERS: Dict[str, Counter] = {n: Counter(n) for n in SOURCES}
+COUNTERS: Dict[str, Counter] = {n: Counter(n) for n in KERNELS}
 
 
 def reset_counters() -> None:
@@ -136,8 +149,8 @@ class _Libraries:
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         fns = {}
-        for name, (symbol, argtypes) in ENTRIES.items():
-            fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
+        for name, (source, symbol, argtypes) in KERNELS.items():
+            fn = getattr(ctypes.CDLL(str(out / f"lib{source}.so")), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[name] = fn
@@ -159,14 +172,15 @@ def build_log() -> Dict[str, str]:
     return dict(_LIBS.build_log)
 
 
-def entry(source: str):
-    """The C entry point of ``csrc/<source>.cu`` (built at first use)."""
-    return _LIBS.get()[source]
+def entry(kernel: str):
+    """The C entry point of the kernel named ``kernel`` (built at first
+    use)."""
+    return _LIBS.get()[kernel]
 
 
-def check(rc: int, source: str) -> None:
+def check(rc: int, kernel: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{ENTRIES[source][0]}: CUDA error {rc} at launch")
+        raise RuntimeError(f"{KERNELS[kernel][1]}: CUDA error {rc} at launch")
 
 
 def stream_ptr(device) -> int:

@@ -1,7 +1,10 @@
-"""Masked grouped FP8 GEMM for MoE (kernel K3).
+"""Masked grouped FP8 GEMM for MoE (kernel K3) and the contiguous layout
+planner.
 
 Port of the masked path of ``deepgemm_ascend_tpu/ops/grouped_gemm.py``
-(``m_grouped_gemm_masked``; the contiguous path waits for a later slice).
+(``m_grouped_gemm_masked``) and of ``make_contiguous_layout``, which plans
+the row layout of the contiguous grouped GEMMs (the int8 one, K9, is
+ported; the fp8 one waits for a later slice).
 Per expert e, the first ``masked_m[e]`` rows of a fixed-shape (E, M_max, K)
 activation buffer are multiplied by that expert's weight with K1's
 blockwise scale math. On a CUDA tensor the wrapper launches
@@ -12,20 +15,45 @@ blockwise scale math. On a CUDA tensor the wrapper launches
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..config import GemmConfig
+from ..utils.common import round_up
 from . import _kernels
 from .fp8_gemm import (_SHIFT, _check_cuda_operands, _exact_gemm,
                        _plain_gemm, _scale_panel, check_config,
                        exact_enabled)
 from .quant import BLOCK, FP8
 
-__all__ = ["m_grouped_gemm_masked", "grouped_gemm_masked_plain"]
+__all__ = ["m_grouped_gemm_masked", "grouped_gemm_masked_plain",
+           "make_contiguous_layout"]
 
 COUNTER = _kernels.COUNTERS["grouped_gemm"]
+
+
+def make_contiguous_layout(
+    tokens_per_expert: Sequence[int], block_m: int,
+) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Plan the contiguous layout: (m_total_padded, tile_group_ids, row_map).
+
+    ``row_map[i]`` = source row feeding padded row i (or -1 for padding);
+    ``tile_group_ids[t]`` = expert of m-tile t (or -1 for padding tiles).
+    Each expert's span is padded to a multiple of ``block_m``.
+    """
+    tile_ids, row_map = [], []
+    src = 0
+    for e, cnt in enumerate(tokens_per_expert):
+        padded = round_up(int(cnt), block_m) if cnt else 0
+        for r in range(padded):
+            row_map.append(src + r if r < cnt else -1)
+        src += int(cnt)
+        tile_ids.extend([e] * (padded // block_m))
+    m_total = len(row_map)
+    return m_total, np.asarray(tile_ids, np.int32), np.asarray(row_map,
+                                                               np.int32)
 
 
 def grouped_gemm_masked_plain(a_q, a_scales, b_q, bs_view, masked_m, *,

@@ -1,0 +1,375 @@
+"""W8A8 int8 GEMMs: dense (K7), contiguous grouped (K9), masked grouped (K6).
+
+Port of ``deepgemm_ascend_tpu/ops/int8_gemm.py``. Per-token activation
+scales (m, 1) and per-channel weight scales (1, n) factor out of the K sum:
+
+    out[i, j] = (Σ_k a_q[i, k] · b_q[k, j]) · a_s[i] · b_s[j]
+
+one exact integer sum, then one f32 epilogue ``(acc·a_s)·b_s``. On a CUDA
+tensor the wrappers launch the kernels of ``csrc/int8_gemm.cu`` (fixed
+64×64 tiles: of a ``GemmConfig`` only ``kernel_type`` is read, and
+``block_m`` on the contiguous path, where it fixes the layout); on a CPU
+tensor they run the plain versions, the same arithmetic in PyTorch. The
+integer sum is exact in any order, so kernel, plain version and the JAX
+package's kernels agree bit for bit.
+
+``b_layout='t'`` takes B stored K-major, (n, k) / (E, n, k): the layout of
+the port's int8 weights, which the tensor cores' B operand wants. The
+scales keep their shapes in both layouts.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import GemmConfig, KernelType
+from . import _kernels
+from .fp8_gemm import _check_cuda_operands, check_config, exact_enabled
+
+__all__ = ["int8_gemm", "int8_gemm_with_config",
+           "m_grouped_int8_gemm_contiguous", "m_grouped_int8_gemm_masked",
+           "int8_gemm_plain", "grouped_contiguous_plain",
+           "grouped_masked_plain"]
+
+K7 = _kernels.COUNTERS["int8_gemm"]
+K9 = _kernels.COUNTERS["int8_grouped_contiguous"]
+K6 = _kernels.COUNTERS["int8_grouped_masked"]
+
+
+def _layout(b_layout: str) -> bool:
+    if b_layout not in ("n", "t"):
+        raise ValueError(f"b_layout must be 'n' or 't', got {b_layout!r}")
+    return b_layout == "t"
+
+
+def _kn(b_q: torch.Tensor, b_t: bool) -> torch.Tensor:
+    """B as (…, k, n) (a view)."""
+    return b_q.transpose(-1, -2) if b_t else b_q
+
+
+def _int_sum(a_q: torch.Tensor, b_kn: torch.Tensor) -> torch.Tensor:
+    """Σ_k a·b, exact, rounded once to f32. float64 holds every partial sum
+    exactly (|acc| ≤ 127²·k < 2^53) in any order and on any device, where
+    ``int8 @ int8`` wraps in int8 and the card has no int32 matmul; the
+    final cast rounds to nearest as cvt.rn.f32.s32 does."""
+    return torch.matmul(a_q.to(torch.float64),
+                        b_kn.to(torch.float64)).to(torch.float32)
+
+
+def _dequant(a_q, a_scales, b_q, b_scales, b_t):
+    """Both operands dequantized to f32, B as (…, k, n): the inputs of the
+    exact-mode golden."""
+    return (a_q.to(torch.float32) * a_scales.to(torch.float32),
+            _kn(b_q, b_t).to(torch.float32) * b_scales.to(torch.float32))
+
+
+def _epilogue(acc, a_s, b_s, out_dtype):
+    """(acc·a_s)·b_s in f32, in that order, then the output cast."""
+    return ((acc * a_s.to(torch.float32)) * b_s.to(torch.float32)).to(
+        out_dtype)
+
+
+def int8_gemm_plain(a_q, a_scales, b_q, b_scales, *, b_t: bool = False,
+                    out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K7 on any device."""
+    K7.plain_calls += 1
+    return _epilogue(_int_sum(a_q, _kn(b_q, b_t)), a_scales, b_scales,
+                     out_dtype)
+
+
+def grouped_contiguous_plain(a_q, a_scales, b_q, b_scales, tile_group_ids,
+                             *, b_t: bool = False, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K9: rows of m-tile t use expert
+    ``tile_group_ids[t]``; padding tiles (-1) are zero."""
+    K9.plain_calls += 1
+    m = a_q.shape[0]
+    b_kn = _kn(b_q, b_t)
+    gids = torch.as_tensor(tile_group_ids).to(device=a_q.device,
+                                               dtype=torch.int64)
+    row_gid = torch.repeat_interleave(gids, m // gids.numel())
+    out = torch.zeros((m, b_kn.shape[-1]), dtype=out_dtype,
+                      device=a_q.device)
+    for e in torch.unique(gids[gids >= 0]).tolist():
+        rows = torch.nonzero(row_gid == e)[:, 0]
+        out[rows] = _epilogue(_int_sum(a_q[rows], b_kn[e]), a_scales[rows],
+                              b_scales[e], out_dtype)
+    return out
+
+
+def grouped_masked_plain(a_q, a_scales, b_q, b_scales, masked_m, *,
+                         b_t: bool = False, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K6: the first ``masked_m[e]`` rows of each
+    expert; rows at or past it are zero."""
+    K6.plain_calls += 1
+    e, m_max, _ = a_q.shape
+    b_kn = _kn(b_q, b_t)
+    out = torch.zeros((e, m_max, b_kn.shape[-1]), dtype=out_dtype,
+                      device=a_q.device)
+    for ei, rows in enumerate(masked_m.tolist()):
+        rows = min(int(rows), m_max)
+        if rows > 0:
+            out[ei, :rows] = _epilogue(_int_sum(a_q[ei, :rows], b_kn[ei]),
+                                       a_scales[ei, :rows], b_scales[ei],
+                                       out_dtype)
+    return out
+
+
+def _cuda_operands(name, a_q, a_scales, b_q, b_scales, out_dtype):
+    """Checks the kernel's operands; returns the f32 scales."""
+    dev = a_q.device
+    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
+        raise ValueError(f"{name}: operands must be int8, got "
+                         f"{a_q.dtype}/{b_q.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: out_dtype must be bf16 or f32 on CUDA, "
+                         f"got {out_dtype}")
+    a_s = a_scales.to(torch.float32).contiguous()
+    b_s = b_scales.to(torch.float32).contiguous()
+    _check_cuda_operands(name, [("a_q", a_q), ("a_scales", a_s),
+                                ("b_q", b_q), ("b_scales", b_s)], dev)
+    return a_s, b_s
+
+
+def _strides(b_t: bool, n: int, k: int):
+    """(k stride, n stride) of B inside one expert."""
+    return (1, k) if b_t else (n, 1)
+
+
+def _on_device(name: str, a_q: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); any other device raises."""
+    if a_q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {a_q.device}")
+    return a_q.device.type == "cuda"
+
+
+def _launch_dense(a_q, a_scales, b_q, b_scales, b_t, out_dtype):
+    if not _on_device("int8_gemm", a_q):
+        return int8_gemm_plain(a_q, a_scales, b_q, b_scales, b_t=b_t,
+                               out_dtype=out_dtype)
+    a_s, b_s = _cuda_operands("int8_gemm", a_q, a_scales, b_q, b_scales,
+                              out_dtype)
+    m, k = a_q.shape
+    n = b_s.shape[-1]
+    out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
+    if out.numel() == 0:
+        return out
+    rc = _kernels.entry("int8_gemm")(
+        a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
+        out.data_ptr(), m, n, k, *_strides(b_t, n, k),
+        int(out_dtype == torch.float32), _kernels.stream_ptr(a_q.device))
+    _kernels.check(rc, "int8_gemm")
+    K7.launches += 1
+    return out
+
+
+def _check_dense(a_q, a_scales, b_q, b_scales, b_t):
+    m, k = a_q.shape
+    k2, n = _kn(b_q, b_t).shape
+    if k != k2:
+        raise ValueError(f"inner dims mismatch: {tuple(a_q.shape)} @ "
+                         f"{tuple(b_q.shape)} (b_layout="
+                         f"{'t' if b_t else 'n'})")
+    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
+        raise ValueError(f"int8_gemm needs int8 operands, got "
+                         f"{a_q.dtype}/{b_q.dtype}")
+    if tuple(a_scales.shape) != (m, 1):
+        raise ValueError(f"a_scales must be {(m, 1)}, got "
+                         f"{tuple(a_scales.shape)}")
+    if tuple(b_scales.shape) != (1, n):
+        raise ValueError(f"b_scales must be {(1, n)}, got "
+                         f"{tuple(b_scales.shape)}")
+
+
+def int8_gemm_with_config(
+    a_q: torch.Tensor,
+    a_scales: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scales: torch.Tensor,
+    *,
+    config: GemmConfig,
+    out_dtype=torch.bfloat16,
+    b_layout: str = "n",
+) -> torch.Tensor:
+    """W8A8 GEMM with an explicit config. The kernel's tiles are fixed, so
+    of the config only ``kernel_type`` is read: ``KernelType.XLA`` (plain
+    XLA ops on the TPU) belongs to the tiling slice and raises here.
+
+    a_q (m, k) int8 with a_scales (m, 1) f32 (per token); b_q (k, n) int8
+    (or (n, k) with ``b_layout='t'``) with b_scales (1, n) f32 (per output
+    channel)."""
+    b_t = _layout(b_layout)
+    _check_dense(a_q, a_scales, b_q, b_scales, b_t)
+    check_config(config)
+    return _launch_dense(a_q, a_scales, b_q, b_scales, b_t, out_dtype)
+
+
+def int8_gemm(
+    a_q: torch.Tensor,
+    a_scales: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scales: torch.Tensor,
+    *,
+    out_dtype=torch.bfloat16,
+    config: Optional[GemmConfig] = None,
+    b_layout: str = "n",
+) -> torch.Tensor:
+    """W8A8 GEMM: per-token × per-channel scaled int8 (layouts as in
+    :func:`int8_gemm_with_config`). Quantize with
+    ``quant.quantize_int8(a, axis=-1)`` (per token) and
+    ``quant.quantize_int8(b, axis=0)`` (per channel).
+
+    Under ``fp8_gemm.exact_mode()`` both operands are dequantized and
+    multiplied in f32: the emulated-dequant golden of the JAX package."""
+    b_t = _layout(b_layout)
+    _check_dense(a_q, a_scales, b_q, b_scales, b_t)
+    if exact_enabled():
+        return torch.matmul(*_dequant(a_q, a_scales, b_q, b_scales,
+                                      b_t)).to(out_dtype)
+    if config is not None:
+        check_config(config)
+    return _launch_dense(a_q, a_scales, b_q, b_scales, b_t, out_dtype)
+
+
+def _grouped_shapes(a_q, b_q, b_t):
+    """(E, rows per expert or in all, n, A's k, B's k) of a grouped call."""
+    m, k = a_q.shape[-2:]
+    e, k2, n = _kn(b_q, b_t).shape
+    return e, m, n, k, k2
+
+
+def m_grouped_int8_gemm_contiguous(
+    a_q: torch.Tensor,
+    a_scales: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scales: torch.Tensor,
+    tile_group_ids,
+    *,
+    out_dtype=torch.bfloat16,
+    config: Optional[GemmConfig] = None,
+    b_layout: str = "n",
+) -> torch.Tensor:
+    """Contiguous grouped W8A8 GEMM (MoE prefill layout).
+
+    a_q (M_total, K) int8, rows grouped by expert in spans aligned to
+    block_m (plan with ``grouped_gemm.make_contiguous_layout``); a_scales
+    (M_total, 1) f32 per token; b_q (E, K, N) int8 (or (E, N, K) with
+    ``b_layout='t'``); b_scales (E, 1, N) f32 per expert output channel;
+    tile_group_ids (M_total/block_m,) int, -1 = padding tile (zeros).
+    block_m is M_total / len(tile_group_ids), or ``config.block_m``.
+    """
+    b_t = _layout(b_layout)
+    e, m, n, k, k2 = _grouped_shapes(a_q, b_q, b_t)
+    if k != k2:
+        raise ValueError(f"inner dims mismatch: {tuple(a_q.shape)} @ "
+                         f"{tuple(b_q.shape)}")
+    if tuple(a_scales.shape) != (m, 1):
+        raise ValueError(f"a_scales must be {(m, 1)}, got "
+                         f"{tuple(a_scales.shape)}")
+    if tuple(b_scales.shape) != (e, 1, n):
+        raise ValueError(f"b_scales must be {(e, 1, n)}, got "
+                         f"{tuple(b_scales.shape)}")
+    gids = torch.as_tensor(tile_group_ids)
+    n_tiles = gids.numel()
+    if gids.dim() != 1 or n_tiles == 0 or m % n_tiles:
+        raise ValueError(f"tile_group_ids must be one id per m-tile of "
+                         f"M_total={m}: a non-empty 1-D array whose length "
+                         f"divides M_total, got shape {tuple(gids.shape)}")
+    if config is not None and config.kernel_type == KernelType.XLA:
+        raise ValueError("KernelType.XLA is not supported for the grouped "
+                         "contiguous layout")
+    if config is not None:
+        check_config(config)
+    block_m = config.block_m if config is not None else m // n_tiles
+    if block_m <= 0 or m % block_m:
+        raise ValueError(f"M_total={m} not a multiple of block_m={block_m}")
+    if n_tiles != m // block_m:
+        raise ValueError(f"tile_group_ids must be ({m // block_m},) for "
+                         f"block_m={block_m}, got {tuple(gids.shape)}")
+    ids = gids.to(torch.int64).cpu()
+    if bool(((ids < -1) | (ids >= e)).any()):
+        raise ValueError(f"tile_group_ids must lie in [-1, {e}), got "
+                         f"{ids.tolist()}")
+    if exact_enabled():
+        a, b = _dequant(a_q, a_scales, b_q, b_scales, b_t)
+        row_gid = torch.repeat_interleave(ids, block_m).to(a_q.device)
+        y = torch.zeros((m, n), dtype=torch.float32, device=a_q.device)
+        for ei in range(e):
+            rows = torch.nonzero(row_gid == ei)[:, 0]
+            y[rows] = torch.matmul(a[rows], b[ei])
+        return y.to(out_dtype)
+    if not _on_device("m_grouped_int8_gemm_contiguous", a_q):
+        return grouped_contiguous_plain(a_q, a_scales, b_q, b_scales, ids,
+                                        b_t=b_t, out_dtype=out_dtype)
+    a_s, b_s = _cuda_operands("m_grouped_int8_gemm_contiguous", a_q,
+                              a_scales, b_q, b_scales, out_dtype)
+    dev = a_q.device
+    ids_dev = ids.to(device=dev, dtype=torch.int32)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    rc = _kernels.entry("int8_grouped_contiguous")(
+        a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
+        ids_dev.data_ptr(), out.data_ptr(), m, n, k, block_m, n * k,
+        *_strides(b_t, n, k), int(out_dtype == torch.float32),
+        _kernels.stream_ptr(dev))
+    _kernels.check(rc, "int8_grouped_contiguous")
+    K9.launches += 1
+    return out
+
+
+def m_grouped_int8_gemm_masked(
+    a_q: torch.Tensor,
+    a_scales: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scales: torch.Tensor,
+    masked_m: torch.Tensor,
+    *,
+    out_dtype=torch.bfloat16,
+    config: Optional[GemmConfig] = None,
+    b_layout: str = "n",
+) -> torch.Tensor:
+    """Masked grouped W8A8 GEMM (MoE decode and prefill, fixed shapes).
+
+    a_q (E, M_max, K) int8 with a_scales (E, M_max, 1) f32 per token; b_q
+    (E, K, N) int8 (or (E, N, K) with ``b_layout='t'``) with b_scales
+    (E, 1, N) f32; masked_m (E,) int. Rows ≥ masked_m[e] are unspecified
+    (whole inactive tiles are zeroed), as in the fp8 twin.
+    """
+    b_t = _layout(b_layout)
+    e, m_max, n, k, k2 = _grouped_shapes(a_q, b_q, b_t)
+    if a_q.shape[0] != e or k != k2:
+        raise ValueError(f"bad shapes: a {tuple(a_q.shape)}, b "
+                         f"{tuple(b_q.shape)} (b_layout={b_layout})")
+    if tuple(a_scales.shape) != (e, m_max, 1):
+        raise ValueError(f"a_scales must be {(e, m_max, 1)}, got "
+                         f"{tuple(a_scales.shape)}")
+    if tuple(b_scales.shape) != (e, 1, n):
+        raise ValueError(f"b_scales must be {(e, 1, n)}, got "
+                         f"{tuple(b_scales.shape)}")
+    if exact_enabled():
+        y = torch.matmul(*_dequant(a_q, a_scales, b_q, b_scales, b_t))
+        rows = torch.arange(m_max, device=a_q.device)[None, :, None]
+        y = torch.where(rows < masked_m.to(a_q.device)[:, None, None], y,
+                        0.0)
+        return y.to(out_dtype)
+    if config is not None:
+        check_config(config)
+    if not _on_device("m_grouped_int8_gemm_masked", a_q):
+        return grouped_masked_plain(a_q, a_scales, b_q, b_scales, masked_m,
+                                    b_t=b_t, out_dtype=out_dtype)
+    a_s, b_s = _cuda_operands("m_grouped_int8_gemm_masked", a_q, a_scales,
+                              b_q, b_scales, out_dtype)
+    dev = a_q.device
+    mm = masked_m.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty((e, m_max, n), dtype=out_dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = _kernels.entry("int8_grouped_masked")(
+        a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
+        mm.data_ptr(), out.data_ptr(), e, m_max, n, k, n * k,
+        *_strides(b_t, n, k), int(out_dtype == torch.float32),
+        _kernels.stream_ptr(dev))
+    _kernels.check(rc, "int8_grouped_masked")
+    K6.launches += 1
+    return out

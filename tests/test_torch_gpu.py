@@ -6,21 +6,25 @@ the card, run them without the JAX conftest (that machine has no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 
-Tolerances: f32 outputs pass the outlier gate (rtol 2e-4, atol 1e-5 of the
-largest |ref|, ratio ≤ 1e-4): the kernel and the plain version sum the same
-exact products in another order. bf16 outputs may differ by one bf16 ulp
-(the f32 sums round to neighbouring bf16 values). Attention outputs agree
+Tolerances: fp8 f32 outputs pass the outlier gate (rtol 2e-4, atol 1e-5
+of the largest |ref|, ratio ≤ 1e-4): the kernel and the plain version sum
+the same exact products in another order. fp8 bf16 outputs may differ by
+one bf16 ulp (the f32 sums round to neighbouring bf16 values). The int8
+kernels sum exactly in integers and round once, as the plain version does:
+their valid rows must be equal bit for bit. Attention outputs agree
 to 2e-3 absolute: the kernels' online softmax rounds p·v_s to bf16 against
 a running max where the plain version uses the final one. Cache writes are
 exact.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from deepgemm_ascend_tpu_torch.ops import _kernels, quant
 from deepgemm_ascend_tpu_torch.ops import fp8_gemm as fp8mod
 from deepgemm_ascend_tpu_torch.ops import grouped_gemm as ggmod
+from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8mod
 from deepgemm_ascend_tpu_torch.ops.flash_decode import (
     flash_decode_gqa_inplace, flash_decode_inplace_plain)
 from deepgemm_ascend_tpu_torch.ops.flash_prefill import (
@@ -110,6 +114,80 @@ def test_grouped_masked_kernel_matches_plain(dev, b_layout):
             assert_f32_close(got[ei, :rows], ref[ei, :rows])
     # A tile that starts at or past masked_m is written as zeros.
     assert bool((got[0] == 0).all()) and bool((got[1, 64:] == 0).all())
+
+
+def _int8_operands(a_shape, b_shape, b_t, dev, seed):
+    """Per-token int8 activations and per-channel int8 weights; B given as
+    (…, k, n), or (…, n, k) for b_t."""
+    g = _gen(seed, dev)
+    a_q, a_s = quant.quantize_int8(
+        torch.randn(*a_shape, generator=g, device=dev) * 3, axis=-1)
+    w = torch.randn(*b_shape, generator=g, device=dev)
+    b_q, b_s = quant.quantize_int8(w, axis=-1 if b_t else -2)
+    return a_q, a_s, b_q, (b_s.transpose(-1, -2) if b_t else b_s)
+
+
+@pytest.mark.parametrize("mnk", [(16, 256, 512), (100, 200, 1000),
+                                 (33, 384, 1008)])
+@pytest.mark.parametrize("b_layout", ["t", "n"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_gemm_kernel_matches_plain_bit_for_bit(dev, mnk, b_layout,
+                                                    out_dtype):
+    """Decode m, ragged m/n/k (byte loads) and a K tail inside the last
+    128-deep step (16-byte loads)."""
+    m, n, k = mnk
+    b_t = b_layout == "t"
+    a_q, a_s, b_q, b_s = _int8_operands((m, k), (n, k) if b_t else (k, n),
+                                        b_t, dev, seed=6)
+    got = i8mod.int8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout,
+                          out_dtype=out_dtype)
+    ref = i8mod.int8_gemm_plain(a_q, a_s, b_q, b_s, b_t=b_t,
+                                out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("block_m", [32, 96, 128])
+@pytest.mark.parametrize("b_layout", ["t", "n"])
+def test_int8_contiguous_kernel_matches_plain_bit_for_bit(dev, block_m,
+                                                          b_layout):
+    """Layout tiles smaller than, not a multiple of, and larger than the
+    kernel's 64-row tile; a padding tile (-1) comes out zero."""
+    b_t = b_layout == "t"
+    e, n, k = 3, 192, 320
+    _, gids, _ = ggmod.make_contiguous_layout([70, 0, 130], block_m)
+    gids = torch.from_numpy(np.append(gids, -1).astype(np.int32))
+    m = gids.numel() * block_m
+    a_q, a_s, b_q, b_s = _int8_operands((m, k), (e, n, k) if b_t
+                                        else (e, k, n), b_t, dev, seed=7)
+    got = i8mod.m_grouped_int8_gemm_contiguous(
+        a_q, a_s, b_q, b_s, gids, b_layout=b_layout)
+    ref = i8mod.grouped_contiguous_plain(a_q, a_s, b_q, b_s, gids, b_t=b_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool((got[-block_m:] == 0).all())
+
+
+@pytest.mark.parametrize("b_layout", ["t", "n"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_masked_kernel_matches_plain_bit_for_bit(dev, b_layout,
+                                                      out_dtype):
+    b_t = b_layout == "t"
+    e, m_max, n, k = 4, 96, 256, 200
+    a_q, a_s, b_q, b_s = _int8_operands((e, m_max, k), (e, n, k) if b_t
+                                        else (e, k, n), b_t, dev, seed=8)
+    masked_m = torch.tensor([0, 5, 64, 96], dtype=torch.int32, device=dev)
+    got = i8mod.m_grouped_int8_gemm_masked(a_q, a_s, b_q, b_s, masked_m,
+                                           b_layout=b_layout,
+                                           out_dtype=out_dtype)
+    ref = i8mod.grouped_masked_plain(a_q, a_s, b_q, b_s, masked_m, b_t=b_t,
+                                     out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    for ei, rows in enumerate(masked_m.tolist()):
+        assert torch.equal(got[ei, :rows], ref[ei, :rows])
+    # A 64-row tile that starts at or past masked_m is written as zeros.
+    assert bool((got[0] == 0).all()) and bool((got[1, 64:] == 0).all())
+    assert bool((got[2, 64:] == 0).all())
 
 
 def _cache(b, kvh, s_max, hd, dev, seed):

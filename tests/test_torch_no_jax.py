@@ -26,7 +26,7 @@ def _imported_modules(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")
-    if "_build" not in p.relative_to(PKG).parts))
+    if "_build" not in p.relative_to(PKG).parts) + ["chip_smoke.py"])
 def test_no_jax_import_in_source(path):
     for mod in _imported_modules(ROOT / path):
         top = mod.split(".")[0]
@@ -50,17 +50,34 @@ def test_importing_the_port_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("entry", ["init_params", "init_cache", "engine"])
+def _jax_tree(cfg):
+    """The JAX package's parameters as params_from_numpy takes them."""
+    import jax
+    from deepgemm_ascend_tpu import models as jmodels
+    from torch_bridge import tree_of
+    return tree_of(jmodels.init_params(jax.random.PRNGKey(0), cfg))
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "engine",
+                                   "params_from_numpy",
+                                   "int8_experts_create"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks the CPU-only host: the default device is CUDA")
-    from deepgemm_ascend_tpu_torch.models import TINY, init_cache, init_params
+    from deepgemm_ascend_tpu_torch.models import (TINY_DENSE, TINY,
+                                                  Int8ExpertWeights,
+                                                  init_cache, init_params,
+                                                  params_from_numpy)
     from deepgemm_ascend_tpu_torch.serving import Engine
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "init_params":
             init_params(0, TINY)
         elif entry == "init_cache":
             init_cache(TINY, 1, 16)
+        elif entry == "params_from_numpy":
+            params_from_numpy(_jax_tree(TINY_DENSE), TINY_DENSE)
+        elif entry == "int8_experts_create":
+            Int8ExpertWeights.create(torch.Generator(), 2, 128, 128)
         else:
             Engine(init_params(0, TINY, device="cpu"), TINY, max_slots=1,
                    max_seq_len=32)
@@ -74,3 +91,27 @@ def test_kernel_wrappers_refuse_non_cpu_non_cuda_tensors():
     bs = torch.zeros(1, 1, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fp8mod.fp8_gemm(a, s, b, bs, b_layout="t")
+
+
+@pytest.mark.parametrize("op", ["dense", "contiguous", "masked"])
+def test_int8_wrappers_refuse_non_cpu_non_cuda_tensors(op):
+    from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8mod
+
+    def meta(*shape, dtype=torch.int8):
+        return torch.zeros(*shape, device="meta", dtype=dtype)
+    f32 = torch.float32
+    with pytest.raises(ValueError, match="unsupported device"):
+        if op == "dense":
+            i8mod.int8_gemm(meta(16, 128), meta(16, 1, dtype=f32),
+                            meta(64, 128), meta(1, 64, dtype=f32),
+                            b_layout="t")
+        elif op == "contiguous":
+            i8mod.m_grouped_int8_gemm_contiguous(
+                meta(64, 128), meta(64, 1, dtype=f32), meta(2, 64, 128),
+                meta(2, 1, 64, dtype=f32), torch.tensor([0, 1]),
+                b_layout="t")
+        else:
+            i8mod.m_grouped_int8_gemm_masked(
+                meta(2, 16, 128), meta(2, 16, 1, dtype=f32),
+                meta(2, 64, 128), meta(2, 1, 64, dtype=f32),
+                torch.tensor([3, 0]), b_layout="t")

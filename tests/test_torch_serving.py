@@ -141,7 +141,8 @@ def test_engine_greedy_tokens_match_jax_engine(fallback_pair, monkeypatch):
 def test_engine_flash_path_batched_matches_unbatched():
     """Main path on the CPU: continuous batching (3 requests through 2
     slots, so a slot is reused) gives each request the tokens it gets when
-    served alone, and only the kernels' plain versions run."""
+    served alone, and only the plain versions of the fp8 path's kernels
+    run (the int8 family's not at all)."""
     tp = tmodels.init_params(0, jmodels.TINY, device="cpu")
     _kernels.reset_counters()
     eng = Engine(tp, jmodels.TINY, max_slots=2, max_seq_len=64, device="cpu")
@@ -154,8 +155,9 @@ def test_engine_flash_path_batched_matches_unbatched():
     assert eng.stats["prefills"] == 3 and eng.tokens_per_second > 0
     counts = {n: (c.launches, c.plain_calls)
               for n, c in _kernels.COUNTERS.items()}
-    assert all(launches == 0 and calls > 0
-               for launches, calls in counts.values()), counts
+    fp8_path = ("fp8_gemm", "grouped_gemm", "flash_decode", "flash_prefill")
+    assert all(launches == 0 and (calls > 0) == (name in fp8_path)
+               for name, (launches, calls) in counts.items()), counts
 
 
 def test_engine_padding_rows_write_no_cache_row():
