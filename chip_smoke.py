@@ -19,7 +19,16 @@ Phases, each of which raises on failure (exit code ≠ 0):
    ``torch.matmul`` for the dense GEMMs K10 and K11). The int8 kernels
    (K7, K9, K6) must equal their plain versions bit for bit. The dense
    GEMM's shapes that ``select_config`` sends to split-K (K11) are listed,
-   and K11 is timed beside K10 there;
+   and K11 is timed beside K10 there. The folded-scale fp8 GEMM (K12) at
+   K1's shapes, against its plain version (f32 sum order plus one bf16
+   ulp) and within 5e-3 rel-L2 of K1, beside ``torch.matmul`` of the
+   operands folded in PyTorch; the read-only decode attentions (K5a, K5b)
+   at K2's shapes, per element within 2⁻⁷·Σ w·|v| of their plain versions
+   (``flash_common``), and on one cache K5a, and K5b merged exactly with
+   the current token, against K2; the prefill state (K4-stats) at K4's
+   shapes plus a start before 0 and one past the cache, held the same way,
+   whose acc / l must equal K4's output and whose empty rows must be
+   exactly (0, -1e30, 0);
 3. model: V2_LITE at full width cut to 2 layers (1 dense + 1 MoE), with
    fp8 experts and again with int8 experts (``params_with_int8_experts``)
    — the kernel path on the card against the plain path on the CPU (the
@@ -40,10 +49,35 @@ Phases, each of which raises on failure (exit code ≠ 0):
    contiguous grouped alias, held bit for bit against the port's masked
    MoE path, plus the masked alias at decode. The counters are zeroed
    before and read after: exactly K10, K11, K8, K1 and K3 launched, no
-   plain version; then every output is checked against the plain path.
+   plain version; then every output is checked against the plain path;
+6. context-parallel prefill at V2_LITE's attention width (16 q heads, 4 kv
+   heads, head_dim 128) over a 16384-token prompt and its per-token int8
+   cache: one K4 over the whole cache as the reference;
+   ``ring_flash_prefill(cp=1)`` and ``ring_attention_prefill(cp=1)`` (the
+   latter over the first 4096 rows: one unchunked f32 score tensor of the
+   whole prompt would take 17 GB) through the public entry points; a cp=4
+   ring whose ranks each run in turn on the one card through the public
+   entry's own hop loop (``ring_attention._flash_ring``, 16 K4-stats
+   launches), taking the next KV shard from the cache where the ring's
+   transport would deliver it (the transport is the only part not run),
+   and the f32 ring over the dequantized cache in the zigzag and
+   contiguous schedules the same way (``_attn_ring``); then the decode of
+   the last prompt token through ``flash_decode_gqa`` (K5a),
+   ``flash_decode_gqa_state`` (K5b) merged with that token, and K2, and
+   the attention output's o-projection through
+   ``fp8_gemm(scale_mode="folded")`` (K12) beside K1. Exactly K4,
+   K4-stats, K5a, K5b, K2, K12 and K1 must launch, no plain version. Then
+   every kernel is held against its plain version at these shapes: each of
+   the 16 hops, K4 and the flash rings on 256 rows at each end of every
+   shard, per element within 2⁻⁷·Σ w·|v| (``flash_common.state_close`` /
+   ``output_close``: the bf16 rounding of w = p·v_s against two running
+   maxima); the f32 rings against plain f32 attention within 2e-5 of
+   softmax·|v|; K5a, K5b, K2, K12 and K1 at their phase-6 shapes; and the
+   siblings over every row (flash rings vs K4 within 2e-3, zigzag vs
+   contiguous within 1e-5, K5a and K5b + the token vs K2).
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
-kernel's launches in phases 4 and 5 and its phase-2 numbers; the last line
+kernel's launches in phases 4 to 6 and its phase-2 numbers; the last line
 is ``{"ok": true, "device": {...}}``. ``--report PATH`` also writes the full
 report there as JSON.
 """
@@ -76,10 +110,17 @@ from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
 from deepgemm_ascend_tpu_torch.ops import flash_prefill as fpmod
 from deepgemm_ascend_tpu_torch.ops import fp8_gemm as fp8mod
 from deepgemm_ascend_tpu_torch.ops import grouped_gemm as ggmod
+from deepgemm_ascend_tpu_torch.ops.flash_common import (PV_ROUNDING,
+                                                        output_close,
+                                                        state_close)
 from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8mod
 from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm,
                                                 gemm_ksplit_plain, gemm_plain,
                                                 gemm_with_config)
+from deepgemm_ascend_tpu_torch.parallel import (ring_attention_prefill,
+                                                ring_flash_prefill,
+                                                zigzag_inverse, zigzag_order)
+from deepgemm_ascend_tpu_torch.parallel import ring_attention as ringmod
 from deepgemm_ascend_tpu_torch.serving import Engine
 from deepgemm_ascend_tpu_torch.tiling.padding import pad_fp8_operands_nt
 # H100 SXM data sheet: HBM rate, dense tensor-core peaks, f32 on the CUDA
@@ -95,7 +136,14 @@ from deepgemm_ascend_tpu_torch.utils.verify import relative_l2_error
 # of Σ|a·b| (two f32 sums of the same exact products in another order;
 # random rounding grows as √K·2⁻²⁴ ≈ 6e-6 at K = 11008).
 GEMM_REL_TOL = 1e-5
-ATTN_TOL = 2e-3                    # kernel vs plain, attention outputs
+ATTN_TOL = 2e-3                    # K2/K4 vs plain; sibling attention kernels
+FOLDED_REL_L2 = 5e-3               # K12 vs K1: JAX's contract for 'folded'
+# The f32 rings against plain f32 attention: per element within this
+# fraction of softmax·|v| (the same exact products, another f32 order and
+# other running maxima); between two f32 rings over every row, absolute.
+F32_ATTN_TOL = 2e-5
+F32_SIBLING_TOL = 1e-5
+
 # Kernel path vs plain path, logits rel-L2. The random model is chaotic:
 # one bf16 ulp moved in 1e-3..1e-2 of the GEMM outputs moves its logits by
 # 0.05..0.1 (phase 3 measures this floor in every run), and the tensor
@@ -127,6 +175,14 @@ KERNELS = {
     "grouped_gemm_contiguous": (
         "deepgemm_ascend_tpu_torch/csrc/grouped_gemm.cu",
         "deepgemm_ascend_tpu/ops/grouped_gemm.py:70"),
+    "fp8_gemm_folded": ("deepgemm_ascend_tpu_torch/csrc/fp8_gemm.cu",
+                        "deepgemm_ascend_tpu/ops/fp8_gemm.py:90"),
+    "flash_decode_read": ("deepgemm_ascend_tpu_torch/csrc/flash_decode.cu",
+                          "deepgemm_ascend_tpu/ops/flash_decode.py:49"),
+    "flash_decode_state": ("deepgemm_ascend_tpu_torch/csrc/flash_decode.cu",
+                           "deepgemm_ascend_tpu/ops/flash_decode.py:60"),
+    "flash_prefill_stats": ("deepgemm_ascend_tpu_torch/csrc/flash_prefill.cu",
+                            "deepgemm_ascend_tpu/ops/flash_prefill.py:89"),
 }
 # The kernels each serving run must launch (and no other).
 FP8_PATH = {"fp8_gemm", "grouped_gemm", "flash_decode", "flash_prefill"}
@@ -135,6 +191,10 @@ INT8_PATH = {"fp8_gemm", "int8_grouped_masked", "flash_decode",
 # ... and the kernels of the compat API's run (phase 5).
 COMPAT_PATH = {"gemm", "gemm_ksplit", "grouped_gemm_contiguous", "fp8_gemm",
                "grouped_gemm"}
+# ... and of the context-parallel prefill and the direct ops (phase 6).
+CP_PATH = {"flash_prefill", "flash_prefill_stats", "flash_decode_read",
+           "flash_decode_state", "flash_decode", "fp8_gemm_folded",
+           "fp8_gemm"}
 # V2_LITE's projection GEMMs, (n, k): attention q/o, kv, the dense FFN's
 # gate∥up and down, an expert's gate∥up and down.
 LITE_GEMMS = [(2048, 2048), (512, 2048), (22016, 2048), (2048, 11008),
@@ -144,6 +204,13 @@ COMMON = GemmConfig(block_m=64, block_n=64, block_k=64)
 # chunk; the MoE layer of phase 5 routes one such chunk.
 DENSE_M = (16, 2048)
 PREFILL_TOKENS = 2048
+# Phase 6: the prompt, the ring size, and the rows of the unchunked
+# ring_attention_prefill(cp=1) check.
+CP_TOKENS = 16384
+CP_RANKS = 4
+CP_DENSE_ROWS = 4096
+# Rows at each end of every rank's shard held against the plain versions.
+CP_CHECK_ROWS = 256
 
 
 def log(msg: str) -> None:
@@ -646,6 +713,165 @@ def check_contiguous(e: int, tokens: int, n: int, k: int, seed: int,
                             "with blockwise fp8 scales"}
 
 
+def check_fp8_folded(m: int, n: int, k: int, seed: int,
+                     b_layout: str = "t") -> dict:
+    """K12 against its plain version (both fold the same bf16 operands, so
+    f32 sum order plus one bf16 ulp) and within FOLDED_REL_L2 of K1.
+    Library yardstick: ``torch.matmul`` of the operands folded in PyTorch,
+    timed alone and with the fold."""
+    g = _gen(seed)
+    b_t = b_layout == "t"
+    a_q, a_s = quant.quantize_fp8_act(
+        torch.randn(m, k, generator=g, device=DEV))
+    b_q, b_s = quant.quantize_fp8_weight(
+        torch.randn((n, k) if b_t else (k, n), generator=g, device=DEV)
+        / math.sqrt(k))
+    bs_view = b_s.t() if b_t else b_s
+    run = lambda: fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout,
+                                  scale_mode="folded", allow_relaxed=True)
+    plain = lambda: fp8mod.fp8_gemm_folded_plain(a_q, a_s, b_q, bs_view,
+                                                 b_t=b_t)
+    fold = lambda: fp8mod.fold_operands(a_q, a_s, b_q, bs_view, b_t=b_t)
+    got, ref = run(), plain()
+    k1 = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout,
+                         out_dtype=torch.float32)
+    a_sc, b_sc = fold()
+    torch.cuda.synchronize()
+    rel = float((got.float() - k1).norm() / k1.norm())
+    kb = k // 128
+    nbytes = m * k + m * kb * 4 + n * k + (n // 128) * kb * 4 + m * n * 2
+    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, BF16_OPS_PER_S)
+    return {"shape": f"m={m} n={n} k={k} b_layout={b_layout}",
+            "ok": gemm_close(got, ref, a_sc, b_sc) and rel < FOLDED_REL_L2,
+            "rel_l2_vs_k1": rel,
+            "max_abs_err": float((got.float() - ref.float()).abs().max()),
+            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.matmul(a_sc, b_sc)),
+            "library_with_fold_ms": time_ms(lambda: torch.matmul(*fold())),
+            "library_note": "torch.matmul (cuBLAS) of the bf16 operands "
+                            "folded beforehand in PyTorch; bf16 output"}
+
+
+def abs_v(cache):
+    """The cache with |v| for v: the plain versions run on it give the
+    per-element rounding scale of ``state_close`` / ``output_close``."""
+    k_q, k_s, v_q, v_s = cache
+    return k_q, k_s, v_q.float().abs(), v_s
+
+
+def check_flash_decode_variants(kvh: int, g: int, seed: int):
+    """K5a and K5b at K2's shapes (lengths 0, 1, S and random) against their
+    plain versions, per element (``flash_common.output_close`` /
+    ``state_close``); then, on one cache, K5a over the cache with the new
+    row written and K5b over the rows before it merged with the new token,
+    each against K2. Returns the K5a and the K5b result."""
+    b, s_max, hd = 16, 4096, 128
+    heads = kvh * g
+    cache = _int8_cache(b, kvh, s_max, seed)
+    gen = _gen(seed + 1)
+    q = torch.randn(b, heads, hd, generator=gen, device=DEV).to(
+        torch.bfloat16)
+    lens_np = np.random.default_rng(seed).integers(1, s_max + 1, size=b)
+    lens_np[:3] = [0, 1, s_max]          # an empty, a fresh and a full slot
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(DEV)
+    read = lambda: fdmod.flash_decode_gqa(q, *cache, lens)
+    state = lambda: fdmod.flash_decode_gqa_state(q, *cache, lens)
+    read_plain = lambda: fdmod.flash_decode_plain(q, *cache, lens)
+    state_plain = lambda: fdmod.flash_decode_state_plain(q, *cache, lens)
+    got_r, ref_r = read(), read_plain().reshape(b, heads, hd)
+    got_s = state()
+    ref_s = [x.reshape(b, heads, *x.shape[3:]) for x in state_plain()]
+    pv_r = fdmod.flash_decode_plain(q, *abs_v(cache), lens).reshape(
+        b, heads, hd)
+    pv_s = fdmod.flash_decode_state_plain(q, *abs_v(cache), lens)[0].reshape(
+        b, heads, hd)
+    # The cross-check against K2 on one cache: the new token at len-1.
+    k_new = torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=DEV,
+                          dtype=torch.int8)
+    v_new = torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=DEV,
+                          dtype=torch.int8)
+    ks_new = torch.rand(b, kvh, generator=gen, device=DEV) * 0.02 + 1e-3
+    vs_new = torch.rand(b, kvh, generator=gen, device=DEV) * 0.02 + 1e-3
+    lens1 = lens.clamp(min=1)
+    before = fdmod.flash_decode_gqa_state(q, *cache, lens1 - 1)
+    written = [t.clone() for t in cache]
+    want = fdmod.flash_decode_gqa_inplace(q, *written, k_new, v_new, ks_new,
+                                          vs_new, lens1)[0]
+    read_written = fdmod.flash_decode_gqa(q, *written, lens1)
+    merged = fdmod.merge_current_token(before, q, k_new, ks_new, v_new,
+                                       vs_new)
+    torch.cuda.synchronize()
+    err_read_k2 = float((read_written - want).abs().max())
+    err_merge_k2 = float((merged - want).abs().max())
+    cross_ok = err_read_k2 < ATTN_TOL and err_merge_k2 < ATTN_TOL
+    total = int(lens_np.sum())
+    shape = f"b={b} kvh={kvh} g={g} S={s_max} sum_len={total}"
+    in_bytes = q.numel() * 2 + kvh * total * (2 * hd + 8) + b * 4
+    ops = 4.0 * kvh * g * hd * total
+    results = []
+    for name, run, plain, out_bytes, ok, err in (
+            ("read", read, read_plain, b * heads * hd * 4,
+             output_close(got_r, ref_r, pv_r),
+             float((got_r - ref_r).abs().max())),
+            ("state", state, state_plain, b * heads * (hd + 2) * 4,
+             state_close(got_s, ref_s, pv_s),
+             float((got_s[0] - ref_s[0]).abs().max()))):
+        b_ms, b_by = bound(in_bytes + out_bytes, ops, BF16_OPS_PER_S)
+        results.append({
+            "shape": shape, "ok": ok and cross_ok, "max_abs_err": err,
+            "vs_k2": {"read_written_cache": err_read_k2,
+                      "state_merged_with_token": err_merge_k2},
+            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by})
+    return results
+
+
+def check_flash_prefill_stats(start: int, seed: int) -> dict:
+    """K4-stats at K4's shapes: (acc, m, l) against the plain state per
+    element (``flash_common.state_close``), acc / l against K4's output,
+    rows before position 0 exactly (0, -1e30, 0)."""
+    b, kvh, g, s, s_max, hd = 4, 4, 4, 512, 4096, 128
+    heads = kvh * g
+    cache = _int8_cache(b, kvh, s_max, seed)
+    q = torch.randn(b, s, heads, hd, generator=_gen(seed + 1),
+                    device=DEV).to(torch.bfloat16)
+    length = max(start + s, 1)
+    st = torch.full((b,), start, dtype=torch.int32, device=DEV)
+    lens = torch.full((b,), length, dtype=torch.int32, device=DEV)
+    run = lambda: fpmod.flash_prefill_gqa(q, *cache, st, lens,
+                                          return_stats=True)
+    qg = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
+    plain = lambda: fpmod.flash_prefill_stats_plain(qg, *cache, st, lens)
+    acc, m, l = run()
+    out = fpmod.flash_prefill_gqa(q, *cache, st, lens)
+    to_rows = lambda x: x.permute(0, 3, 1, 2, *range(4, x.dim())).reshape(
+        b, s, heads, *x.shape[4:])
+    ref = [to_rows(x) for x in plain()]
+    pv = to_rows(fpmod.flash_prefill_stats_plain(qg, *abs_v(cache), st,
+                                                 lens)[0])
+    torch.cuda.synchronize()
+    norm_err = float((acc / torch.where(l > 0, l, torch.ones_like(l))[
+        ..., None] - out).abs().max())
+    empty_rows = max(0, min(-start, s))
+    empty_ok = bool((m[:, :empty_rows] == -1e30).all()) and \
+        bool((l[:, :empty_rows] == 0).all()) and \
+        bool((acc[:, :empty_rows] == 0).all())
+    limit = min(length, s_max)
+    keys = b * sum(min(max(start + i + 1, 0), limit) for i in range(s))
+    rows_read = b * kvh * max(0, min(limit, start + s))
+    nbytes = (q.numel() * 2 + rows_read * (2 * hd + 8)
+              + b * s * heads * (hd + 2) * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * g * hd * keys * kvh, BF16_OPS_PER_S)
+    return {"shape": f"b={b} s={s} start={start} kvh={kvh} g={g} S={s_max}",
+            "ok": state_close((acc, m, l), ref, pv)
+            and norm_err < ATTN_TOL
+            and empty_ok, "max_abs_err": float((acc - ref[0]).abs().max()),
+            "acc_over_l_vs_k4": norm_err, "empty_rows": empty_rows,
+            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernels() -> dict:
     results = {name: [] for name in KERNELS}
     for i, (n, k) in enumerate(LITE_GEMMS):
@@ -708,6 +934,22 @@ def phase_kernels() -> dict:
                 check_contiguous(e, 2048, n, k, seed=e + 2048 + n))
     results["grouped_gemm_contiguous"].append(check_contiguous(
         V2_LITE.num_experts, 2048, 2816, 2048, seed=60, block_m=96))
+    # K12 at K1's shapes (b_layout 't', the port's weights), and 'n' once;
+    # K5a/K5b at K2's, K4-stats at K4's plus a start before 0 and past S.
+    for i, (n, k) in enumerate(LITE_GEMMS):
+        for m in DENSE_M:
+            results["fp8_gemm_folded"].append(
+                check_fp8_folded(m, n, k, seed=90 + i))
+    results["fp8_gemm_folded"].append(
+        check_fp8_folded(2048, 2048, 2048, seed=96, b_layout="n"))
+    for i, cfg in enumerate((V2_LITE, V2_LITE_FULL)):
+        read, state = check_flash_decode_variants(
+            cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, seed=i + 11)
+        results["flash_decode_read"].append(read)
+        results["flash_decode_state"].append(state)
+    for start in (0, 1000, -256, 4096):
+        results["flash_prefill_stats"].append(
+            check_flash_prefill_stats(start, seed=13))
     k1_library = [scaled_mm_blockwise(m, 22016, 2048, seed=1)
                   for m in (16, 2048)]
     for name, rows in results.items():
@@ -722,7 +964,13 @@ def phase_kernels() -> dict:
                    else "")
                 + (f" select_config={r['picked']}" if "picked" in r else "")
                 + (f" K10 ms={r['k10_ms']:.4f} ({r['why']})" if "k10_ms" in r
-                   else ""))
+                   else "")
+                + (f" with fold ms={r['library_with_fold_ms']:.4f} rel-L2 vs "
+                   f"K1 {r['rel_l2_vs_k1']:.3g}" if "rel_l2_vs_k1" in r
+                   else "")
+                + (f" vs K2 {r['vs_k2']}" if "vs_k2" in r else "")
+                + (f" acc/l vs K4 {r['acc_over_l_vs_k4']:.3g} empty rows "
+                   f"{r['empty_rows']}" if "empty_rows" in r else ""))
     for r in k1_library:
         log(f"  K1 library yardstick {r['shape']}: accepted={r['accepted']} "
             f"ms={r['ms']} refused={r['refused']}"
@@ -1133,6 +1381,316 @@ def phase_compat(device: dict) -> dict:
             "moe_rel_l2": moe_rel, "moe_routed_ms": moe_ms}
 
 
+# ---------------------------------------------------------------- phase 6
+
+def _kernel_layout(q: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(b, s, heads, hd) → the plain prefill versions' (b, kvh, g, s, hd)."""
+    b, s, heads, hd = q.shape
+    return q.reshape(b, s, kvh, heads // kvh, hd).permute(0, 2, 3, 1, 4)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """A plain prefill version's (b, kvh, g, s, …) → (b, s, heads, …)."""
+    b, kvh, g, s = x.shape[:4]
+    return x.permute(0, 3, 1, 2, *range(4, x.dim())).reshape(
+        b, s, kvh * g, *x.shape[4:])
+
+
+def _shards(cache, cp: int):
+    """The cache's cp sequence shards, as the ring's ranks hold them."""
+    s_local = cache[0].shape[2] // cp
+    return [[t[:, :, r * s_local:(r + 1) * s_local].contiguous()
+             for t in cache] for r in range(cp)]
+
+
+def _flash_ring_in_turn(q, shards) -> torch.Tensor:
+    """ring_flash_prefill's ring with every rank run in turn in this process
+    through its own hop loop (``ring_attention._flash_ring``): where a rank
+    would receive the next KV shard from the ring, it takes that shard.
+    (b, s, heads, hd) f32."""
+    cp = len(shards)
+    s_local = q.shape[1] // cp
+    return torch.cat([ringmod._finish(ringmod._flash_ring(
+        q[:, r * s_local:(r + 1) * s_local], shards[r], r, cp,
+        lambda kv, owner: shards[owner]), torch.float32)
+        for r in range(cp)], dim=1)
+
+
+def _f32_ring_in_turn(q, k, v, cp: int, zigzag: bool) -> torch.Tensor:
+    """ring_attention_prefill's causal ring, every rank in turn through its
+    own hop loop (``ring_attention._attn_ring``), rows in sequence order
+    (zigzag: permuted before, un-permuted with zigzag_inverse after).
+    (b, s, heads, hd) f32."""
+    s = q.shape[1]
+    if zigzag:
+        order = torch.from_numpy(zigzag_order(cp, s)).to(q.device)
+        q, k, v = q[:, order], k[:, order], v[:, order]
+    s_local = s // cp
+    sl = lambda t, r: t[:, r * s_local:(r + 1) * s_local]
+    out = torch.cat([ringmod._finish(ringmod._attn_ring(
+        sl(q, r), sl(k, r), sl(v, r), r, cp,
+        lambda kv, owner: (sl(k, owner), sl(v, owner)), causal=True,
+        zigzag=zigzag), torch.float32) for r in range(cp)], dim=1)
+    if zigzag:
+        out = out[:, torch.from_numpy(zigzag_inverse(cp, s)).to(q.device)]
+    return out
+
+
+def _attn_f32_plain(q, k, v, p0: int):
+    """Plain causal attention in f32 of the query rows at positions p0, …
+    over the dequantized k/v (b, s, kvh, hd): softmax(q·k/√hd)·v, and
+    softmax·|v| (the scale of its tolerance)."""
+    n, heads, hd = q.shape[1:]
+    g = heads // k.shape[2]
+    kk = k.repeat_interleave(g, dim=2)
+    vv = v.repeat_interleave(g, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(hd)
+    pos = p0 + torch.arange(n, device=q.device)
+    future = torch.arange(k.shape[1], device=q.device)[None] > pos[:, None]
+    p = torch.softmax(sc.masked_fill(future, float("-inf")), dim=-1)
+    return (torch.einsum("bhqk,bkhd->bqhd", p, vv),
+            torch.einsum("bhqk,bkhd->bqhd", p, vv.abs()))
+
+
+def _cp_plain_checks(q, cache, k_deq, v_deq, shards, outs):
+    """Phase 6's kernels and rings against plain versions at phase 6's
+    shapes, on CP_CHECK_ROWS rows at each end of every rank's shard (the
+    first rows of a shard see the fewest keys of its diagonal hop, the last
+    the most): every hop of the cp=4 flash ring (K4-stats) against the
+    plain state; K4 over the whole cache and both flash rings against
+    plain K4; the f32 rings against plain f32 attention. Returns
+    {check: max abs error}, {check: the largest share of its per-element
+    limit used}, failures."""
+    kvh = cache[0].shape[1]
+    cp = len(shards)
+    s_local = shards[0][0].shape[2]
+    n = CP_CHECK_ROWS
+    ends = (0, s_local - n)
+    errs, used, failures = {}, {}, []
+
+    def note(name, got, ref, ok, tol):
+        diff = (got.float() - ref.float()).abs()
+        errs[name] = max(errs.get(name, 0.0), float(diff.max()))
+        used[name] = max(used.get(name, 0.0),
+                         float((diff / tol.clamp_min(1e-30)).max()))
+        if not ok and name not in failures:
+            failures.append(name)
+
+    for r in range(cp):
+        q_r = q[:, r * s_local:(r + 1) * s_local]
+        for owner in range(cp):
+            hop = ringmod._hop(q_r, *shards[owner], r - owner)
+            for r0 in ends:
+                qg = _kernel_layout(q_r[:, r0:r0 + n], kvh)
+                st = torch.full((1,), (r - owner) * s_local + r0,
+                                dtype=torch.int32, device=DEV)
+                ln = torch.full((1,), s_local, dtype=torch.int32, device=DEV)
+                ref = [_rows(x) for x in fpmod.flash_prefill_stats_plain(
+                    qg, *shards[owner], st, ln)]
+                pv = _rows(fpmod.flash_prefill_stats_plain(
+                    qg, *abs_v(shards[owner]), st, ln)[0])
+                got = [x[:, r0:r0 + n] for x in hop]
+                note(f"k4_stats_hops_cp{cp}_vs_plain", got[0], ref[0],
+                     state_close(got, ref, pv), PV_ROUNDING * pv)
+        for r0 in ends:
+            p0 = r * s_local + r0
+            qg = _kernel_layout(q[:, p0:p0 + n], kvh)
+            st = torch.full((1,), p0, dtype=torch.int32, device=DEV)
+            ln = torch.full((1,), q.shape[1], dtype=torch.int32, device=DEV)
+            ref = _rows(fpmod.flash_prefill_plain(qg, *cache, st, ln))
+            pv = _rows(fpmod.flash_prefill_plain(qg, *abs_v(cache), st, ln))
+            for name in ("k4_whole", "ring_flash_cp1",
+                         f"ring_flash_cp{cp}"):
+                got = outs[name][:, p0:p0 + n]
+                note(f"{name}_vs_plain", got, ref,
+                     output_close(got, ref, pv),
+                     PV_ROUNDING * pv + 1e-4 * ref.abs())
+            ref, pv = _attn_f32_plain(q[:, p0:p0 + n], k_deq, v_deq, p0)
+            for name in (f"f32_ring_cp{cp}_contiguous",
+                         f"f32_ring_cp{cp}_zigzag", "ring_attention_cp1"):
+                if name not in outs or p0 + n > outs[name].shape[1]:
+                    continue
+                got = outs[name][:, p0:p0 + n]
+                note(f"{name}_vs_plain_f32", got, ref,
+                     bool(((got - ref).abs() <= F32_ATTN_TOL * pv).all()),
+                     F32_ATTN_TOL * pv)
+    return errs, used, failures
+
+
+def phase_cp(device: dict) -> dict:
+    """Context-parallel prefill at V2_LITE's attention width, then the first
+    decode token and the o-projection through the direct ops (module
+    docstring, phase 6). The calls run first, between zeroing and reading
+    the counters; the checks against the plain versions come after."""
+    cfg = V2_LITE
+    s, heads, kvh, hd = CP_TOKENS, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    g = _gen(80)
+    q = torch.randn(1, s, heads, hd, generator=g, device=DEV).to(
+        torch.bfloat16)
+    # The serving cache's quantization: per token and kv head, int8 values
+    # with one f32 scale (models/attention.py).
+    kq, ks = quant.quantize_int8(
+        torch.randn(1, s, kvh, hd, generator=g, device=DEV), axis=-1)
+    vq, vs = quant.quantize_int8(
+        torch.randn(1, s, kvh, hd, generator=g, device=DEV), axis=-1)
+    k_deq, v_deq = kq.float() * ks, vq.float() * vs       # (1, s, kvh, hd)
+    cache = (kq.permute(0, 2, 1, 3).contiguous(),
+             ks[..., 0].permute(0, 2, 1).contiguous(),
+             vq.permute(0, 2, 1, 3).contiguous(),
+             vs[..., 0].permute(0, 2, 1).contiguous())
+    shards = _shards(cache, CP_RANKS)
+    zero = torch.zeros(1, dtype=torch.int32, device=DEV)
+    lens = torch.full((1,), s, dtype=torch.int32, device=DEV)
+    # The decode of the last prompt token (row s-1 as the "new" row) and
+    # the o-projection of the attention output.
+    q_dec = torch.randn(1, heads, hd, generator=g, device=DEV).to(
+        torch.bfloat16)
+    new_row = [t[:, :, s - 1].contiguous() for t in cache]  # kq, ks, vq, vs
+    w_q, w_s = quant.quantize_fp8_weight(
+        torch.randn(cfg.hidden_size, heads * hd, generator=g, device=DEV)
+        / math.sqrt(heads * hd))
+    written = [t.clone() for t in cache]
+    torch.cuda.synchronize()
+
+    # ---- the driven run: counters zeroed before, read after
+    _kernels.reset_counters()
+    t0 = time.perf_counter()
+    ref = fpmod.flash_prefill_gqa(q, *cache, zero, lens)       # K4, whole
+    ring1 = ring_flash_prefill(q, *cache, cp=1, out_dtype=torch.float32)
+    dense1 = ring_attention_prefill(
+        q[:, :CP_DENSE_ROWS], k_deq[:, :CP_DENSE_ROWS],
+        v_deq[:, :CP_DENSE_ROWS], cp=1, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    stats = _kernels.COUNTERS["flash_prefill_stats"]
+    stats_before, t_ring = stats.launches, time.perf_counter()
+    ring4 = _flash_ring_in_turn(q, shards)
+    torch.cuda.synchronize()
+    ring4_s = time.perf_counter() - t_ring
+    stats_launches = stats.launches - stats_before
+    zig4 = _f32_ring_in_turn(q, k_deq, v_deq, CP_RANKS, zigzag=True)
+    cont4 = _f32_ring_in_turn(q, k_deq, v_deq, CP_RANKS, zigzag=False)
+    read = fdmod.flash_decode_gqa(q_dec, *cache, lens)
+    state = fdmod.flash_decode_gqa_state(q_dec, *cache, lens - 1)
+    k2 = fdmod.flash_decode_gqa_inplace(
+        q_dec, *written, new_row[0], new_row[2], new_row[1], new_row[3],
+        lens)[0]
+    x_q, x_s = quant.quantize_fp8_act(ring4.reshape(s, heads * hd))
+    y_folded = fp8mod.fp8_gemm(x_q, x_s, w_q, w_s, b_layout="t",
+                               scale_mode="folded", allow_relaxed=True)
+    y_k1 = fp8mod.fp8_gemm(x_q, x_s, w_q, w_s, b_layout="t",
+                           out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: (c.launches, c.plain_calls)
+              for n, c in _kernels.COUNTERS.items()}
+
+    # ---- checks: against the plain versions at these shapes, then the
+    # siblings over every row
+    outs = {"k4_whole": ref, "ring_flash_cp1": ring1,
+            f"ring_flash_cp{CP_RANKS}": ring4,
+            f"f32_ring_cp{CP_RANKS}_contiguous": cont4,
+            f"f32_ring_cp{CP_RANKS}_zigzag": zig4,
+            "ring_attention_cp1": dense1}
+    errs, used, failures = _cp_plain_checks(q, cache, k_deq, v_deq, shards,
+                                            outs)
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    # The decode ops: K5a and K2 against plain over the same (written)
+    # cache, K5b over the rows before the last, and K5b merged with the
+    # last row exactly against K2.
+    read_ref = fdmod.flash_decode_plain(q_dec, *cache, lens).reshape(
+        1, heads, hd)
+    read_pv = fdmod.flash_decode_plain(q_dec, *abs_v(cache), lens).reshape(
+        1, heads, hd)
+    k2_ref = fdmod.flash_decode_inplace_plain(
+        q_dec, *[t.clone() for t in cache], new_row[0], new_row[2],
+        new_row[1], new_row[3], lens).reshape(1, heads, hd)
+    state_ref = [x.reshape(1, heads, *x.shape[3:]) for x in
+                 fdmod.flash_decode_state_plain(q_dec, *cache, lens - 1)]
+    state_pv = fdmod.flash_decode_state_plain(
+        q_dec, *abs_v(cache), lens - 1)[0].reshape(1, heads, hd)
+    merged = fdmod.merge_current_token(state, q_dec, new_row[0], new_row[1],
+                                       new_row[2], new_row[3])
+    # The o-projection: K12 and K1 against their plain versions (the folded
+    # operands give Σ|a·b| for both to 2^-8).
+    a_sc, b_sc = fp8mod.fold_operands(x_q, x_s, w_q, w_s.t(), b_t=True)
+    folded_ref = fp8mod.fp8_gemm_folded_plain(x_q, x_s, w_q, w_s.t(),
+                                              b_t=True)
+    k1_ref = fp8mod.fp8_gemm_plain(x_q, x_s, w_q, w_s.t(), b_t=True,
+                                   out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for name, got, want, ok in (
+            ("k5a_vs_plain", read, read_ref,
+             output_close(read, read_ref, read_pv)),
+            ("k2_vs_plain", k2, k2_ref, output_close(k2, k2_ref, read_pv)),
+            ("k5b_vs_plain", state[0], state_ref[0],
+             state_close(state, state_ref, state_pv)),
+            ("k12_vs_plain", y_folded, folded_ref,
+             gemm_close(y_folded, folded_ref, a_sc, b_sc)),
+            ("k1_vs_plain", y_k1, k1_ref,
+             gemm_close(y_k1, k1_ref, a_sc, b_sc))):
+        errs[name] = err(got, want)
+        if not ok:
+            failures.append(name)
+    # Siblings over every row: the flash rings run K4's body (cp=1: the
+    # same chunks; cp=4: other running maxima, so within ATTN_TOL), the f32
+    # rings each other and the cp=1 f32 entry (f32 sum order only), K5a
+    # over the written cache and K5b + the exact merge K2.
+    siblings = {"ring_flash_cp1_vs_k4": (ring1, ref, ATTN_TOL),
+                f"ring_flash_cp{CP_RANKS}_vs_k4": (ring4, ref, ATTN_TOL),
+                f"f32_ring_cp{CP_RANKS}_zigzag_vs_contiguous":
+                    (zig4, cont4, F32_SIBLING_TOL),
+                "ring_attention_cp1_vs_contiguous_ring":
+                    (dense1, cont4[:, :CP_DENSE_ROWS], F32_SIBLING_TOL),
+                "k5a_vs_k2": (read, k2, ATTN_TOL),
+                "k5b_merged_vs_k2": (merged, k2, ATTN_TOL)}
+    limits = {}
+    for name, (a, b, tol) in siblings.items():
+        errs[name], limits[name] = err(a, b), tol
+        if not errs[name] < tol:
+            failures.append(f"{name} {errs[name]:.3g} >= {tol:.3g}")
+    rel_folded = float((y_folded.float() - y_k1).norm() / y_k1.norm())
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (ref, ring1, ring4, zig4, cont4, read, y_folded))
+    if rel_folded >= FOLDED_REL_L2:
+        failures.append(f"K12 o-projection rel-L2 vs K1 {rel_folded:.3g}")
+    if not finite or ref.shape != (1, s, heads, hd):
+        failures.append(f"outputs not finite or misshapen ({ref.shape})")
+    timed = {"k4_whole_ms": time_ms(lambda: fpmod.flash_prefill_gqa(
+                 q, *cache, zero, lens), reps=3),
+             "ring_flash_cp1_ms": time_ms(lambda: ring_flash_prefill(
+                 q, *cache, cp=1), reps=3),
+             f"ring_flash_cp{CP_RANKS}_in_turn_ms": time_ms(
+                 lambda: _flash_ring_in_turn(q, shards), reps=3)}
+    log(f"context-parallel prefill: V2_LITE attention ({heads} q / {kvh} kv "
+        f"heads, hd {hd}), b=1, {s}-token prompt, int8 cache per token; "
+        f"{wall:.2f} s wall for the whole driven run; the cp={CP_RANKS} flash "
+        f"ring (its {CP_RANKS}x{CP_RANKS} hops in turn) {ring4_s * 1e3:.1f} ms "
+        f"wall, {stats_launches} K4-stats launches; {device['smi']}")
+    log(f"  max abs errors (plain checks on {CP_CHECK_ROWS} rows at each end "
+        f"of every shard; siblings over every row, limit): " + ", ".join(
+            f"{k} {v:.3g}" + (f" ({limits[k]:.3g})" if k in limits else "")
+            for k, v in errs.items())
+        + f"; K12 o-projection rel-L2 vs K1 {rel_folded:.3g}")
+    log(f"  largest share of the per-element limit used: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in used.items()))
+    log(f"  times (CUDA events, median of 3): {timed}")
+    log(f"  counters (launches, plain calls): {counts}")
+    if failures:
+        raise RuntimeError(f"context-parallel prefill: {failures}")
+    if any(bool(launches) != (n in CP_PATH)
+           for n, (launches, _) in counts.items()):
+        raise RuntimeError(f"cp: launches {counts}, expected exactly "
+                           f"{sorted(CP_PATH)}")
+    if any(calls for _, calls in counts.values()):
+        raise RuntimeError(f"cp: a plain version ran: {counts}")
+    return {"run": "cp", "wall_s": wall, "ring_flash_cp4_wall_ms":
+            ring4_s * 1e3, "k4_stats_launches_in_ring": stats_launches,
+            "errors": errs, "limits": limits, "limit_used": used,
+            "k12_rel_l2_vs_k1": rel_folded, "times": timed,
+            "counts": counts}
+
+
 # ---------------------------------------------------------------- main
 
 HEADLINE = {"fp8_gemm": "m=16 n=22016 k=2048",
@@ -1144,14 +1702,24 @@ HEADLINE = {"fp8_gemm": "m=16 n=22016 k=2048",
             "int8_grouped_masked": "E=32 cap=96 ",
             "gemm": "m=2048 n=2048 k=2048 bf16 nn",
             "gemm_ksplit": "m=16 n=2048 k=11008 bf16 k_split=4",
-            "grouped_gemm_contiguous": "E=32 block_m=128"}
+            "grouped_gemm_contiguous": "E=32 block_m=128",
+            "fp8_gemm_folded": "m=16 n=22016 k=2048 b_layout=t",
+            "flash_decode_read": "kvh=4 g=4",
+            "flash_decode_state": "kvh=4 g=4",
+            "flash_prefill_stats": "start=0"}
 NO_LIBRARY = {
     "grouped_gemm": "none: no PyTorch call runs a masked grouped product "
                     "with blockwise fp8 scales",
     "flash_decode": "none: no PyTorch attention reads an int8 cache with "
                     "per-token scales and writes it in place",
     "flash_prefill": "none: no PyTorch attention reads an int8 cache with "
-                     "per-token scales"}
+                     "per-token scales",
+    "flash_decode_read": "none: no PyTorch attention reads an int8 cache "
+                         "with per-token scales",
+    "flash_decode_state": "none: no PyTorch attention returns the raw "
+                          "softmax state over an int8 cache",
+    "flash_prefill_stats": "none: no PyTorch attention returns the raw "
+                           "softmax state over an int8 cache"}
 
 
 def summarize(kernels: dict, runs: list) -> list:
@@ -1200,12 +1768,14 @@ def main() -> int:
         torch.cuda.empty_cache()      # the finished run's engine is gone
     log("phase 5: the reference-compatible API")
     runs.append(phase_compat(device))
+    log("phase 6: context-parallel prefill and the direct attention/fp8 ops")
+    runs.append(phase_cp(device))
     summary = summarize(kernels, runs)
     log("kernels " + " | ".join(
         f"{k['name']}: launches={k['launches_by_run']} ok ms={k['ms']:.4f} "
         f"bound_ms={k['bound_ms']:.4f}" for k in summary))
     report = {"device": device, "kernels": kernels, "model": model,
-              "serving": runs[:2], "compat": runs[2],
+              "serving": runs[:2], "compat": runs[2], "cp": runs[3],
               "total_s": time.perf_counter() - t_start}
     if report_path:
         os.makedirs(os.path.dirname(report_path) or ".", exist_ok=True)

@@ -22,7 +22,8 @@ The package never imports ``jax`` or ``deepgemm_ascend_tpu``.
 
 from . import compat
 from .config import GemmConfig, KernelType, SwizzleDir
-from .ops.flash_decode import flash_decode_gqa_inplace
+from .ops.flash_decode import (flash_decode_gqa, flash_decode_gqa_inplace,
+                               flash_decode_gqa_state)
 from .ops.flash_prefill import flash_prefill_gqa
 from .ops.fp8_gemm import (exact_mode, expand_weight_scales, fp8_gemm,
                            fp8_gemm_with_config)
@@ -39,7 +40,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "GemmConfig", "KernelType", "SwizzleDir", "bgemm", "compat",
-    "exact_mode", "expand_weight_scales", "flash_decode_gqa_inplace",
+    "exact_mode", "expand_weight_scales", "flash_decode_gqa",
+    "flash_decode_gqa_inplace", "flash_decode_gqa_state",
     "flash_prefill_gqa", "fp8_gemm", "fp8_gemm_with_config", "gemm",
     "gemm_with_config", "int8_gemm", "int8_gemm_with_config",
     "make_contiguous_layout", "m_grouped_gemm_contiguous", "m_grouped_gemm_masked",

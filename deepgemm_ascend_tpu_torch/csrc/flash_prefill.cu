@@ -1,10 +1,16 @@
-// K4: causal GQA flash prefill over the int8 KV cache, for Hopper (sm_90a).
+// K4 and K4-stats: causal GQA flash prefill over the int8 KV cache, for
+// Hopper (sm_90a).
 //
-// Replaces deepgemm_ascend_tpu/ops/flash_prefill.py:_kernel (the
-// return_stats=False form). Query row i of batch b sits at absolute position
-// start[b] + i (start may be negative) and attends cache rows t with
-// t <= start[b] + i and t < seq_len[b]; chunks past both are never loaded.
-// Numerics as in flash_common.cuh.
+// Replaces deepgemm_ascend_tpu/ops/flash_prefill.py:_kernel in both its
+// forms: return_stats=False (dga_flash_prefill: acc / l) and
+// return_stats=True (dga_flash_prefill_stats: the raw online-softmax state
+// acc, m, l for merging across ring-attention hops). Query row i of batch b
+// sits at absolute position start[b] + i (start may be negative) and attends
+// cache rows t with t <= start[b] + i and t < seq_len[b]; chunks past both
+// are never loaded. A row that sees no key (before position 0, or a hop
+// wholly in its future) keeps the initial state (acc 0, m -1e30, l 0); a
+// start at or past the cache length sees every valid key. Numerics as in
+// flash_common.cuh.
 //
 // Design (simple first): one block of 256 threads per (batch, kv head,
 // q block); a q block is BQ = 64 / G consecutive positions of all G heads of
@@ -31,13 +37,16 @@ constexpr int kPP = kChunk + 1;
 
 constexpr size_t kSmemFloats = 2 * kRows * kQP + kRows * kPP + 2 * kChunk + 3 * kRows;
 
-template <int G>
+// out: (b, kvh, G, s, hd) f32, normalized, or with STATS the unnormalized
+// acc, and m_out / l_out (b, kvh, G, s).
+template <int G, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const int8_t* __restrict__ kq, const float* __restrict__ ks,
                      const int8_t* __restrict__ vq, const float* __restrict__ vs,
                      const int* __restrict__ start, const int* __restrict__ seq_lens,
-                     float* __restrict__ out, int kvh, int s, int S, float scale) {
+                     float* __restrict__ out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int kvh, int s, int S, float scale) {
   constexpr int BQ = kRows / G;
   extern __shared__ float smem[];
   float* sQ = smem;                       // [kRows][kQP]
@@ -175,47 +184,81 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = ty * 4 + i;
     const int gi = r / BQ, qpos = q0 + r % BQ;
     if (qpos >= s) continue;
-    const float l = sl[r];
-    float* o = out + ((bh * G + gi) * s + qpos) * kHD;
+    const size_t row = (bh * G + gi) * s + qpos;
+    float* o = out + row * kHD;
+    if (STATS) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[tx + 16 * j] = dga::finalize(acc[i][j], l);
+      for (int j = 0; j < 8; ++j) o[tx + 16 * j] = acc[i][j];
+      if (tx == 0) {
+        m_out[row] = sm[r];
+        l_out[row] = sl[r];
+      }
+    } else {
+      const float l = sl[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[tx + 16 * j] = dga::finalize(acc[i][j], l);
+    }
   }
 }
 
-template <int G>
-int launch(const void* q, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* start, const void* seq_lens, void* out,
-           int b, int kvh, int s, int S, float scale, cudaStream_t stream) {
+struct Args {
+  const void *q, *kq, *ks, *vq, *vs, *start, *seq_lens;
+  void *out, *m, *l;
+  int b, kvh, s, S;
+  float scale;
+};
+
+template <int G, bool STATS>
+int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = kSmemFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<G>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<G, STATS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int BQ = kRows / G;
-  dim3 grid((s + BQ - 1) / BQ, kvh, b);
-  flash_prefill_kernel<G><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
-      static_cast<const float*>(vs), static_cast<const int*>(start),
-      static_cast<const int*>(seq_lens), static_cast<float*>(out), kvh, s, S, scale);
+  dim3 grid((a.s + BQ - 1) / BQ, a.kvh, a.b);
+  flash_prefill_kernel<G, STATS><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.kq),
+      static_cast<const float*>(a.ks), static_cast<const int8_t*>(a.vq),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.start),
+      static_cast<const int*>(a.seq_lens), static_cast<float*>(a.out),
+      static_cast<float*>(a.m), static_cast<float*>(a.l), a.kvh, a.s, a.S, a.scale);
   return (int)cudaGetLastError();
+}
+
+template <bool STATS>
+int dispatch(const Args& a, int g, int hd, void* stream) {
+  if (hd != kHD || a.b <= 0 || a.kvh <= 0 || a.s <= 0 || a.S <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (g) {
+    case 1: return launch<1, STATS>(a, st);
+    case 2: return launch<2, STATS>(a, st);
+    case 4: return launch<4, STATS>(a, st);
+    case 8: return launch<8, STATS>(a, st);
+    case 16: return launch<16, STATS>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// K4: out (b, kvh, g, s, hd) f32 = acc / l.
 extern "C" int dga_flash_prefill(const void* q, const void* kq, const void* ks,
                                  const void* vq, const void* vs, const void* start,
                                  const void* seq_lens, void* out, int b, int kvh,
                                  int g, int s, int S, int hd, float scale,
                                  void* stream) {
-  if (hd != kHD || b <= 0 || kvh <= 0 || s <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (g) {
-    case 1: return launch<1>(q, kq, ks, vq, vs, start, seq_lens, out, b, kvh, s, S, scale, st);
-    case 2: return launch<2>(q, kq, ks, vq, vs, start, seq_lens, out, b, kvh, s, S, scale, st);
-    case 4: return launch<4>(q, kq, ks, vq, vs, start, seq_lens, out, b, kvh, s, S, scale, st);
-    case 8: return launch<8>(q, kq, ks, vq, vs, start, seq_lens, out, b, kvh, s, S, scale, st);
-    case 16: return launch<16>(q, kq, ks, vq, vs, start, seq_lens, out, b, kvh, s, S, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Args a{q, kq, ks, vq, vs, start, seq_lens, out, nullptr, nullptr, b, kvh, s, S, scale};
+  return dispatch<false>(a, g, hd, stream);
+}
+
+// K4-stats: acc (b, kvh, g, s, hd), m and l (b, kvh, g, s), all f32.
+extern "C" int dga_flash_prefill_stats(const void* q, const void* kq, const void* ks,
+                                       const void* vq, const void* vs, const void* start,
+                                       const void* seq_lens, void* acc, void* m, void* l,
+                                       int b, int kvh, int g, int s, int S, int hd,
+                                       float scale, void* stream) {
+  const Args a{q, kq, ks, vq, vs, start, seq_lens, acc, m, l, b, kvh, s, S, scale};
+  return dispatch<true>(a, g, hd, stream);
 }

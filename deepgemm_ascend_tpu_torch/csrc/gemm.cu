@@ -45,7 +45,12 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using dga::ldsm_x4;
+using dga::ldsm_x4_trans;
 
 constexpr int kBM = 64;
 constexpr int kBN = 64;
@@ -115,11 +120,7 @@ struct Mma;
 template <>
 struct Mma<__nv_bfloat16> {
   static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    dga::mma_bf16_f32(c, a, b);
   }
 };
 
@@ -133,22 +134,6 @@ struct Mma<__half> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 // 16-byte loads of one operand tile into registers (zeros outside the
 // window). Legal when the contiguous extent is a multiple of 8 elements:

@@ -14,8 +14,9 @@ stream, never synchronise and allocate nothing: the Python wrappers own
 every buffer.
 
 A source may export several kernels, each a C entry point with its own
-signature (``csrc/int8_gemm.cu`` holds three, ``csrc/gemm.cu`` and
-``csrc/grouped_gemm.cu`` two each). Each kernel has a
+signature (``csrc/int8_gemm.cu`` and ``csrc/flash_decode.cu`` hold three,
+``csrc/gemm.cu``, ``csrc/grouped_gemm.cu``, ``csrc/fp8_gemm.cu`` and
+``csrc/flash_prefill.cu`` two each). Each kernel has a
 :class:`Counter`, keyed by the kernel's name: ``launches`` is bumped by its
 wrapper right where the kernel is launched, ``plain_calls`` by its plain
 PyTorch version. ``chip_smoke.py`` zeroes them around each serving run to
@@ -48,12 +49,15 @@ _F = ctypes.c_float
 # needs no scale strides): a, a_s, b, b_s, the expert map, c, four sizes,
 # three B strides, out_f32 and the stream.
 _INT8_GROUPED = [_P] * 6 + [_I] * 4 + [_L] * 3 + [_I, _P]
+# K1 and K12: a, a_s, b, b_s, c, m, n, k, four strides, the scale shift,
+# out_f32 and the stream.
+_FP8 = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P]
 # Every kernel: its name (the key of its counter), the source that holds it
 # (csrc/<source>.cu), its C entry point and that entry's signature. Every
 # entry returns an int: the cudaError_t of the launch.
 KERNELS = {
-    "fp8_gemm": ("fp8_gemm", "dga_fp8_gemm",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P]),
+    "fp8_gemm": ("fp8_gemm", "dga_fp8_gemm", _FP8),
+    "fp8_gemm_folded": ("fp8_gemm", "dga_fp8_gemm_folded", _FP8),
     "grouped_gemm": ("grouped_gemm", "dga_grouped_gemm_masked",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                       _L, _L, _I, _I, _P]),
@@ -68,6 +72,12 @@ KERNELS = {
     "flash_prefill": ("flash_prefill", "dga_flash_prefill",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _F, _P]),
+    "flash_prefill_stats": ("flash_prefill", "dga_flash_prefill_stats",
+                            [_P] * 10 + [_I] * 6 + [_F, _P]),
+    "flash_decode_read": ("flash_decode", "dga_flash_decode_read",
+                          [_P] * 8 + [_I] * 6 + [_F, _P]),
+    "flash_decode_state": ("flash_decode", "dga_flash_decode_state",
+                           [_P] * 10 + [_I] * 6 + [_F, _P]),
     "int8_gemm": ("int8_gemm", "dga_int8_gemm",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]),
     "int8_grouped_contiguous": ("int8_gemm", "dga_int8_grouped_contiguous",

@@ -1,18 +1,24 @@
-"""Fused in-place flash decode over the INT8 KV cache (kernel K2).
+"""Flash decode over the INT8 KV cache (kernels K2, K5a, K5b).
 
-Port of ``flash_decode_gqa_inplace`` from
-``deepgemm_ascend_tpu/ops/flash_decode.py`` (the cache-writing variant the
-decode path runs; the read-only ``flash_decode_gqa``/``_state`` variants
-wait for a later slice). For one new token per sequence it attends cache
-rows [0, seq_len) of its kv head — row seq_len-1 being the new token's
-K/V, which rides in as ``k_new``/``v_new``/``k_snew``/``v_snew`` — and
-writes that row and its scales into all four cache arrays in place.
+Port of ``deepgemm_ascend_tpu/ops/flash_decode.py``. For one query token
+per sequence each op attends cache rows [0, seq_len) of its kv head, with
+``seq_len`` clamped to [0, S] first:
 
-On a CUDA tensor the wrapper launches ``csrc/flash_decode.cu`` (one block
+* :func:`flash_decode_gqa_inplace` (K2, the decode path's op): row
+  seq_len-1 is the new token's K/V, which rides in as
+  ``k_new``/``v_new``/``k_snew``/``v_snew``, and that row and its scales
+  are written into all four cache arrays in place;
+* :func:`flash_decode_gqa` (K5a): read only, returns the normalized output;
+* :func:`flash_decode_gqa_state` (K5b): read only, returns the raw
+  online-softmax state ``(acc, m, l)`` so that a caller can merge further
+  terms exactly (an empty sequence gives m = NEG_INF, l = 0).
+
+On a CUDA tensor the wrappers launch ``csrc/flash_decode.cu`` (one block
 per span of :data:`SPLIT_KEYS` keys of each (batch, kv head), then a merge
-of the spans); on a CPU tensor it runs :func:`flash_decode_inplace_plain`.
-Either way the caches passed in are updated in place and returned (the JAX
-package returns new arrays through aliased outputs).
+of the spans that normalizes, or for K5b writes the merged state); on a
+CPU tensor they run the plain versions beside them. K2 updates the caches
+passed in and returns them (the JAX package returns new arrays through
+aliased outputs).
 """
 
 from __future__ import annotations
@@ -22,11 +28,17 @@ import math
 import torch
 
 from . import _kernels
-from .flash_common import NEG_INF, softmax_pv
+from .flash_common import (NEG_INF, check_cuda_geometry, softmax_pv,
+                           softmax_state)
 
-__all__ = ["flash_decode_gqa_inplace", "flash_decode_inplace_plain"]
+__all__ = ["flash_decode_gqa", "flash_decode_gqa_state",
+           "flash_decode_gqa_inplace", "flash_decode_plain",
+           "flash_decode_state_plain", "flash_decode_inplace_plain",
+           "merge_current_token"]
 
 COUNTER = _kernels.COUNTERS["flash_decode"]
+READ_COUNTER = _kernels.COUNTERS["flash_decode_read"]
+STATE_COUNTER = _kernels.COUNTERS["flash_decode_state"]
 # Keys per block of the CUDA kernel (a multiple of its 128-key chunk):
 # 16 slots x 4 kv heads alone would give 64 blocks to 132 SMs, so longer
 # caches are split into spans that run in parallel and are merged after.
@@ -44,25 +56,80 @@ def _write_new_rows(k_q, k_s, v_q, v_s, k_new, v_new, k_snew, v_snew, lens):
     v_s[bi, :, pos] = v_snew[bi].to(v_s.dtype)
 
 
+def _scores(q, k_q, k_s, seq_lens):
+    """(b, kvh, g, S) f32 scores of the valid rows [0, seq_lens), NEG_INF
+    elsewhere. ``seq_lens`` is already clamped to [0, S]."""
+    b, heads, hd = q.shape
+    _, kvh, s_max, _ = k_q.shape
+    qg = q.to(torch.bfloat16).to(torch.float32).reshape(b, kvh, heads // kvh,
+                                                       hd)
+    s = qg @ k_q.to(torch.float32).transpose(-1, -2)
+    s = s * (k_s.to(torch.float32) * (1.0 / math.sqrt(hd)))[:, :, None, :]
+    t = torch.arange(s_max, device=q.device)
+    valid = t[None, :] < seq_lens.to(q.device)[:, None]      # (b, S)
+    return torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+
+
+def _pv_args(v_q, v_s):
+    return v_s.to(torch.float32)[:, :, None, :], v_q.to(torch.float32)
+
+
 def flash_decode_inplace_plain(q, k_q, k_s, v_q, v_s, k_new, v_new, k_snew,
                                v_snew, seq_lens):
     """Plain PyTorch version of K2: the same cache write, then a one-block
     softmax over the whole valid length with the kernel's bf16 points.
     ``seq_lens`` is already clamped to [0, S]. Returns (b, kvh, g, hd) f32."""
     COUNTER.plain_calls += 1
-    b, heads, hd = q.shape
-    _, kvh, s_max, _ = k_q.shape
-    g = heads // kvh
     _write_new_rows(k_q, k_s, v_q, v_s, k_new, v_new, k_snew, v_snew,
                     seq_lens)
-    qg = q.to(torch.bfloat16).to(torch.float32).reshape(b, kvh, g, hd)
-    s = qg @ k_q.to(torch.float32).transpose(-1, -2)        # (b, kvh, g, S)
-    s = s * (k_s.to(torch.float32) * (1.0 / math.sqrt(hd)))[:, :, None, :]
-    t = torch.arange(s_max, device=q.device)
-    valid = t[None, :] < seq_lens.to(q.device)[:, None]      # (b, S)
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    return softmax_pv(s, v_s.to(torch.float32)[:, :, None, :],
-                      v_q.to(torch.float32))
+    return softmax_pv(_scores(q, k_q, k_s, seq_lens), *_pv_args(v_q, v_s))
+
+
+def flash_decode_plain(q, k_q, k_s, v_q, v_s, seq_lens):
+    """Plain PyTorch version of K5a: K2's softmax without the cache write.
+    Returns (b, kvh, g, hd) f32."""
+    READ_COUNTER.plain_calls += 1
+    return softmax_pv(_scores(q, k_q, k_s, seq_lens), *_pv_args(v_q, v_s))
+
+
+def flash_decode_state_plain(q, k_q, k_s, v_q, v_s, seq_lens):
+    """Plain PyTorch version of K5b: the one-block state — acc
+    (b, kvh, g, hd), m and l (b, kvh, g), f32."""
+    STATE_COUNTER.plain_calls += 1
+    return softmax_state(_scores(q, k_q, k_s, seq_lens), *_pv_args(v_q, v_s))
+
+
+def _prepare(name, q, k_q, k_s, v_q, v_s, seq_lens):
+    """Shapes, the clamped lengths, and on CUDA the operand checks and the
+    bf16 query. Returns (b, heads, hd, kvh, g, s_max, lens, q_for_kernel)."""
+    b, heads, hd = q.shape
+    _, kvh, s_max, _ = k_q.shape
+    if heads % kvh:
+        raise ValueError(f"heads={heads} not a multiple of kv_heads={kvh}")
+    g = heads // kvh
+    dev = q.device
+    lens = torch.clamp(seq_lens.to(device=dev, dtype=torch.int32), 0, s_max)
+    if dev.type == "cpu":
+        return b, heads, hd, kvh, g, s_max, lens, q
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    check_cuda_geometry(name, hd, g)
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
+        raise ValueError(f"{name}: caches must be int8")
+    if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise ValueError(f"{name}: cache scales must be f32")
+    for label, t in (("k_q", k_q), ("k_s", k_s), ("v_q", v_q), ("v_s", v_s)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous tensor "
+                             f"on {dev}")
+    return (b, heads, hd, kvh, g, s_max, lens,
+            q.to(torch.bfloat16).contiguous())
+
+
+def _span_scratch(b, kvh, g, s_max, hd, dev):
+    n_split = -(-s_max // SPLIT_KEYS)
+    return torch.empty((b * kvh * n_split * g * (hd + 2),),
+                       dtype=torch.float32, device=dev)
 
 
 def flash_decode_gqa_inplace(
@@ -84,38 +151,24 @@ def flash_decode_gqa_inplace(
     cache extent first: the engine decodes every slot, freed ones included,
     and a freed slot's length may already equal S.
     """
-    b, heads, hd = q.shape
-    _, kvh, s_max, _ = k_q.shape
-    if heads % kvh:
-        raise ValueError(f"heads={heads} not a multiple of kv_heads={kvh}")
-    g = heads // kvh
+    b, heads, hd, kvh, g, s_max, lens, qb = _prepare(
+        "flash_decode_gqa_inplace", q, k_q, k_s, v_q, v_s, seq_lens)
     dev = q.device
-    lens = torch.clamp(seq_lens.to(device=dev, dtype=torch.int32), 0, s_max)
     if dev.type == "cpu":
         out = flash_decode_inplace_plain(q, k_q, k_s, v_q, v_s, k_new, v_new,
                                          k_snew, v_snew, lens)
         return out.reshape(b, heads, hd), k_q, v_q, k_s, v_s
-    if dev.type != "cuda":
-        raise ValueError(f"flash_decode_gqa_inplace: unsupported device {dev}")
-    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
-        raise ValueError("flash_decode_gqa_inplace: caches must be int8")
-    if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
-        raise ValueError("flash_decode_gqa_inplace: cache scales must be f32")
-    qb = q.to(torch.bfloat16).contiguous()
     kn = k_new.to(torch.int8).contiguous()
     vn = v_new.to(torch.int8).contiguous()
     ksn = k_snew.to(torch.float32).contiguous()
     vsn = v_snew.to(torch.float32).contiguous()
-    for label, t in (("k_q", k_q), ("k_s", k_s), ("v_q", v_q), ("v_s", v_s),
-                     ("k_new", kn), ("v_new", vn), ("k_snew", ksn),
+    for label, t in (("k_new", kn), ("v_new", vn), ("k_snew", ksn),
                      ("v_snew", vsn)):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"flash_decode_gqa_inplace: {label} must be a "
-                             f"contiguous tensor on {dev}")
+        if t.device != dev:
+            raise ValueError(f"flash_decode_gqa_inplace: {label} must be on "
+                             f"{dev}")
     out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
-    n_split = -(-s_max // SPLIT_KEYS)
-    part = torch.empty((b * kvh * n_split * g * (hd + 2),),
-                       dtype=torch.float32, device=dev)
+    part = _span_scratch(b, kvh, g, s_max, hd, dev)
     rc = _kernels.entry("flash_decode")(
         qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), kn.data_ptr(), vn.data_ptr(), ksn.data_ptr(),
@@ -125,3 +178,94 @@ def flash_decode_gqa_inplace(
     _kernels.check(rc, "flash_decode")
     COUNTER.launches += 1
     return out.reshape(b, heads, hd), k_q, v_q, k_s, v_s
+
+
+def flash_decode_gqa(
+    q: torch.Tensor,         # (b, heads, hd) bf16/f32
+    k_q: torch.Tensor,       # (b, kvh, S, hd) int8
+    k_s: torch.Tensor,       # (b, kvh, S) f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    seq_lens: torch.Tensor,  # (b,) int32 — tokens [0, len) are attended
+) -> torch.Tensor:
+    """Single-token GQA attention over the int8 cache, read only. Returns
+    (b, heads, hd) f32 (zeros for an empty sequence)."""
+    b, heads, hd, kvh, g, s_max, lens, qb = _prepare(
+        "flash_decode_gqa", q, k_q, k_s, v_q, v_s, seq_lens)
+    dev = q.device
+    if dev.type == "cpu":
+        out = flash_decode_plain(q, k_q, k_s, v_q, v_s, lens)
+        return out.reshape(b, heads, hd)
+    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
+    part = _span_scratch(b, kvh, g, s_max, hd, dev)
+    rc = _kernels.entry("flash_decode_read")(
+        qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+        v_s.data_ptr(), lens.data_ptr(), part.data_ptr(), out.data_ptr(),
+        b, kvh, g, s_max, hd, SPLIT_KEYS, 1.0 / math.sqrt(hd),
+        _kernels.stream_ptr(dev))
+    _kernels.check(rc, "flash_decode_read")
+    READ_COUNTER.launches += 1
+    return out.reshape(b, heads, hd)
+
+
+def flash_decode_gqa_state(
+    q: torch.Tensor,         # (b, heads, hd)
+    k_q: torch.Tensor,       # (b, kvh, S, hd) int8
+    k_s: torch.Tensor,       # (b, kvh, S) f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    seq_lens: torch.Tensor,
+):
+    """Like :func:`flash_decode_gqa` but returns the raw online-softmax
+    state ``(acc, m, l)`` — acc (b, heads, hd) UNNORMALIZED, m/l
+    (b, heads) — so callers can merge additional attention terms exactly:
+
+        M = max(m, s_extra); α = e^(m−M); β = e^(s_extra−M)
+        out = (acc·α + β·v_extra) / (l·α + β)
+
+    Empty sequences yield m = −1e30, l = 0 → the merge degenerates to the
+    extra term alone (:func:`merge_current_token` writes it out for one
+    token of the int8 cache)."""
+    b, heads, hd, kvh, g, s_max, lens, qb = _prepare(
+        "flash_decode_gqa_state", q, k_q, k_s, v_q, v_s, seq_lens)
+    dev = q.device
+    if dev.type == "cpu":
+        acc, m, l = flash_decode_state_plain(q, k_q, k_s, v_q, v_s, lens)
+    else:
+        acc = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
+        m = torch.empty((b, kvh, g), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        part = _span_scratch(b, kvh, g, s_max, hd, dev)
+        rc = _kernels.entry("flash_decode_state")(
+            qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), lens.data_ptr(), part.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, kvh, g, s_max, hd, SPLIT_KEYS,
+            1.0 / math.sqrt(hd), _kernels.stream_ptr(dev))
+        _kernels.check(rc, "flash_decode_state")
+        STATE_COUNTER.launches += 1
+    return (acc.reshape(b, heads, hd), m.reshape(b, heads),
+            l.reshape(b, heads))
+
+
+def merge_current_token(state, q, k_new, k_snew, v_new, v_snew):
+    """Fold one more cache row (the current token) into the state of
+    :func:`flash_decode_gqa_state`, exactly as its docstring writes the
+    merge, with the kernels' score and their bf16 rounding of the
+    probability times the row's v scale. state: acc (b, heads, hd), m/l
+    (b, heads); q (b, heads, hd); k_new/v_new (b, kvh, hd) int8;
+    k_snew/v_snew (b, kvh). Returns the normalized (b, heads, hd) f32 —
+    what :func:`flash_decode_gqa_inplace` returns for that row."""
+    acc, m, l = state
+    b, heads, hd = q.shape
+    kvh = k_new.shape[1]
+    g = heads // kvh
+    qf = q.to(torch.bfloat16).float().reshape(b, kvh, g, hd)
+    s_new = ((qf * k_new.float()[:, :, None]).sum(-1)
+             * (k_snew.float()[:, :, None] / math.sqrt(hd))).reshape(b, heads)
+    big = torch.maximum(m, s_new)
+    alpha, beta = torch.exp(m - big), torch.exp(s_new - big)
+    w_new = (beta * v_snew.float().repeat_interleave(g, dim=1)).to(
+        torch.bfloat16).float()
+    v_row = v_new.float().repeat_interleave(g, dim=1)
+    return ((acc * alpha[..., None] + w_new[..., None] * v_row)
+            / (l * alpha + beta)[..., None])

@@ -1,15 +1,19 @@
-"""Flash prefill: causal GQA attention over the INT8 KV cache (kernel K4).
+"""Flash prefill: causal GQA attention over the INT8 KV cache (K4, K4-stats).
 
-Port of ``flash_prefill_gqa`` from ``deepgemm_ascend_tpu/ops/flash_prefill.py``
-without ``return_stats`` (the ring-attention form waits for the parallel
-slice). Query row i of batch b sits at absolute position ``start[b] + i``
-(start may be negative) and attends cache positions t with
-``t <= start[b] + i`` and ``t < seq_lens[b]``; the cache already holds the
-prompt's rows.
+Port of ``flash_prefill_gqa`` from ``deepgemm_ascend_tpu/ops/flash_prefill.py``.
+Query row i of batch b sits at absolute position ``start[b] + i`` (start
+may be negative) and attends cache positions t with ``t <= start[b] + i``
+and ``t < seq_lens[b]``; the cache already holds the prompt's rows.
+``return_stats=True`` returns the raw online-softmax state instead of the
+normalized output, for merging across ring-attention hops
+(``parallel/ring_attention.py``): a row before position 0, or with no
+valid key, reports ``(acc 0, m NEG_INF, l 0)``.
 
 On a CUDA tensor the wrapper launches ``csrc/flash_prefill.cu`` (64-row
-q blocks; the TPU kernel's VMEM-driven q-block search is not needed); on a
-CPU tensor it runs :func:`flash_prefill_plain`.
+q blocks; the TPU kernel's VMEM-driven q-block search is not needed): the
+``flash_prefill`` entry, or ``flash_prefill_stats`` for the state. On a
+CPU tensor it runs :func:`flash_prefill_plain` or
+:func:`flash_prefill_stats_plain`.
 """
 
 from __future__ import annotations
@@ -19,18 +23,18 @@ import math
 import torch
 
 from . import _kernels
-from .flash_common import NEG_INF, softmax_pv
+from .flash_common import (NEG_INF, check_cuda_geometry, softmax_pv,
+                           softmax_state)
 
-__all__ = ["flash_prefill_gqa", "flash_prefill_plain"]
+__all__ = ["flash_prefill_gqa", "flash_prefill_plain",
+           "flash_prefill_stats_plain"]
 
 COUNTER = _kernels.COUNTERS["flash_prefill"]
+STATS_COUNTER = _kernels.COUNTERS["flash_prefill_stats"]
 
 
-def flash_prefill_plain(qg, k_q, k_s, v_q, v_s, start, seq_lens):
-    """Plain PyTorch version of K4 on the kernel layout: qg (b, kvh, g, s, hd)
-    → (b, kvh, g, s, hd) f32, one-block softmax over the whole cache with
-    the kernel's masks and bf16 points."""
-    COUNTER.plain_calls += 1
+def _masked_scores(qg, k_q, k_s, start, seq_lens):
+    """(b, kvh, g, s, S) f32 scores with the kernel's masks."""
     b, kvh, g, s, hd = qg.shape
     s_max = k_q.shape[2]
     dev = qg.device
@@ -43,9 +47,27 @@ def flash_prefill_plain(qg, k_q, k_s, v_q, v_s, start, seq_lens):
     t = torch.arange(s_max, device=dev)
     mask = ((t[None, None, :] <= pos[:, :, None])
             & (t[None, None, :] < seq_lens.to(dev)[:, None, None]))  # (b,s,S)
-    sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
+    return torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
+
+
+def flash_prefill_plain(qg, k_q, k_s, v_q, v_s, start, seq_lens):
+    """Plain PyTorch version of K4 on the kernel layout: qg (b, kvh, g, s, hd)
+    → (b, kvh, g, s, hd) f32, one-block softmax over the whole cache with
+    the kernel's masks and bf16 points."""
+    COUNTER.plain_calls += 1
+    sc = _masked_scores(qg, k_q, k_s, start, seq_lens)
     return softmax_pv(sc, v_s.to(torch.float32)[:, :, None, None, :],
                       v_q.to(torch.float32)[:, :, None])
+
+
+def flash_prefill_stats_plain(qg, k_q, k_s, v_q, v_s, start, seq_lens):
+    """Plain PyTorch version of K4-stats: the one-block state of
+    :func:`flash_prefill_plain` — acc (b, kvh, g, s, hd), m and l
+    (b, kvh, g, s), f32."""
+    STATS_COUNTER.plain_calls += 1
+    sc = _masked_scores(qg, k_q, k_s, start, seq_lens)
+    return softmax_state(sc, v_s.to(torch.float32)[:, :, None, None, :],
+                         v_q.to(torch.float32)[:, :, None])
 
 
 def flash_prefill_gqa(
@@ -56,8 +78,13 @@ def flash_prefill_gqa(
     v_s: torch.Tensor,
     start: torch.Tensor,      # (b,) int32 — absolute position of q row 0
     seq_lens: torch.Tensor,   # (b,) int32 — valid cache length (incl. prompt)
-) -> torch.Tensor:
-    """Causal GQA prefill over the int8 cache → (b, s, heads, hd) f32.
+    *,
+    return_stats: bool = False,
+):
+    """Causal GQA prefill over the int8 cache → (b, s, heads, hd) f32, or
+    with ``return_stats`` the state (acc (b, s, heads, hd) f32 unnormalized,
+    m (b, s, heads) f32 row max with NEG_INF = empty, l (b, s, heads) f32
+    exp-sum).
 
     Like the JAX package, ``s`` must be a multiple of 16 (``attention()``
     sends other lengths to the fallback path)."""
@@ -76,23 +103,40 @@ def flash_prefill_gqa(
     st = start.to(device=dev, dtype=torch.int32).contiguous()
     lens = seq_lens.to(device=dev, dtype=torch.int32).contiguous()
     if dev.type == "cpu":
-        out = flash_prefill_plain(qg, k_q, k_s, v_q, v_s, st, lens)
+        out = (flash_prefill_stats_plain if return_stats
+               else flash_prefill_plain)(qg, k_q, k_s, v_q, v_s, st, lens)
     elif dev.type == "cuda":
+        check_cuda_geometry("flash_prefill_gqa", hd, g)
         for label, t, dt in (("k_q", k_q, torch.int8), ("v_q", v_q, torch.int8),
                              ("k_s", k_s, torch.float32),
                              ("v_s", v_s, torch.float32)):
             if t.device != dev or t.dtype != dt or not t.is_contiguous():
                 raise ValueError(f"flash_prefill_gqa: {label} must be a "
                                  f"contiguous {dt} tensor on {dev}")
-        out = torch.empty((b, kvh, g, s, hd), dtype=torch.float32,
+        acc = torch.empty((b, kvh, g, s, hd), dtype=torch.float32,
                           device=dev)
-        rc = _kernels.entry("flash_prefill")(
-            qg.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-            v_s.data_ptr(), st.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            b, kvh, g, s, s_max, hd, 1.0 / math.sqrt(hd),
-            _kernels.stream_ptr(dev))
-        _kernels.check(rc, "flash_prefill")
-        COUNTER.launches += 1
+        ins = (qg.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+               v_s.data_ptr(), st.data_ptr(), lens.data_ptr(), acc.data_ptr())
+        dims = (b, kvh, g, s, s_max, hd, 1.0 / math.sqrt(hd),
+                _kernels.stream_ptr(dev))
+        if return_stats:
+            m = torch.empty((b, kvh, g, s), dtype=torch.float32, device=dev)
+            l = torch.empty_like(m)
+            rc = _kernels.entry("flash_prefill_stats")(
+                *ins, m.data_ptr(), l.data_ptr(), *dims)
+            _kernels.check(rc, "flash_prefill_stats")
+            STATS_COUNTER.launches += 1
+            out = (acc, m, l)
+        else:
+            rc = _kernels.entry("flash_prefill")(*ins, *dims)
+            _kernels.check(rc, "flash_prefill")
+            COUNTER.launches += 1
+            out = acc
     else:
         raise ValueError(f"flash_prefill_gqa: unsupported device {dev}")
+    if return_stats:
+        acc, m, l = out
+        return (acc.permute(0, 3, 1, 2, 4).reshape(b, s, heads, hd),
+                m.permute(0, 3, 1, 2).reshape(b, s, heads),
+                l.permute(0, 3, 1, 2).reshape(b, s, heads))
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, heads, hd)

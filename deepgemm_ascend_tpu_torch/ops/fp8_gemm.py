@@ -1,15 +1,27 @@
-"""FP8 blockwise-scaled GEMM with dequant-in-accumulator (kernel K1).
+"""FP8 blockwise-scaled GEMM (kernels K1 and K12).
 
 Port of ``deepgemm_ascend_tpu/ops/fp8_gemm.py``. A carries per-(token,
-128-channel) scales, B per-(128×128 block) scales, and the scales are
-applied to the f32 accumulator once per 128-deep K group, in group order:
+128-channel) scales, B per-(128×128 block) scales. Two scale modes:
 
-    C = Σ_g (A_g · B_g) · a_s[:, g] · b_s[g, :]
+* ``scale_mode="accum"`` (K1, the default): the scales are applied to the
+  f32 accumulator once per 128-deep K group, in group order:
 
-On a CUDA tensor the wrappers launch the hand-written kernel
+      C = Σ_g (A_g · B_g) · a_s[:, g] · b_s[g, :]
+
+* ``scale_mode="folded"`` (K12, opt-in with ``allow_relaxed=True``): the
+  scales are folded into the operands, which are rounded to bf16, and one
+  bf16 product with an f32 sum follows:
+
+      C = Σ bf16(a · a_s) · bf16(b · b_s)
+
+  The two roundings (at most 2⁻⁸ relative each) keep it within a 5e-3
+  rel-L2 of K1 but outside the strict outlier gate, hence the opt-in.
+
+On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/fp8_gemm.cu`` (fixed 64×64 tiles; the tiling knobs of a
 ``GemmConfig`` are not read). On a CPU tensor they run
-:func:`fp8_gemm_plain`, the same arithmetic in PyTorch, group by group.
+:func:`fp8_gemm_plain` or :func:`fp8_gemm_folded_plain`, the same
+arithmetic in PyTorch. ``mxu_dtype`` (a TPU MXU knob) is not ported.
 
 The TPU package lane-expands B's block scales to a (k/128, n) panel for its
 kernel; the port keeps them compact and addresses them through strides.
@@ -30,9 +42,12 @@ from . import _kernels
 from .quant import BLOCK, FP8
 
 __all__ = ["fp8_gemm", "fp8_gemm_with_config", "fp8_gemm_plain",
-           "expand_weight_scales", "exact_mode"]
+           "fp8_gemm_folded_plain", "fold_operands", "expand_weight_scales",
+           "exact_mode"]
 
 COUNTER = _kernels.COUNTERS["fp8_gemm"]
+FOLDED_COUNTER = _kernels.COUNTERS["fp8_gemm_folded"]
+SCALE_MODES = ("accum", "folded")
 _SHIFT = BLOCK.bit_length() - 1        # column → scale-block index: col >> 7
 
 # Route fp8 GEMMs (dense + grouped) through an exact emulated-dequant f32
@@ -118,6 +133,49 @@ def fp8_gemm_plain(a_q, a_scales, b_q, bs_view, *, shift: int = _SHIFT,
                        b_t, out_dtype)
 
 
+def fold_operands(a_q, a_scales, b_q, bs_view, *, shift: int = _SHIFT,
+                  b_t: bool = False):
+    """K12's operands: each e4m3 value times its block scale in f32, rounded
+    once to bf16. Returns (a (m, k), b (k, n)) bf16; ``bs_view`` as in
+    :func:`fp8_gemm_plain`."""
+    n = b_q.shape[0] if b_t else b_q.shape[1]
+    panel = torch.repeat_interleave(_scale_panel(bs_view, shift, n), BLOCK,
+                                    dim=0)                        # (k, n)
+    b_kn = (b_q.t() if b_t else b_q).to(torch.float32)
+    return (_dequant_a(a_q, a_scales).to(torch.bfloat16),
+            (b_kn * panel).to(torch.bfloat16))
+
+
+def fp8_gemm_folded_plain(a_q, a_scales, b_q, bs_view, *, shift: int = _SHIFT,
+                          b_t: bool = False, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K12: :func:`fold_operands`, then one f32
+    product of the bf16 values."""
+    FOLDED_COUNTER.plain_calls += 1
+    a_sc, b_sc = fold_operands(a_q, a_scales, b_q, bs_view, shift=shift,
+                               b_t=b_t)
+    return torch.matmul(a_sc.to(torch.float32),
+                        b_sc.to(torch.float32)).to(out_dtype)
+
+
+def _check_scale_mode(scale_mode: str, allow_relaxed: bool) -> None:
+    """Numerics gate: ``folded`` trades ~2^-9 multiplicand rounding for one
+    full-block dot per step — within its documented 5e-3 rel-L2 contract but
+    OUTSIDE the strict outlier-ratio ≤ 1e-4 acceptance gate on heavy-tail
+    data. Require explicit opt-in so nobody picks it expecting gate-clean
+    output. (An unknown mode raises here; the JAX package would run it as
+    ``folded``.)"""
+    if scale_mode not in SCALE_MODES:
+        raise ValueError(f"scale_mode must be one of {SCALE_MODES}, got "
+                         f"{scale_mode!r}")
+    if scale_mode == "folded" and not allow_relaxed:
+        raise ValueError(
+            "scale_mode='folded' fails the strict outlier-ratio <=1e-4 "
+            "acceptance gate (documented ~2^-9 operand rounding; 5e-3 "
+            "rel-L2 contract). Pass allow_relaxed=True to opt in, or use "
+            "the default scale_mode='accum' (gate-clean, dequant in the "
+            "f32 accumulator).")
+
+
 def _check_cuda_operands(name, tensors, device):
     for label, t in tensors:
         if t.device != device:
@@ -127,13 +185,16 @@ def _check_cuda_operands(name, tensors, device):
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
-def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype):
-    """Run K1 on ``a_q``'s device: the kernel for CUDA, the plain version for
-    the CPU. Shapes are validated by the callers."""
+def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
+            folded=False):
+    """Run K1 (or K12 if ``folded``) on ``a_q``'s device: the kernel for
+    CUDA, the plain version for the CPU. Shapes are validated by the
+    callers."""
     dev = a_q.device
     if dev.type == "cpu":
-        return fp8_gemm_plain(a_q, a_scales, b_q, bs_view, shift=shift,
-                              b_t=b_t, out_dtype=out_dtype)
+        plain = fp8_gemm_folded_plain if folded else fp8_gemm_plain
+        return plain(a_q, a_scales, b_q, bs_view, shift=shift, b_t=b_t,
+                     out_dtype=out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"fp8_gemm: unsupported device {dev}")
     if a_q.dtype != FP8 or b_q.dtype != FP8:
@@ -154,20 +215,27 @@ def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype):
     if m == 0:
         return out
     sbk, sbn = (1, k) if b_t else (n, 1)
-    rc = _kernels.entry("fp8_gemm")(
+    name = "fp8_gemm_folded" if folded else "fp8_gemm"
+    rc = _kernels.entry(name)(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), bs.data_ptr(),
         out.data_ptr(), m, n, k, sbk, sbn, bs.stride(0), bs.stride(1), shift,
         int(out_dtype == torch.float32), _kernels.stream_ptr(dev))
-    _kernels.check(rc, "fp8_gemm")
-    COUNTER.launches += 1
+    _kernels.check(rc, name)
+    (FOLDED_COUNTER if folded else COUNTER).launches += 1
     return out
 
 
-def check_config(config: GemmConfig) -> None:
+def check_config(config: GemmConfig, scale_mode: str = "accum") -> None:
     """The fixed-tile kernels read only ``kernel_type`` of a config."""
     if not isinstance(config, GemmConfig):
         raise TypeError(f"config must be a GemmConfig, got {type(config)}")
     if config.kernel_type == KernelType.XLA:
+        if scale_mode != "accum":
+            # As in the JAX package: its XLA realization computes accum-mode
+            # math only, and must not stand in for an explicit opt-in.
+            raise ValueError(
+                "KernelType.XLA supports only the default scale_mode="
+                f"'accum' / mxu_dtype=None (got {scale_mode!r}/None)")
         raise NotImplementedError(
             "KernelType.XLA arrives with the port's tiling slice")
 
@@ -205,19 +273,24 @@ def fp8_gemm_with_config(
     *,
     config: GemmConfig,
     out_dtype=torch.bfloat16,
+    scale_mode: str = "accum",
+    allow_relaxed: bool = False,
     b_layout: str = "n",
 ) -> torch.Tensor:
     """FP8 GEMM with an explicit config; ``b_scales_expanded`` is the (kb, n)
-    f32 panel regardless of ``b_layout``. The kernel's tiles are fixed, so
+    f32 panel regardless of ``b_layout``. The kernels' tiles are fixed, so
     of the config only ``kernel_type`` is read: ``KernelType.XLA`` (plain
-    XLA ops on the TPU) belongs to the tiling slice and raises here."""
-    check_config(config)
+    XLA ops on the TPU) belongs to the tiling slice and raises here (with
+    ``scale_mode='folded'``, JAX's ValueError first)."""
+    _check_scale_mode(scale_mode, allow_relaxed)
     b_t = _check_layout(b_layout)
     m, n, k = _check_shapes(a_q, a_scales, b_q, b_t, b_layout)
     if tuple(b_scales_expanded.shape) != (k // BLOCK, n):
         raise ValueError(f"expanded b_scales must be {(k // BLOCK, n)}, got "
                          f"{tuple(b_scales_expanded.shape)}")
-    return _launch(a_q, a_scales, b_q, b_scales_expanded, 0, b_t, out_dtype)
+    check_config(config, scale_mode)
+    return _launch(a_q, a_scales, b_q, b_scales_expanded, 0, b_t, out_dtype,
+                   folded=scale_mode == "folded")
 
 
 def fp8_gemm(
@@ -229,8 +302,10 @@ def fp8_gemm(
     out_dtype=torch.bfloat16,
     config: Optional[GemmConfig] = None,
     b_scales_expanded: bool = False,
-    b_layout: str = "n",
+    scale_mode: str = "accum",
+    allow_relaxed: bool = False,
     auto_pad: bool = False,
+    b_layout: str = "n",
 ) -> torch.Tensor:
     """Blockwise-scaled FP8 GEMM (DeepGEMM ``gemm_fp8_fp8_bf16_nt`` analogue).
 
@@ -243,7 +318,10 @@ def fp8_gemm(
     into the kernel's contract by zero values and one scales
     (``tiling/padding.py``; scales (m, ⌈k/128⌉) and (⌈k/128⌉, ⌈n/128⌉)),
     and the output is sliced back to the original n.
+    ``scale_mode='folded'`` (K12) requires ``allow_relaxed=True``; under
+    :func:`exact_mode` either mode computes the exact golden.
     """
+    _check_scale_mode(scale_mode, allow_relaxed)
     b_t = _check_layout(b_layout)
     if b_t and b_scales_expanded:
         raise ValueError("b_layout='t' requires unexpanded (n/128, k/128) "
@@ -258,10 +336,9 @@ def fp8_gemm(
         a_q, a_scales, b_q, b_scales, n_orig = pad(a_q, a_scales, b_q,
                                                    b_scales)
         out = fp8_gemm(a_q, a_scales, b_q, b_scales, out_dtype=out_dtype,
-                       config=config, b_layout=b_layout)
+                       config=config, scale_mode=scale_mode,
+                       allow_relaxed=allow_relaxed, b_layout=b_layout)
         return out[:, :n_orig]
-    if config is not None:
-        check_config(config)
     m, n, k = _check_shapes(a_q, a_scales, b_q, b_t, b_layout)
     kb, nb = k // BLOCK, n // BLOCK
     if b_scales_expanded:
@@ -276,4 +353,7 @@ def fp8_gemm(
     if _exact:
         return _exact_gemm(a_q, a_scales, b_q, bs_view, shift, b_t,
                            out_dtype)
-    return _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype)
+    if config is not None:
+        check_config(config, scale_mode)
+    return _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
+                   folded=scale_mode == "folded")

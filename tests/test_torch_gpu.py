@@ -34,8 +34,10 @@ from deepgemm_ascend_tpu_torch.ops import _kernels, quant
 from deepgemm_ascend_tpu_torch.ops import fp8_gemm as fp8mod
 from deepgemm_ascend_tpu_torch.ops import grouped_gemm as ggmod
 from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8mod
+from deepgemm_ascend_tpu_torch.ops.flash_common import (output_close,
+                                                        state_close)
 from deepgemm_ascend_tpu_torch.ops.flash_decode import (
-    flash_decode_gqa_inplace, flash_decode_inplace_plain)
+    flash_decode_gqa_inplace, flash_decode_inplace_plain, merge_current_token)
 from deepgemm_ascend_tpu_torch.ops.flash_prefill import (
     flash_prefill_gqa, flash_prefill_plain)
 from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm_ksplit_plain,
@@ -450,3 +452,162 @@ def test_grouped_contiguous_kernel_equals_masked_kernel(dev):
             b_layout="t")
         torch.cuda.synchronize()
         assert torch.equal(got[sl], masked[e])
+
+
+# ---- K12 (folded-scale fp8 GEMM), K5a/K5b (read-only decode), K4-stats
+
+
+@pytest.mark.parametrize("m", [16, 100, 256])
+@pytest.mark.parametrize("b_layout", ["t", "n"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_fp8_gemm_folded_kernel_matches_plain(dev, m, b_layout, out_dtype):
+    """K12 folds the scales into bf16 operands exactly as its plain version
+    does, so the two differ only in the f32 sum order: GEMM_REL_TOL of
+    Σ|a_sc·b_sc| (plus one ulp for bf16). Within 5e-3 rel-L2 of K1."""
+    b_t = b_layout == "t"
+    a_q, a_s, b_q, b_s = _operands(m, 256, 512, b_t, dev, seed=11)
+    bs_view = b_s.t() if b_t else b_s
+    got = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout,
+                          out_dtype=out_dtype, scale_mode="folded",
+                          allow_relaxed=True)
+    ref = fp8mod.fp8_gemm_folded_plain(a_q, a_s, b_q, bs_view, b_t=b_t,
+                                       out_dtype=out_dtype)
+    k1 = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout,
+                         out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    a_sc, b_sc = fp8mod.fold_operands(a_q, a_s, b_q, bs_view, b_t=b_t)
+    assert got.dtype == out_dtype
+    assert_gemm_close(got, ref, a_sc, b_sc)
+    rel = float((got.float() - k1).norm() / k1.norm())
+    assert rel < 5e-3
+
+
+def test_fp8_gemm_folded_expanded_panel_matches_compact(dev):
+    a_q, a_s, b_q, b_s = _operands(64, 256, 256, False, dev, seed=12)
+    panel = fp8mod.expand_weight_scales(b_s, 256)
+    kw = dict(out_dtype=torch.float32, scale_mode="folded", allow_relaxed=True)
+    c = _kernels.COUNTERS["fp8_gemm_folded"]
+    before = c.launches
+    got = fp8mod.fp8_gemm(a_q, a_s, b_q, panel, b_scales_expanded=True, **kw)
+    ref = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and c.launches == before + 2
+
+
+def _decode_query(b, kvh, g, hd, dev, seed):
+    return torch.randn(b, kvh * g, hd, generator=_gen(seed, dev),
+                       device=dev).to(torch.bfloat16)
+
+
+def _abs_v(cache):
+    """The cache with |v| for v: the plain versions run on it give the
+    per-element rounding scale of ``state_close`` / ``output_close``."""
+    k_q, k_s, v_q, v_s = cache
+    return k_q, k_s, v_q.float().abs(), v_s
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("split_keys", [128, 512])
+def test_flash_decode_read_and_state_kernels_match_plain(dev, g, split_keys,
+                                                         monkeypatch):
+    """K5a and K5b over lengths 0 (empty), ragged, on a span edge, S, and
+    past S (clamped)."""
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
+    monkeypatch.setattr(fdmod, "SPLIT_KEYS", split_keys)
+    b, kvh, s_max, hd = 5, 2, 320, 128
+    cache = _cache(b, kvh, s_max, hd, dev, 21)
+    q = _decode_query(b, kvh, g, hd, dev, 22)
+    lens = torch.tensor([0, 77, 256, s_max, s_max + 9], dtype=torch.int32,
+                        device=dev)
+    out = fdmod.flash_decode_gqa(q, *cache, lens)
+    state = fdmod.flash_decode_gqa_state(q, *cache, lens)
+    clamped = lens.clamp(max=s_max)
+    ref = fdmod.flash_decode_plain(q, *cache, clamped).reshape(b, kvh * g, hd)
+    ref_state = [x.reshape(b, kvh * g, *x.shape[3:]) for x in
+                 fdmod.flash_decode_state_plain(q, *cache, clamped)]
+    pv = fdmod.flash_decode_plain(q, *_abs_v(cache), clamped).reshape(
+        b, kvh * g, hd)
+    pv_state = fdmod.flash_decode_state_plain(q, *_abs_v(cache), clamped)[
+        0].reshape(b, kvh * g, hd)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 2e-3
+    assert output_close(out, ref, pv)
+    assert not out[0].any()
+    assert state_close(state, ref_state, pv_state)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_decode_read_and_state_agree_with_inplace(dev, g):
+    """On the same cache: K5a over the cache with the new row already
+    written equals K2; K5b over the rows before it, merged with the new
+    token exactly (the JAX docstring's formula), equals K2 too."""
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
+    b, kvh, s_max, hd = 4, 2, 384, 128
+    k_q, k_s, v_q, v_s = _cache(b, kvh, s_max, hd, dev, 23)
+    q = _decode_query(b, kvh, g, hd, dev, 24)
+    gen = _gen(25, dev)
+    k_new = torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                          dtype=torch.int8)
+    v_new = torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                          dtype=torch.int8)
+    ks_new = torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3
+    vs_new = torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3
+    lens = torch.tensor([1, 100, 257, s_max], dtype=torch.int32, device=dev)
+    prior = [t.clone() for t in (k_q, k_s, v_q, v_s)]
+    acc, m, l = fdmod.flash_decode_gqa_state(q, *prior, lens - 1)
+    written = [t.clone() for t in (k_q, k_s, v_q, v_s)]
+    want, *_ = fdmod.flash_decode_gqa_inplace(q, *written, k_new, v_new,
+                                              ks_new, vs_new, lens)
+    read = fdmod.flash_decode_gqa(q, *written, lens)
+    merged = merge_current_token((acc, m, l), q, k_new, ks_new, v_new,
+                                 vs_new)
+    torch.cuda.synchronize()
+    assert float((read - want).abs().max()) < 2e-3
+    assert float((merged - want).abs().max()) < 2e-3
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("start", [0, 100, -8, -256, 256, 1000])
+def test_flash_prefill_stats_kernel_matches_plain(dev, g, start):
+    """K4-stats: acc / l equals K4's output, (acc, m, l) the plain state;
+    rows before position 0 (start < 0) are exactly (0, -1e30, 0); a start
+    at or past the cache length sees every valid key."""
+    b, kvh, s, s_max, hd = 2, 2, 64, 256, 128
+    cache = _cache(b, kvh, s_max, hd, dev, 26)
+    q = torch.randn(b, s, kvh * g, hd, generator=_gen(27, dev),
+                    device=dev).to(torch.bfloat16)
+    st = torch.tensor([start, start + 3], dtype=torch.int32, device=dev)
+    lens = torch.full((b,), s_max, dtype=torch.int32, device=dev)
+    c = _kernels.COUNTERS["flash_prefill_stats"]
+    before = c.launches
+    acc, m, l = flash_prefill_gqa(q, *cache, st, lens, return_stats=True)
+    out = flash_prefill_gqa(q, *cache, st, lens)
+    qg = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
+    from deepgemm_ascend_tpu_torch.ops.flash_prefill import \
+        flash_prefill_stats_plain
+    to_rows = lambda x: x.permute(0, 3, 1, 2, *range(4, x.dim())).reshape(
+        b, s, kvh * g, *x.shape[4:])
+    ref = [to_rows(x)
+           for x in flash_prefill_stats_plain(qg, *cache, st, lens)]
+    pv = to_rows(flash_prefill_stats_plain(qg, *_abs_v(cache), st, lens)[0])
+    torch.cuda.synchronize()
+    assert c.launches == before + 1
+    safe = torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    assert float((acc / safe - out).abs().max()) < 2e-3
+    assert state_close((acc, m, l), ref, pv)
+    if start < 0:
+        assert bool((m[0, :-start] == -1e30).all())
+
+
+def test_flash_kernels_refuse_an_unsupported_head_dim(dev):
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
+    cache = _cache(1, 1, 128, 64, dev, 28)
+    q = torch.zeros(1, 16, 1, 64, device=dev)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill_gqa(q, *cache, lens * 0, lens, return_stats=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fdmod.flash_decode_gqa(q[:, 0], *cache, lens)
+    with pytest.raises(ValueError, match="group"):
+        fdmod.flash_decode_gqa_state(torch.zeros(1, 3, 128, device=dev),
+                                     *_cache(1, 1, 128, 128, dev, 29), lens)

@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax():
         "import deepgemm_ascend_tpu_torch.compat\n"
         "import deepgemm_ascend_tpu_torch.compat.deep_gemm\n"
         "import deepgemm_ascend_tpu_torch.tiling\n"
+        "import deepgemm_ascend_tpu_torch.parallel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deepgemm_ascend_tpu'))\n"
         "print(bad)\n"
