@@ -28,18 +28,32 @@ Phases, each of which raises on failure (exit code ≠ 0):
    the current token, against K2; the prefill state (K4-stats) at K4's
    shapes plus a start before 0 and one past the cache, held the same way,
    whose acc / l must equal K4's output and whose empty rows must be
-   exactly (0, -1e30, 0);
+   exactly (0, -1e30, 0). K2 also at V3_STYLE's GQA group 8 (16 kv heads),
+   which layer_bench runs. The dispatch probe P0 bit for bit against its
+   plain version (a copy), beside ``Tensor.clone``, and the launch floor it
+   measures (device and host µs per launch, through the wrapper and through
+   the bare ctypes entry). Then every kernel of phase 7 at the shapes its
+   scripts give it (``check_script_shapes``: the probe's rows, K1 at
+   4096³, serve_bench's batch 64 and its engines' short caches,
+   layer_bench's V2_LITE_FULL and V3_STYLE shard GEMMs, experts and
+   decode attention), held the same way. Timing and bounds come from
+   ``bench/`` (``timing.cold_ms``, ``roofline.bound_ms``);
 3. model: V2_LITE at full width cut to 2 layers (1 dense + 1 MoE), with
    fp8 experts and again with int8 experts (``params_with_int8_experts``)
    — the kernel path on the card against the plain path on the CPU (the
    kernel wrappers take their plain versions only for CPU tensors), same
-   parameters, a 256-token prompt and 8 teacher-forced decode steps;
+   parameters, a 256-token prompt and 8 teacher-forced decode steps; and
+   the expert-parallel shard path of ``moe_block`` on the card: the
+   routed outputs of V2_LITE_FULL's 64 experts in 8 shards must sum to
+   the whole block's, and be zero for tokens routed elsewhere;
 4. serving, twice: V2_LITE at full width and depth, ``Engine(max_slots=16)``
    at ``max_seq_len=4096``, 24 greedy requests with 16..1024-token prompts
    and 32 new tokens each — first with fp8 experts, then with int8 experts.
    The kernel counters are zeroed just before each run and read just after:
    each run must have launched exactly its own kernel set (fp8: K1, K2,
-   K3, K4; int8: K1, K2, K4, K6), and no plain version may have run;
+   K3, K4; int8: K1, K2, K4, K6), and no plain version may have run.
+   Then one more decode step of that state, five times unprofiled (host
+   clock) and once under ``torch.profiler`` (device time, launches);
 5. the reference-compatible API (``compat``) at V2_LITE's widths, as a
    caller of the reference library or of DeepGEMM drives it: ``run_mmad_*``
    into preallocated output buffers, the package's ``gemm`` through
@@ -74,20 +88,35 @@ Phases, each of which raises on failure (exit code ≠ 0):
    maxima); the f32 rings against plain f32 attention within 2e-5 of
    softmax·|v|; K5a, K5b, K2, K12 and K1 at their phase-6 shapes; and the
    siblings over every row (flash rings vs K4 within 2e-3, zigzag vs
-   contiguous within 1e-5, K5a and K5b + the token vs K2).
+   contiguous within 1e-5, K5a and K5b + the token vs K2);
+7. the measurement scripts (``deepgemm_ascend_tpu_torch/scripts``), each
+   through its ``main(argv)`` in this process, at full width, iterations
+   and chain lengths cut: ``straggler_probe`` (every row; P0, K1, K12, K3,
+   K8, K10, and K11 where ``select_config`` splits), ``profile_kernel --op
+   fp8_gemm`` at 4096³ with ``--check`` (K1), ``headline`` (K1),
+   ``serve_bench`` scan (V2_LITE, batch 64, 64 steps, cache 4096: K1, K3,
+   K2), engine and mixed (16 slots: K1, K3, K2, K4), ``layer_bench`` at
+   ``v2_lite_full:1 v3_style:32`` (batch 64, cache 2048) with fp8 experts
+   (K1, K3, K2) and with int8 (K1, K6, K2). The counters are zeroed before
+   and read after each run: exactly its kernel set, no plain version, rc 0;
+   each script's lines are printed.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
-kernel's launches in phases 4 to 6 and its phase-2 numbers; the last line
+kernel's launches through its wrapper in phases 4 to 7 (``launches``), the
+launches of its bare C entry there (``bare_launches``: P0's dispatch
+floor times ``raw_launch``'s entry, which no wrapper counts) and its
+phase-2 numbers; the last line
 is ``{"ok": true, "device": {...}}``. ``--report PATH`` also writes the full
 report there as JSON.
 """
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -96,9 +125,13 @@ import numpy as np
 import torch
 
 from deepgemm_ascend_tpu_torch import compat, select_config
+from deepgemm_ascend_tpu_torch.bench import shapes as bench_shapes
+from deepgemm_ascend_tpu_torch.bench.roofline import bound_ms
+from deepgemm_ascend_tpu_torch.bench.timing import cold_ms
 from deepgemm_ascend_tpu_torch.compat import deep_gemm
 from deepgemm_ascend_tpu_torch.config import GemmConfig, KernelType
 from deepgemm_ascend_tpu_torch.models import (V2_LITE, V2_LITE_FULL,
+                                              V3_STYLE,
                                               decode_step, forward,
                                               init_cache, init_params,
                                               params_with_int8_experts)
@@ -106,6 +139,7 @@ from deepgemm_ascend_tpu_torch.models import moe as moemod
 from deepgemm_ascend_tpu_torch.models.layers import BF16Linear
 from deepgemm_ascend_tpu_torch.models.moe import dispatch_masked, route_topk
 from deepgemm_ascend_tpu_torch.ops import _kernels, quant
+from deepgemm_ascend_tpu_torch.ops import dispatch_probe as dpmod
 from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
 from deepgemm_ascend_tpu_torch.ops import flash_prefill as fpmod
 from deepgemm_ascend_tpu_torch.ops import fp8_gemm as fp8mod
@@ -121,15 +155,18 @@ from deepgemm_ascend_tpu_torch.parallel import (ring_attention_prefill,
                                                 ring_flash_prefill,
                                                 zigzag_inverse, zigzag_order)
 from deepgemm_ascend_tpu_torch.parallel import ring_attention as ringmod
+from deepgemm_ascend_tpu_torch.scripts import (headline, layer_bench,
+                                               profile_kernel, serve_bench,
+                                               straggler_probe)
 from deepgemm_ascend_tpu_torch.serving import Engine
 from deepgemm_ascend_tpu_torch.tiling.padding import pad_fp8_operands_nt
-# H100 SXM data sheet: HBM rate, dense tensor-core peaks, f32 on the CUDA
+# H100 SXM data sheet: dense tensor-core peaks, f32 on the CUDA
 # cores (not TF32).
 from deepgemm_ascend_tpu_torch.tiling.platform import (BF16_OPS_PER_S,
                                                        F32_OPS_PER_S,
                                                        FP8_OPS_PER_S,
-                                                       HBM_BYTES_PER_S,
                                                        INT8_OPS_PER_S)
+from deepgemm_ascend_tpu_torch.utils.common import round_up
 from deepgemm_ascend_tpu_torch.utils.verify import relative_l2_error
 
 # K10/K11 vs their plain f32 matmul: each f32 output within this fraction
@@ -151,6 +188,9 @@ F32_SIBLING_TOL = 1e-5
 # scale or layout moves them by O(1).
 MODEL_REL_L2_TOL = 0.25
 FLOOR_FLIP_RATE = 1e-2
+# Σ of an expert-parallel block's shards vs the whole block, f32 outputs:
+# the same products, a token's ≤ top_k terms added in another order.
+MOE_SHARD_REL_L2 = 1e-5
 DEV = torch.device("cuda")
 
 KERNELS = {
@@ -183,6 +223,8 @@ KERNELS = {
                            "deepgemm_ascend_tpu/ops/flash_decode.py:60"),
     "flash_prefill_stats": ("deepgemm_ascend_tpu_torch/csrc/flash_prefill.cu",
                             "deepgemm_ascend_tpu/ops/flash_prefill.py:89"),
+    "copy_probe": ("deepgemm_ascend_tpu_torch/csrc/dispatch_probe.cu",
+                   "scripts/straggler_probe.py:75"),
 }
 # The kernels each serving run must launch (and no other).
 FP8_PATH = {"fp8_gemm", "grouped_gemm", "flash_decode", "flash_prefill"}
@@ -195,6 +237,13 @@ COMPAT_PATH = {"gemm", "gemm_ksplit", "grouped_gemm_contiguous", "fp8_gemm",
 CP_PATH = {"flash_prefill", "flash_prefill_stats", "flash_decode_read",
            "flash_decode_state", "flash_decode", "fp8_gemm_folded",
            "fp8_gemm"}
+# ... and of each measurement script (phase 7): the decode-only runs launch
+# no prefill kernel; the probe adds K11 where select_config splits one of
+# its dense shapes (script_runs).
+DECODE_PATH = {"fp8_gemm", "grouped_gemm", "flash_decode"}
+DECODE_INT8_PATH = {"fp8_gemm", "int8_grouped_masked", "flash_decode"}
+PROBE_PATH = {"copy_probe", "fp8_gemm", "fp8_gemm_folded", "grouped_gemm",
+              "grouped_gemm_contiguous", "gemm"}
 # V2_LITE's projection GEMMs, (n, k): attention q/o, kv, the dense FFN's
 # gate∥up and down, an expert's gate∥up and down.
 LITE_GEMMS = [(2048, 2048), (512, 2048), (22016, 2048), (2048, 11008),
@@ -211,36 +260,19 @@ CP_RANKS = 4
 CP_DENSE_ROWS = 4096
 # Rows at each end of every rank's shard held against the plain versions.
 CP_CHECK_ROWS = 256
+# Phase 7's script arguments, which phase 2 checks the kernels at:
+# serve_bench scan's and layer_bench's batch, their caches, the engine
+# modes' slots, serve_bench's new tokens, layer_bench's name:ep shards.
+SCRIPT_BATCH = 64
+SCAN_CACHE = 4096
+LAYER_CACHE = 2048
+ENGINE_SLOTS = 16
+SERVE_STEPS = 64
+LAYER_CONFIGS = ("v2_lite_full:1", "v3_style:32")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of one call, the L2 cache (50 MB) flushed by a
-    256 MB write before every timed launch."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=DEV)
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
-def bound(nbytes: float, ops: float, peak: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def within_one_bf16_ulp(got: torch.Tensor, ref: torch.Tensor) -> bool:
@@ -314,10 +346,10 @@ def check_fp8_gemm(m: int, n: int, k: int, seed: int) -> dict:
     ok = within_one_bf16_ulp(got, ref) and bool(torch.isfinite(got).all())
     kb = k // 128
     nbytes = m * k + m * kb * 4 + n * k + (n // 128) * kb * 4 + m * n * 2
-    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, FP8_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, FP8_OPS_PER_S)
     return {"shape": f"m={m} n={n} k={k}", "ok": ok,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -330,9 +362,13 @@ def _masked_m(e: int, tokens: int, top_k: int, seed: int) -> torch.Tensor:
     return dispatch_masked(idx, e)[1]
 
 
-def check_grouped(e: int, tokens: int, n: int, k: int, seed: int) -> dict:
-    cap = tokens * 6
-    masked_m = _masked_m(e, tokens, 6, seed)
+def check_grouped(e: int, tokens: int, n: int, k: int, seed: int,
+                  top_k: int = 6, loads=None) -> dict:
+    """K3 at capacity tokens·top_k; the loads are ``loads`` (one per local
+    expert) or those of routing the tokens over ``e`` experts."""
+    cap = tokens * top_k
+    masked_m = _masked_m(e, tokens, top_k, seed) if loads is None else loads
+    e = masked_m.numel()
     g = _gen(seed + 1)
     a_q, a_s = quant.quantize_fp8_act(
         torch.randn(e, cap, k, generator=g, device=DEV))
@@ -356,10 +392,10 @@ def check_grouped(e: int, tokens: int, n: int, k: int, seed: int) -> dict:
     kb = k // 128
     nbytes = (valid * (k + kb * 4) + active * (n * k + (n // 128) * kb * 4)
               + valid * n * 2 + e * 4)
-    b_ms, b_by = bound(nbytes, 2.0 * valid * n * k, FP8_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * valid * n * k, FP8_OPS_PER_S)
     return {"shape": f"E={e} cap={cap} valid_rows={valid} n={n} k={k}",
-            "ok": ok, "max_abs_err": err, "ms": time_ms(run),
-            "plain_ms": time_ms(plain, reps=3), "bound_ms": b_ms,
+            "ok": ok, "max_abs_err": err, "ms": cold_ms(run),
+            "plain_ms": cold_ms(plain, reps=3), "bound_ms": b_ms,
             "bound_by": b_by}
 
 
@@ -395,7 +431,7 @@ def scaled_mm_blockwise(m: int, n: int, k: int, seed: int) -> dict:
         rel = float((got.float() - ref.float()).norm()
                     / ref.float().norm())
         return {"shape": f"m={m} n={n} k={k}", "accepted": label,
-                "rel_l2_vs_k1": rel, "ms": time_ms(call), "refused": refused}
+                "rel_l2_vs_k1": rel, "ms": cold_ms(call), "refused": refused}
     return {"shape": f"m={m} n={n} k={k}", "accepted": None, "ms": None,
             "refused": refused}
 
@@ -429,7 +465,7 @@ def _int_mm_yardstick(a_q, b_q) -> dict:
         return {"library_ms": None,
                 "library_note": "torch._int_mm refused: "
                 + str(exc).strip().splitlines()[0][:160]}
-    return {"library_ms": time_ms(call),
+    return {"library_ms": cold_ms(call),
             "library_note": "torch._int_mm (int32 product only)"}
 
 
@@ -441,18 +477,20 @@ def check_int8_gemm(m: int, n: int, k: int, seed: int) -> dict:
     torch.cuda.synchronize()
     ok = torch.equal(got, ref) and bool(torch.isfinite(got).all())
     nbytes = m * k + m * 4 + n * k + n * 4 + m * n * 2
-    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
     return {"shape": f"m={m} n={n} k={k}", "ok": ok,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by,
             **_int_mm_yardstick(a_q, b_q)}
 
 
-def check_int8_masked(e: int, tokens: int, n: int, k: int,
-                      seed: int) -> dict:
-    cap = tokens * 6
-    masked_m = _masked_m(e, tokens, 6, seed)
+def check_int8_masked(e: int, tokens: int, n: int, k: int, seed: int,
+                      top_k: int = 6, loads=None) -> dict:
+    """K6, with the capacity and loads of :func:`check_grouped`."""
+    cap = tokens * top_k
+    masked_m = _masked_m(e, tokens, top_k, seed) if loads is None else loads
+    e = masked_m.numel()
     a_q, a_s, b_q, b_s = _int8_operands((e, cap, k), (e, n, k), seed + 1)
     run = lambda: i8mod.m_grouped_int8_gemm_masked(a_q, a_s, b_q, b_s,
                                                    masked_m, b_layout="t")
@@ -471,10 +509,10 @@ def check_int8_masked(e: int, tokens: int, n: int, k: int,
     active = sum(1 for r in rows if r)
     nbytes = (valid * (k + 4) + active * (n * k + n * 4) + valid * n * 2
               + e * 4)
-    b_ms, b_by = bound(nbytes, 2.0 * valid * n * k, INT8_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * valid * n * k, INT8_OPS_PER_S)
     return {"shape": f"E={e} cap={cap} valid_rows={valid} n={n} k={k}",
-            "ok": ok, "max_abs_err": err, "ms": time_ms(run),
-            "plain_ms": time_ms(plain, reps=3), "bound_ms": b_ms,
+            "ok": ok, "max_abs_err": err, "ms": cold_ms(run),
+            "plain_ms": cold_ms(plain, reps=3), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "library_note": "none: no PyTorch call runs a masked grouped "
                             "int8 product"}
@@ -496,11 +534,11 @@ def check_int8_contiguous(e: int, tokens: int, n: int, k: int,
     torch.cuda.synchronize()
     active = sum(1 for c in counts if c)
     nbytes = m * (k + 4) + active * (n * k + n * 4) + m * n * 2 + gids.size * 4
-    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
     return {"shape": f"E={e} M_total={m} tokens={sum(counts)} n={n} k={k}",
             "ok": torch.equal(got, ref),
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library_note": "none: no PyTorch call runs a grouped int8 "
                             "product"}
@@ -517,8 +555,9 @@ def _int8_cache(b, kvh, s_max, seed):
     return kq, ks, vq, vs
 
 
-def check_flash_decode(kvh: int, g: int, seed: int) -> dict:
-    b, s_max, hd = 16, 4096, 128
+def check_flash_decode(kvh: int, g: int, seed: int, b: int = 16,
+                       s_max: int = 4096) -> dict:
+    hd = 128
     cache = _int8_cache(b, kvh, s_max, seed)
     gen = _gen(seed + 1)
     q = torch.randn(b, kvh * g, hd, generator=gen, device=DEV).to(
@@ -543,27 +582,29 @@ def check_flash_decode(kvh: int, g: int, seed: int) -> dict:
     err = float((got - ref).abs().max())
     caches_equal = all(torch.equal(x, y) for x, y in zip(kc, pc))
     # The design question of this kernel: one block per (batch, kv head),
-    # or spans of SPLIT_KEYS keys merged after. Time the former too.
+    # or spans of SPLIT_KEYS keys merged after. Time the former too (a
+    # span stays a multiple of SPLIT_KEYS).
     split_keys = fdmod.SPLIT_KEYS
-    fdmod.SPLIT_KEYS = s_max
+    fdmod.SPLIT_KEYS = round_up(s_max, split_keys)
     try:
-        one_block_ms = time_ms(run)
+        one_block_ms = cold_ms(run)
     finally:
         fdmod.SPLIT_KEYS = split_keys
     total = int(np.minimum(lens_np, s_max).sum())
     nbytes = (q.numel() * 2 + kvh * total * (2 * hd + 8)
               + b * kvh * 2 * (2 * hd + 8) + got.numel() * 4 + b * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * kvh * g * hd * total, BF16_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * kvh * g * hd * total, BF16_OPS_PER_S)
     return {"shape": f"b={b} kvh={kvh} g={g} S={s_max} sum_len={total}",
             "ok": err < ATTN_TOL and caches_equal, "max_abs_err": err,
-            "caches_equal": caches_equal, "ms": time_ms(run),
+            "caches_equal": caches_equal, "ms": cold_ms(run),
             "one_block_per_head_ms": one_block_ms,
-            "plain_ms": time_ms(plain, reps=3), "bound_ms": b_ms,
+            "plain_ms": cold_ms(plain, reps=3), "bound_ms": b_ms,
             "bound_by": b_by}
 
 
-def check_flash_prefill(start: int, seed: int) -> dict:
-    b, kvh, g, s, s_max, hd = 4, 4, 4, 512, 4096, 128
+def check_flash_prefill(start: int, seed: int, b: int = 4, s: int = 512,
+                        s_max: int = 4096) -> dict:
+    kvh, g, hd = 4, 4, 128
     cache = _int8_cache(b, kvh, s_max, seed)
     q = torch.randn(b, s, kvh * g, hd, generator=_gen(seed + 1),
                     device=DEV).to(torch.bfloat16)
@@ -581,10 +622,10 @@ def check_flash_prefill(start: int, seed: int) -> dict:
     keys = sum(min(start + i + 1, int(lens_np[0])) for i in range(s)) * b
     rows_read = b * kvh * min(int(lens_np[0]), start + s)
     nbytes = q.numel() * 2 + rows_read * (2 * hd + 8) + got.numel() * 4
-    b_ms, b_by = bound(nbytes, 4.0 * kvh * g * hd * keys, BF16_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * kvh * g * hd * keys, BF16_OPS_PER_S)
     return {"shape": f"b={b} s={s} start={start} kvh={kvh} g={g} S={s_max}",
-            "ok": err < ATTN_TOL, "max_abs_err": err, "ms": time_ms(run),
-            "plain_ms": time_ms(plain, reps=3), "bound_ms": b_ms,
+            "ok": err < ATTN_TOL, "max_abs_err": err, "ms": cold_ms(run),
+            "plain_ms": cold_ms(plain, reps=3), "bound_ms": b_ms,
             "bound_by": b_by}
 
 
@@ -607,7 +648,7 @@ def _dense_operands(lead, m, n, k, dtype, layout, seed):
 def _gemm_bound(batch, m, n, k, dtype):
     nbytes = batch * ((m * k + k * n) * _ITEMSIZE[dtype] + m * n * 4)
     peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
-    return bound(nbytes, 2.0 * batch * m * n * k, peak)
+    return bound_ms(nbytes, 2.0 * batch * m * n * k, peak)
 
 
 def _picked(m, n, k, dtype) -> str:
@@ -642,9 +683,9 @@ def check_gemm(m: int, n: int, k: int, seed: int, dtype=torch.bfloat16,
             "picked": _picked(m, n, k, dtype),
             "ok": gemm_close(got, ref, a, b),
             "max_abs_err": float((got - ref).abs().max()),
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: torch.matmul(a, b)),
+            "library_ms": cold_ms(lambda: torch.matmul(a, b)),
             "library_note": "torch.matmul (cuBLAS) on the same operands; "
                             + ("f32 output" if dtype == torch.float32 else
                                "16-bit output, half of K10's f32 store")}
@@ -665,21 +706,23 @@ def check_ksplit(m: int, n: int, k: int, splits: int, seed: int,
     return {"shape": f"m={m} n={n} k={k} bf16 k_split={splits}",
             "why": why, "ok": gemm_close(got, ref, a, b),
             "max_abs_err": float((got - ref).abs().max()),
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
-            "k10_ms": time_ms(lambda: gemm_with_config(a, b, config=COMMON)),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
+            "k10_ms": cold_ms(lambda: gemm_with_config(a, b, config=COMMON)),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: torch.matmul(a, b)),
+            "library_ms": cold_ms(lambda: torch.matmul(a, b)),
             "library_note": "torch.matmul (cuBLAS) on the same bf16 "
                             "operands; bf16 output"}
 
 
 def check_contiguous(e: int, tokens: int, n: int, k: int, seed: int,
-                     block_m: int = 128) -> dict:
+                     block_m: int = 128, counts=None) -> dict:
     """K8 on the layout of ``tokens`` × top-6 routed by a random router
-    (the same loads as K3's check with the same seed), laid out by
-    make_contiguous_layout at ``block_m``, plus one padding tile (-1) at
-    the end, which must come out exactly zero."""
-    counts = _masked_m(e, tokens, 6, seed).tolist()
+    (the same loads as K3's check with the same seed) or of ``counts``
+    rows per expert, laid out by make_contiguous_layout at ``block_m``,
+    plus one padding tile (-1) at the end, which must come out exactly
+    zero."""
+    if counts is None:
+        counts = _masked_m(e, tokens, 6, seed).tolist()
     _, gids, _ = ggmod.make_contiguous_layout(counts, block_m)
     gids = np.append(gids, -1).astype(np.int32)
     m = gids.size * block_m
@@ -701,13 +744,13 @@ def check_contiguous(e: int, tokens: int, n: int, k: int, seed: int,
     kb = k // 128
     nbytes = (m * (k + kb * 4) + active * (n * k + (n // 128) * kb * 4)
               + m * n * 2 + gids.size * 4)
-    b_ms, b_by = bound(nbytes, 2.0 * rows * n * k, FP8_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * rows * n * k, FP8_OPS_PER_S)
     return {"shape": f"E={e} block_m={block_m} M_total={m} "
                      f"tokens={sum(counts)} n={n} k={k}",
             "ok": within_one_bf16_ulp(got, ref) and pad_zero,
             "padding_tile_zero": pad_zero,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library_note": "none: no PyTorch call runs a grouped product "
                             "with blockwise fp8 scales"}
@@ -740,15 +783,15 @@ def check_fp8_folded(m: int, n: int, k: int, seed: int,
     rel = float((got.float() - k1).norm() / k1.norm())
     kb = k // 128
     nbytes = m * k + m * kb * 4 + n * k + (n // 128) * kb * 4 + m * n * 2
-    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, BF16_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, BF16_OPS_PER_S)
     return {"shape": f"m={m} n={n} k={k} b_layout={b_layout}",
             "ok": gemm_close(got, ref, a_sc, b_sc) and rel < FOLDED_REL_L2,
             "rel_l2_vs_k1": rel,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: torch.matmul(a_sc, b_sc)),
-            "library_with_fold_ms": time_ms(lambda: torch.matmul(*fold())),
+            "library_ms": cold_ms(lambda: torch.matmul(a_sc, b_sc)),
+            "library_with_fold_ms": cold_ms(lambda: torch.matmul(*fold())),
             "library_note": "torch.matmul (cuBLAS) of the bf16 operands "
                             "folded beforehand in PyTorch; bf16 output"}
 
@@ -817,12 +860,12 @@ def check_flash_decode_variants(kvh: int, g: int, seed: int):
             ("state", state, state_plain, b * heads * (hd + 2) * 4,
              state_close(got_s, ref_s, pv_s),
              float((got_s[0] - ref_s[0]).abs().max()))):
-        b_ms, b_by = bound(in_bytes + out_bytes, ops, BF16_OPS_PER_S)
+        b_ms, b_by = bound_ms(in_bytes + out_bytes, ops, BF16_OPS_PER_S)
         results.append({
             "shape": shape, "ok": ok and cross_ok, "max_abs_err": err,
             "vs_k2": {"read_written_cache": err_read_k2,
                       "state_merged_with_token": err_merge_k2},
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by})
     return results
 
@@ -862,14 +905,108 @@ def check_flash_prefill_stats(start: int, seed: int) -> dict:
     rows_read = b * kvh * max(0, min(limit, start + s))
     nbytes = (q.numel() * 2 + rows_read * (2 * hd + 8)
               + b * s * heads * (hd + 2) * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * g * hd * keys * kvh, BF16_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * g * hd * keys * kvh, BF16_OPS_PER_S)
     return {"shape": f"b={b} s={s} start={start} kvh={kvh} g={g} S={s_max}",
             "ok": state_close((acc, m, l), ref, pv)
             and norm_err < ATTN_TOL
             and empty_ok, "max_abs_err": float((acc - ref[0]).abs().max()),
             "acc_over_l_vs_k4": norm_err, "empty_rows": empty_rows,
-            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_copy_probe(seed: int) -> dict:
+    """P0 against its plain version (a copy: bit for bit), cold like every
+    kernel here, beside ``Tensor.clone``; then the launch floor as the
+    straggler probe reads it: device and host µs per launch, through the
+    wrapper and through the bare ctypes entry."""
+    x = torch.randn(dpmod.PROBE_SHAPE, generator=_gen(seed), device=DEV)
+    run = lambda: dpmod.copy_probe(x)
+    plain = lambda: dpmod.copy_probe_plain(x)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    b_ms, b_by = bound_ms(2 * x.numel() * 4, 0.0, F32_OPS_PER_S)
+    floor = straggler_probe.dispatch_floor(
+        DEV, 1000, dict(iters=200, repeats=3, min_chain_seconds=0.01))
+    return {"shape": "8x128 f32", "ok": torch.equal(got, ref),
+            "max_abs_err": float((got - ref).abs().max()),
+            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cold_ms(lambda: x.clone()),
+            "library_note": "Tensor.clone", "launch_floor_us": floor}
+
+
+def check_script_shapes(results: dict) -> None:
+    """Phase 7's kernels at the shapes its scripts give them, each against
+    its plain version with the tolerances above, before phase 7 times
+    them. K11 joins where ``select_config`` splits one of the dense shapes
+    (with the rest of phase 2's dense shapes)."""
+    sp = straggler_probe
+    # straggler_probe: fp8small (K1, K12); masked (K3 with every row of
+    # the E 128-row blocks valid, K8 on one 128-row tile per expert);
+    # primes as given and with K and N padded to 128; bf16cube.
+    m, n, k = sp.FP8SMALL
+    results["fp8_gemm"].append(check_fp8_gemm(m, n, k, seed=100))
+    results["fp8_gemm_folded"].append(check_fp8_folded(m, n, k, seed=101))
+    e, rows, n, k = sp.MASKED
+    full = torch.full((e,), rows, dtype=torch.int32, device=DEV)
+    results["grouped_gemm"].append(
+        check_grouped(e, rows, n, k, seed=102, top_k=1, loads=full))
+    results["grouped_gemm_contiguous"].append(
+        check_contiguous(e, rows, n, k, seed=103, counts=[rows] * e))
+    for m, n, k in sp.PRIMES:
+        results["gemm"].append(check_gemm(m, n, k, seed=104))
+        results["gemm"].append(check_gemm(m, round_up(n, 128),
+                                          round_up(k, 128), seed=105))
+    results["gemm"].append(check_gemm(*(sp.BF16CUBE,) * 3, seed=106))
+    # profile_kernel --op fp8_gemm and headline: K1 at 4096³.
+    results["fp8_gemm"].append(check_fp8_gemm(*bench_shapes.HEADLINE,
+                                              seed=107))
+    # serve_bench scan: V2_LITE, SCRIPT_BATCH rows a step over SCAN_CACHE
+    # keys: its projections (K1), experts (K3) and decode attention (K2).
+    b = SCRIPT_BATCH
+    group = V2_LITE.num_heads // V2_LITE.num_kv_heads
+    for i, (n, k) in enumerate(LITE_GEMMS):
+        results["fp8_gemm"].append(check_fp8_gemm(b, n, k, seed=110 + i))
+    h, inter = V2_LITE.hidden_size, V2_LITE.moe_intermediate
+    for n, k in ((2 * inter, h), (h, inter)):
+        results["grouped_gemm"].append(check_grouped(
+            V2_LITE.num_experts, b, n, k, seed=116 + n,
+            top_k=V2_LITE.top_k))
+    results["flash_decode"].append(check_flash_decode(
+        V2_LITE.num_kv_heads, group, seed=117, b=b, s_max=SCAN_CACHE))
+    # serve_bench engine / mixed (ENGINE_SLOTS slots, SERVE_STEPS new
+    # tokens): caches of steps + 16 and steps + 40 keys, their prompts
+    # prefilled in buckets of 16 and 32 rows.
+    for s_max, s in ((SERVE_STEPS + 16, 16), (SERVE_STEPS + 40, 32)):
+        results["flash_decode"].append(check_flash_decode(
+            V2_LITE.num_kv_heads, group, seed=118, b=ENGINE_SLOTS,
+            s_max=s_max))
+        results["flash_prefill"].append(check_flash_prefill(
+            0, seed=119, b=ENGINE_SLOTS, s=s, s_max=s_max))
+    # layer_bench, SCRIPT_BATCH rows over LAYER_CACHE keys, each config's
+    # expert-parallel shard (V3_STYLE: 8 of 256 experts, loads of routing
+    # over all 256): the attention projections (K1), the experts fp8 (K3)
+    # and int8 (K6), the decode attention (K2: GQA groups 1 and 8).
+    for spec in LAYER_CONFIGS:
+        name, ep = spec.split(":")
+        cfg = layer_bench.CONFIGS[name]
+        h, q, kv, inter = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
+                           cfg.moe_intermediate)
+        for n, k in dict.fromkeys(((q, h), (kv, h), (h, q))):
+            results["fp8_gemm"].append(check_fp8_gemm(b, n, k, seed=120))
+        loads = _masked_m(cfg.num_experts, b, cfg.top_k,
+                          seed=121)[:cfg.num_experts // int(ep)]
+        for n, k in ((2 * inter, h), (h, inter)):
+            results["grouped_gemm"].append(check_grouped(
+                cfg.num_experts, b, n, k, seed=122, top_k=cfg.top_k,
+                loads=loads))
+            results["int8_grouped_masked"].append(check_int8_masked(
+                cfg.num_experts, b, n, k, seed=123, top_k=cfg.top_k,
+                loads=loads))
+        results["flash_decode"].append(check_flash_decode(
+            cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, seed=124,
+            b=b, s_max=LAYER_CACHE))
 
 
 def phase_kernels() -> dict:
@@ -884,7 +1021,8 @@ def phase_kernels() -> dict:
             for n, k in ((2816, 2048), (2048, 1408)):
                 results["grouped_gemm"].append(
                     check_grouped(e, tokens, n, k, seed=e + tokens + n))
-    for i, cfg in enumerate((V2_LITE, V2_LITE_FULL)):
+    # V2_LITE's GQA group 4, V2_LITE_FULL's 1, V3_STYLE's 8 (layer_bench).
+    for i, cfg in enumerate((V2_LITE, V2_LITE_FULL, V3_STYLE)):
         results["flash_decode"].append(check_flash_decode(
             cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, seed=i + 1))
     for start in (0, 1000):
@@ -915,6 +1053,7 @@ def phase_kernels() -> dict:
                                           layout=layout))
     results["gemm"].append(check_gemm(33, 97, 1000, seed=49))
     results["gemm"].append(check_gemm(2048, 2048, 2048, seed=50, batch=4))
+    check_script_shapes(results)
     # Split-K wherever select_config picks it among those shapes, and at
     # the decode shape of the dense FFN's down projection with 4 and 3.
     for r in results["gemm"]:
@@ -950,6 +1089,7 @@ def phase_kernels() -> dict:
     for start in (0, 1000, -256, 4096):
         results["flash_prefill_stats"].append(
             check_flash_prefill_stats(start, seed=13))
+    results["copy_probe"].append(check_copy_probe(seed=14))
     k1_library = [scaled_mm_blockwise(m, 22016, 2048, seed=1)
                   for m in (16, 2048)]
     for name, rows in results.items():
@@ -970,7 +1110,9 @@ def phase_kernels() -> dict:
                    else "")
                 + (f" vs K2 {r['vs_k2']}" if "vs_k2" in r else "")
                 + (f" acc/l vs K4 {r['acc_over_l_vs_k4']:.3g} empty rows "
-                   f"{r['empty_rows']}" if "empty_rows" in r else ""))
+                   f"{r['empty_rows']}" if "empty_rows" in r else "")
+                + (f" launch floor us {r['launch_floor_us']}"
+                   if "launch_floor_us" in r else ""))
     for r in k1_library:
         log(f"  K1 library yardstick {r['shape']}: accepted={r['accepted']} "
             f"ms={r['ms']} refused={r['refused']}"
@@ -1094,17 +1236,84 @@ def phase_model(experts: str) -> dict:
             "kernel_s": t_kern, "plain_s": t_plain}
 
 
+def _expert_shard(moe, offset: int, e_local: int):
+    """The MoE parameters with only experts [offset, offset + e_local):
+    every expert weight leads with the expert dim."""
+    ex = moe.experts
+    return dataclasses.replace(moe, experts=dataclasses.replace(ex, **{
+        f.name: getattr(ex, f.name)[offset:offset + e_local]
+        for f in dataclasses.fields(ex)}))
+
+
+def check_moe_shards(experts: str, ep: int = 8, tokens: int = 64) -> dict:
+    """The expert-parallel shard path of ``moe_block`` (``local_experts``,
+    ``expert_offset``: its routed part), as layer_bench runs V3_STYLE's
+    shard of 8 experts, on the card through K3 (or K6): V2_LITE_FULL's 64
+    experts in ``ep`` shards of 8, a batch of 64 tokens. The shards' f32
+    routed outputs must sum to the whole block's (each assignment is the
+    same row through the same kernel either way; only the f32 order of a
+    token's terms differs: rel-L2 < MOE_SHARD_REL_L2), and a shard's
+    output must be exactly zero for the tokens with no expert on it."""
+    cfg = V2_LITE_FULL
+    e, h = cfg.num_experts, cfg.hidden_size
+    e_local = e // ep
+    gen = _gen(140)
+    router = BF16Linear.create(gen, h, e, init_scale=0.02, device=DEV)
+    cls = moemod.Int8ExpertWeights if experts == "int8" else \
+        moemod.ExpertWeights
+    moe = moemod.MoEParams(
+        router=router, experts=cls.create(gen, e, h, cfg.moe_intermediate,
+                                          device=DEV),
+        shared_w1=None, shared_w2=None)
+    x = (torch.randn(tokens, h, generator=gen, device=DEV) * 0.1).to(
+        torch.bfloat16)
+    whole = moemod._moe_routed(moe, x, cfg)
+    _, idx = route_topk(router(x), cfg.top_k)
+    parts, stray = [], 0.0
+    for off in range(0, e, e_local):
+        part = moemod._moe_routed(_expert_shard(moe, off, e_local), x, cfg,
+                                  local_experts=e_local, expert_offset=off)
+        off_shard = ~((idx >= off) & (idx < off + e_local)).any(dim=1)
+        stray = max(stray, float(part[off_shard].abs().max())
+                    if bool(off_shard.any()) else 0.0)
+        parts.append(part)
+    torch.cuda.synchronize()
+    rel = float((sum(parts) - whole).norm() / whole.norm())
+    log(f"moe shards ({experts} experts): V2_LITE_FULL {e} experts in {ep} "
+        f"shards of {e_local}, {tokens} tokens: Σ shards vs whole rel-L2 "
+        f"{rel:.3g} (limit {MOE_SHARD_REL_L2:g}), largest output of a shard "
+        f"for tokens routed elsewhere {stray:g}")
+    if not rel < MOE_SHARD_REL_L2 or stray != 0.0 or \
+            not bool(torch.isfinite(whole).all()):
+        raise RuntimeError(f"moe shards ({experts}): rel-L2 {rel}, "
+                           f"off-shard output {stray}")
+    return {"rel_l2_sum_vs_whole": rel, "off_shard_max_abs": stray}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def _profile_decode_step(eng: Engine) -> dict:
     """One more decode step over all 16 slots (caches as serving left
     them) under torch.profiler: device kernel time against host wall time,
-    and the kernels that take the most device time."""
+    the step's kernel launches, and the kernels that take the most device
+    time. Before it, the same step five times unprofiled (host clock
+    around each, ended by a synchronize; the median), with the port's
+    wrapper launches in it counted: the host time per launch and the idle
+    share of an unprofiled step come from this one engine state."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     args = (eng.params, eng.last_tokens, eng.caches, eng.seq_lens, eng.cfg)
     decode_step(*args)
     torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        _kernels.reset_counters()
+        t0 = time.perf_counter()
+        decode_step(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wrapped = sum(c.launches for c in _kernels.COUNTERS.values())
+    unprofiled_ms = sorted(walls)[2]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1117,12 +1326,20 @@ def _profile_decode_step(eng: Engine) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
     log(f"  one decode step under torch.profiler: wall {wall_ms:.2f} ms, "
-        f"device kernels {device_ms:.2f} ms ({len(rows)} kernels), device "
-        f"idle share {max(0.0, 1 - device_ms / wall_ms):.2f}")
+        f"device kernels {device_ms:.2f} ms ({len(rows)} kernels, {launches} "
+        f"launches), device idle share {max(0.0, 1 - device_ms / wall_ms):.2f}")
+    log(f"  the same step unprofiled: wall {unprofiled_ms:.2f} ms (median of "
+        f"5: {[round(w, 2) for w in walls]}), {wrapped} of its launches "
+        f"through the port's wrappers; host "
+        f"{unprofiled_ms * 1e3 / max(launches, 1):.2f} us per launch, device idle "
+        f"share {max(0.0, 1 - device_ms / unprofiled_ms):.2f}")
     for key, ms, count in rows[:8]:
         log(f"    {ms:8.3f} ms  x{count:<4d} {key[:90]}")
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": launches,
+            "unprofiled_wall_ms": unprofiled_ms, "unprofiled_walls_ms": walls,
+            "wrapper_launches": wrapped,
             "top": [{"kernel": k, "ms": ms, "count": c}
                     for k, ms, c in rows[:12]]}
 
@@ -1345,9 +1562,9 @@ def phase_compat(device: dict) -> dict:
     if not dec_same:
         failures.append("masked alias did not return out")
     # The MoE layer's routed experts, timed both ways (after the counts).
-    moe_ms = {"contiguous_K8": time_ms(lambda: _deepgemm_routed(
+    moe_ms = {"contiguous_K8": cold_ms(lambda: _deepgemm_routed(
                   mp, x_moe, cfg), reps=5),
-              "masked_K3": time_ms(lambda: moemod._moe_routed(
+              "masked_K3": cold_ms(lambda: moemod._moe_routed(
                   mp, x_moe, cfg), reps=5)}
     picked = {f"{label} bf16": _picked(x.shape[0], w.shape[1], w.shape[0],
                                        torch.bfloat16)
@@ -1656,11 +1873,11 @@ def phase_cp(device: dict) -> dict:
         failures.append(f"K12 o-projection rel-L2 vs K1 {rel_folded:.3g}")
     if not finite or ref.shape != (1, s, heads, hd):
         failures.append(f"outputs not finite or misshapen ({ref.shape})")
-    timed = {"k4_whole_ms": time_ms(lambda: fpmod.flash_prefill_gqa(
+    timed = {"k4_whole_ms": cold_ms(lambda: fpmod.flash_prefill_gqa(
                  q, *cache, zero, lens), reps=3),
-             "ring_flash_cp1_ms": time_ms(lambda: ring_flash_prefill(
+             "ring_flash_cp1_ms": cold_ms(lambda: ring_flash_prefill(
                  q, *cache, cp=1), reps=3),
-             f"ring_flash_cp{CP_RANKS}_in_turn_ms": time_ms(
+             f"ring_flash_cp{CP_RANKS}_in_turn_ms": cold_ms(
                  lambda: _flash_ring_in_turn(q, shards), reps=3)}
     log(f"context-parallel prefill: V2_LITE attention ({heads} q / {kvh} kv "
         f"heads, hd {hd}), b=1, {s}-token prompt, int8 cache per token; "
@@ -1691,6 +1908,86 @@ def phase_cp(device: dict) -> dict:
             "counts": counts}
 
 
+# ---------------------------------------------------------------- phase 7
+
+def script_runs() -> list:
+    """(name, main, argv, the kernels the run must launch) of every
+    measurement script at full width; iterations and chain lengths cut
+    (not widths) to keep the phase short."""
+    dense = list(straggler_probe.PRIMES) + [(straggler_probe.BF16CUBE,) * 3]
+    splits = any(select_config(m, n, k, torch.bfloat16, torch.float32,
+                               device=DEV).kernel_type == KernelType.KSPLIT
+                 for m, n, k in dense)
+    probe = PROBE_PATH | ({"gemm_ksplit"} if splits else set())
+    layers = ["--configs", *LAYER_CONFIGS, "--batch", str(SCRIPT_BATCH),
+              "--cache-len", str(LAYER_CACHE), "--iters", "4",
+              "--min-chain", "0.05"]
+    cube = [str(d) for d in bench_shapes.HEADLINE]
+    steps = ["--steps", str(SERVE_STEPS)]
+    return [
+        ("straggler_probe", straggler_probe.main,
+         ["--iters", "8", "--min-chain", "0.02"], probe),
+        ("profile_kernel", profile_kernel.main,
+         ["--op", "fp8_gemm", "-m", cube[0], "-n", cube[1], "-k", cube[2],
+          "--check", "--min-chain", "0.05"], {"fp8_gemm"}),
+        ("headline", headline.main, [], {"fp8_gemm"}),
+        ("serve_bench scan", serve_bench.main,
+         ["--mode", "scan", "--model", "v2_lite", "--batch",
+          str(SCRIPT_BATCH), *steps, "--max-seq", str(SCAN_CACHE)],
+         DECODE_PATH),
+        ("serve_bench engine", serve_bench.main,
+         ["--mode", "engine", "--model", "v2_lite", "--batch",
+          str(ENGINE_SLOTS), *steps], FP8_PATH),
+        ("serve_bench mixed", serve_bench.main,
+         ["--mode", "mixed", "--model", "v2_lite", "--batch",
+          str(ENGINE_SLOTS), *steps], FP8_PATH),
+        ("layer_bench fp8", layer_bench.main, layers, DECODE_PATH),
+        ("layer_bench int8", layer_bench.main,
+         layers + ["--expert-quant", "int8"], DECODE_INT8_PATH)]
+
+
+def phase_scripts(device: dict) -> list:
+    """Each measurement script's ``main(argv)`` in this process, on the
+    card: the counters zeroed just before and read just after; each run
+    must return 0 and launch exactly its kernel set, no plain version. The
+    script's output is kept and printed."""
+    runs = []
+    for name, main_fn, argv, expected in script_runs():
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        _kernels.reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: (c.launches, c.plain_calls)
+                  for n, c in _kernels.COUNTERS.items()}
+        bare = {n: c.bare_launches for n, c in _kernels.COUNTERS.items()
+                if c.bare_launches}
+        lines = out.getvalue().splitlines()
+        log(f"{name} {' '.join(argv)}: rc {rc}, {wall:.2f} s wall; "
+            f"{device['smi']}")
+        for ln in lines:
+            log(f"  {ln[:600]}")
+        log(f"  counters (launches, plain calls): "
+            f"{ {n: c for n, c in counts.items() if any(c)} }"
+            + (f"; bare-entry launches {bare}" if bare else ""))
+        if rc != 0:
+            raise RuntimeError(f"{name}: rc {rc}")
+        if any(bool(launches) != (n in expected)
+               for n, (launches, _) in counts.items()):
+            raise RuntimeError(f"{name}: launches {counts}, expected exactly "
+                               f"{sorted(expected)}")
+        if any(calls for _, calls in counts.values()):
+            raise RuntimeError(f"{name}: a plain version ran: {counts}")
+        runs.append({"run": name, "argv": argv, "wall_s": wall,
+                     "lines": lines, "counts": counts,
+                     "bare_launches": bare})
+        torch.cuda.empty_cache()
+    return runs
+
+
 # ---------------------------------------------------------------- main
 
 HEADLINE = {"fp8_gemm": "m=16 n=22016 k=2048",
@@ -1706,7 +2003,8 @@ HEADLINE = {"fp8_gemm": "m=16 n=22016 k=2048",
             "fp8_gemm_folded": "m=16 n=22016 k=2048 b_layout=t",
             "flash_decode_read": "kvh=4 g=4",
             "flash_decode_state": "kvh=4 g=4",
-            "flash_prefill_stats": "start=0"}
+            "flash_prefill_stats": "start=0",
+            "copy_probe": "8x128"}
 NO_LIBRARY = {
     "grouped_gemm": "none: no PyTorch call runs a masked grouped product "
                     "with blockwise fp8 scales",
@@ -1723,8 +2021,10 @@ NO_LIBRARY = {
 
 
 def summarize(kernels: dict, runs: list) -> list:
-    """One entry per kernel: launches in the serving runs, the headline
-    shape's phase-2 numbers and its library yardstick."""
+    """One entry per kernel: its launches through its wrapper in the driven
+    runs (phases 4 to 7) and, apart, those of its bare C entry (P0's
+    dispatch floor, which no wrapper counts), the headline shape's phase-2
+    numbers and its library yardstick."""
     summary = []
     for name, (source, replaces) in KERNELS.items():
         rows = kernels["checks"][name]
@@ -1741,6 +2041,8 @@ def summarize(kernels: dict, runs: list) -> list:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run,
+            "bare_launches": sum(run.get("bare_launches", {}).get(name, 0)
+                                 for run in runs),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1760,7 +2062,9 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     kernels = phase_kernels()
     log("phase 3: model, kernel path against plain path")
-    model = {experts: phase_model(experts) for experts in ("fp8", "int8")}
+    model = {experts: {**phase_model(experts),
+                       "shards": check_moe_shards(experts)}
+             for experts in ("fp8", "int8")}
     log("phase 4: serving, fp8 experts then int8 experts")
     runs = []
     for experts in ("fp8", "int8"):
@@ -1770,12 +2074,18 @@ def main() -> int:
     runs.append(phase_compat(device))
     log("phase 6: context-parallel prefill and the direct attention/fp8 ops")
     runs.append(phase_cp(device))
+    torch.cuda.empty_cache()
+    log("phase 7: the measurement scripts")
+    runs += phase_scripts(device)
     summary = summarize(kernels, runs)
     log("kernels " + " | ".join(
-        f"{k['name']}: launches={k['launches_by_run']} ok ms={k['ms']:.4f} "
+        f"{k['name']}: launches="
+        f"{ {r: n for r, n in k['launches_by_run'].items() if n} } "
+        f"ok ms={k['ms']:.4f} "
         f"bound_ms={k['bound_ms']:.4f}" for k in summary))
     report = {"device": device, "kernels": kernels, "model": model,
               "serving": runs[:2], "compat": runs[2], "cp": runs[3],
+              "scripts": runs[4:],
               "total_s": time.perf_counter() - t_start}
     if report_path:
         os.makedirs(os.path.dirname(report_path) or ".", exist_ok=True)

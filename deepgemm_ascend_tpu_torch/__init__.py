@@ -10,13 +10,20 @@ which is what the CPU tests hold against the JAX package.
 Ported so far: single-device MoE serving (``models``, ``serving``) with FP8
 or W8A8 int8 experts (``models.params_with_int8_experts``); the
 reference-compatible API (:mod:`.compat`: ``run_mmad_*`` and the DeepGEMM
-aliases); and ten kernels — the dense GEMM :func:`gemm` / :func:`bgemm` /
-:func:`gemm_with_config` (K10, and K11 when :func:`select_config` or the
-caller picks split-K), :func:`fp8_gemm`, :func:`m_grouped_gemm_contiguous`,
-:func:`m_grouped_gemm_masked`, :func:`flash_decode_gqa_inplace`,
-:func:`flash_prefill_gqa`, and the int8 family :func:`int8_gemm`,
-:func:`m_grouped_int8_gemm_contiguous`, :func:`m_grouped_int8_gemm_masked`
-(with :func:`make_contiguous_layout`, which plans the contiguous layouts).
+aliases); context-parallel prefill (:mod:`.parallel`); the measurement
+layer (:mod:`.bench`, ``utils/golden.py``) and the benchmark scripts
+(:mod:`.scripts`, run as ``python -m deepgemm_ascend_tpu_torch.scripts.
+<name>``); and all fifteen kernels behind them — the dense GEMM
+:func:`gemm` / :func:`bgemm` / :func:`gemm_with_config` (K10, and K11 when
+:func:`select_config` or the caller picks split-K), :func:`fp8_gemm` (K1;
+K12 with ``scale_mode="folded"``), :func:`m_grouped_gemm_contiguous` (K8),
+:func:`m_grouped_gemm_masked` (K3), :func:`flash_decode_gqa_inplace`,
+:func:`flash_decode_gqa`, :func:`flash_decode_gqa_state` (K2, K5a, K5b),
+:func:`flash_prefill_gqa` (K4, K4-stats), the int8 family
+:func:`int8_gemm`, :func:`m_grouped_int8_gemm_contiguous`,
+:func:`m_grouped_int8_gemm_masked` (K7, K9, K6; with
+:func:`make_contiguous_layout`, which plans the contiguous layouts), and
+the dispatch probe P0 (``ops/dispatch_probe.py``).
 The package never imports ``jax`` or ``deepgemm_ascend_tpu``.
 """
 

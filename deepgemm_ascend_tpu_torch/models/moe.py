@@ -1,7 +1,9 @@
 """MoE block: top-k routing + masked grouped GEMM experts, FP8 or W8A8 int8.
 
-Port of ``deepgemm_ascend_tpu/models/moe.py`` for one device (expert
-parallelism waits for a later slice). DeepSeek-style: routed experts plus
+Port of ``deepgemm_ascend_tpu/models/moe.py`` for one device: an expert-
+parallel shard's compute is ``moe_block(local_experts=, expert_offset=)``
+(its psum over the shards waits for ``parallel/sharded.py``).
+DeepSeek-style: routed experts plus
 always-on shared expert(s), SwiGLU in each expert. The routed experts hold
 FP8 blockwise weights (:class:`ExpertWeights`, kernel K3) or W8A8 int8
 per-channel weights (:class:`Int8ExpertWeights`, kernel K6;
@@ -192,9 +194,18 @@ def moe_block(
     x: torch.Tensor,            # (T, hidden) bf16
     cfg: ModelConfig,
     *,
+    local_experts: Optional[int] = None,
+    expert_offset: int = 0,
     token_chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """One MoE FFN over a flat token batch.
+
+    Under expert parallelism, ``params.experts`` holds this shard's
+    ``local_experts`` experts, global ids [expert_offset, expert_offset +
+    local_experts): routing runs over all ``cfg.num_experts`` as on every
+    shard, and only the assignments to local experts are computed; the
+    others contribute zero (summing the shards' outputs gives the whole
+    block).
 
     Large token batches run in chunks of ``token_chunk`` tokens (default:
     ``params.token_chunk``): the dispatch buffer is (E, T·K, hidden) at
@@ -204,14 +215,16 @@ def moe_block(
     """
     t, hidden = x.shape
     tc = token_chunk if token_chunk is not None else params.token_chunk
+    shard = dict(local_experts=local_experts, expert_offset=expert_offset)
     if tc and t > tc:
         nc = -(-t // tc)
         pad = nc * tc - t
         xp = torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
-        out = torch.cat([_moe_routed(params, xp[i * tc:(i + 1) * tc], cfg)
+        out = torch.cat([_moe_routed(params, xp[i * tc:(i + 1) * tc], cfg,
+                                     **shard)
                          for i in range(nc)])[:t]
     else:
-        out = _moe_routed(params, x, cfg)
+        out = _moe_routed(params, x, cfg, **shard)
 
     if params.shared_w1 is not None:
         sh = _swiglu(params.shared_w1(x))
@@ -219,23 +232,38 @@ def moe_block(
     return out.to(torch.bfloat16)
 
 
-def _moe_routed(params: MoEParams, x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
+                local_experts: Optional[int] = None,
+                expert_offset: int = 0) -> torch.Tensor:
     """The routed-expert computation for one token block → (t, hidden) f32."""
     t, hidden = x.shape
     e_total = cfg.num_experts
+    e_local = local_experts or e_total
     logits = params.router(x)
     weights, topk_idx = route_topk(logits, cfg.top_k)
     slot, masked_m, cap = dispatch_masked(topk_idx, e_total)
 
-    # Scatter tokens into the fixed (E, cap, hidden) buffer: row t·K + k of
-    # the flat assignment list goes to (expert, slot).
+    # Scatter tokens into the fixed (E_local, cap, hidden) buffer: row
+    # t·K + k of the flat assignment list goes to (expert, slot). On a
+    # shard, assignments to other shards' experts go as zeros to (0, cap-1),
+    # as in the JAX package. No real row lands there: an expert gets at
+    # most T of the cap = T·K rows (top-k picks distinct experts), and
+    # with K = 1 one off-shard assignment leaves expert 0 fewer than T.
+    rows = torch.repeat_interleave(x.to(torch.bfloat16), cfg.top_k, dim=0)
+    in_shard = None
+    if e_local != e_total or expert_offset:
+        local = topk_idx - expert_offset
+        in_shard = ((local >= 0) & (local < e_local)).reshape(-1)
+        topk_idx = torch.where(in_shard.reshape(t, -1), local, 0)
+        slot = torch.where(in_shard.reshape(t, -1), slot, cap - 1)
+        rows = torch.where(in_shard[:, None], rows, 0)
+        masked_m = masked_m[expert_offset:expert_offset + e_local]
     e_flat = topk_idx.reshape(-1).to(torch.int64)
     s_flat = slot.reshape(-1).to(torch.int64)
-    buf = torch.zeros((e_total, cap, hidden), dtype=torch.bfloat16,
+    buf = torch.zeros((e_local, cap, hidden), dtype=torch.bfloat16,
                       device=x.device)
-    buf[e_flat, s_flat] = torch.repeat_interleave(x.to(torch.bfloat16),
-                                                  cfg.top_k, dim=0)
+    buf[e_flat, s_flat] = rows
+    del rows
 
     # Expert SwiGLU through the masked grouped GEMM of the experts' type:
     # fp8 blockwise (K3) or W8A8 int8 with per-token scales (K6).
@@ -256,5 +284,8 @@ def _moe_routed(params: MoEParams, x: torch.Tensor,
              b_layout="t")                                 # (E, cap, hidden)
 
     # Gather back + weighted combine.
-    gathered = y[e_flat, s_flat].reshape(t, cfg.top_k, hidden)
+    gathered = y[e_flat, s_flat]
+    if in_shard is not None:
+        gathered = torch.where(in_shard[:, None], gathered, 0)
+    gathered = gathered.reshape(t, cfg.top_k, hidden)
     return torch.sum(gathered.to(torch.float32) * weights[:, :, None], dim=1)

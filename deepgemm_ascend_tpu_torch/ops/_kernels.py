@@ -16,11 +16,14 @@ every buffer.
 A source may export several kernels, each a C entry point with its own
 signature (``csrc/int8_gemm.cu`` and ``csrc/flash_decode.cu`` hold three,
 ``csrc/gemm.cu``, ``csrc/grouped_gemm.cu``, ``csrc/fp8_gemm.cu`` and
-``csrc/flash_prefill.cu`` two each). Each kernel has a
+``csrc/flash_prefill.cu`` two each, ``csrc/dispatch_probe.cu`` one). Each
+kernel has a
 :class:`Counter`, keyed by the kernel's name: ``launches`` is bumped by its
 wrapper right where the kernel is launched, ``plain_calls`` by its plain
-PyTorch version. ``chip_smoke.py`` zeroes them around each serving run to
-show which kernels the run really went through.
+PyTorch version, ``bare_launches`` by a caller that launches the C entry
+with no wrapper (P0's dispatch floor, ``scripts/straggler_probe.py``).
+``chip_smoke.py`` zeroes them around each serving run to show which
+kernels the run really went through.
 """
 
 from __future__ import annotations
@@ -84,21 +87,25 @@ KERNELS = {
                                 _INT8_GROUPED),
     "int8_grouped_masked": ("int8_gemm", "dga_int8_grouped_masked",
                             _INT8_GROUPED),
+    "copy_probe": ("dispatch_probe", "dga_copy_probe", [_P, _P, _I, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))
 
 
 @dataclasses.dataclass
 class Counter:
-    """Launch count of one kernel and call count of its plain version."""
+    """Launch count of one kernel (through its wrapper, and bare), and call
+    count of its plain version."""
 
     name: str
     launches: int = 0
     plain_calls: int = 0
+    bare_launches: int = 0
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.bare_launches = 0
 
 
 COUNTERS: Dict[str, Counter] = {n: Counter(n) for n in KERNELS}

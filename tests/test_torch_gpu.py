@@ -214,7 +214,7 @@ def _cache(b, kvh, s_max, hd, dev, seed):
     return k_q, k_s, v_q, v_s
 
 
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", [1, 4, 8])
 @pytest.mark.parametrize("split_keys", [128, 512])
 def test_flash_decode_kernel_matches_plain(dev, g, split_keys, monkeypatch):
     """5 spans of 128 keys (lengths ending mid-span and on a span edge)
@@ -611,3 +611,48 @@ def test_flash_kernels_refuse_an_unsupported_head_dim(dev):
     with pytest.raises(ValueError, match="group"):
         fdmod.flash_decode_gqa_state(torch.zeros(1, 3, 128, device=dev),
                                      *_cache(1, 1, 128, 128, dev, 29), lens)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1, 1), (3, 333), (32, 32)])
+def test_copy_probe_kernel_is_a_bitwise_copy(dev, shape):
+    from deepgemm_ascend_tpu_torch.ops import dispatch_probe as dp
+    x = torch.randn(shape, generator=_gen(40, dev), device=dev)
+    x.view(-1)[0] = float("nan")
+    _kernels.reset_counters()
+    got = dp.copy_probe(x)
+    bare = torch.empty_like(x)
+    entry, args = dp.raw_launch(x, bare)
+    _kernels.check(entry(*args), "copy_probe")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), x.view(torch.int32))
+    assert torch.equal(bare.view(torch.int32), x.view(torch.int32))
+    assert dp.COUNTER.launches == 1 and dp.COUNTER.plain_calls == 0
+
+
+def test_dispatch_floor_counts_its_bare_launches(dev):
+    """The probe's bare-entry launches go to ``bare_launches``: a warm-up
+    and `repeats` chains of the wrapper's `iters` on events, a warm-up and
+    `launches` on the host clock — as many as through the wrapper."""
+    from deepgemm_ascend_tpu_torch.scripts import straggler_probe
+    _kernels.reset_counters()
+    floor = straggler_probe.dispatch_floor(dev, 50, dict(iters=8, repeats=2))
+    c = _kernels.COUNTERS["copy_probe"]
+    assert c.bare_launches == c.launches == 1 + 2 * 8 + 1 + 50
+    assert c.plain_calls == 0
+    assert all(v > 0 for v in floor.values())
+
+
+def test_timers_on_a_k1_call(dev):
+    """bench.timing on the card: the warm chain grows to min_chain_seconds;
+    a cold launch (L2 flushed) is no faster than a warm one."""
+    from deepgemm_ascend_tpu_torch.bench import timing
+    a_q, a_s, b_q, b_s = _operands(2048, 2048, 2048, True, dev)
+    call = lambda: fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout="t")
+    warm = timing.time_fn(call, (), iters=2, repeats=2,
+                          min_chain_seconds=0.05, device=dev)
+    assert warm.iters > 2 and warm.total_seconds >= 0.02
+    assert warm.rpc_floor_seconds == 0.0 and 1e-6 < warm.seconds < 0.1
+    cold = timing.cold_ms(call)
+    assert 1e-3 < cold < 100
+    assert cold >= 0.5 * warm.seconds * 1e3
+

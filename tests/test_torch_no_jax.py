@@ -46,6 +46,15 @@ def test_importing_the_port_loads_no_jax():
         "import deepgemm_ascend_tpu_torch.compat.deep_gemm\n"
         "import deepgemm_ascend_tpu_torch.tiling\n"
         "import deepgemm_ascend_tpu_torch.parallel\n"
+        "import deepgemm_ascend_tpu_torch.bench\n"
+        "import deepgemm_ascend_tpu_torch.bench.records\n"
+        "import deepgemm_ascend_tpu_torch.utils.golden\n"
+        "import deepgemm_ascend_tpu_torch.ops.dispatch_probe\n"
+        "import deepgemm_ascend_tpu_torch.scripts.straggler_probe\n"
+        "import deepgemm_ascend_tpu_torch.scripts.profile_kernel\n"
+        "import deepgemm_ascend_tpu_torch.scripts.headline\n"
+        "import deepgemm_ascend_tpu_torch.scripts.serve_bench\n"
+        "import deepgemm_ascend_tpu_torch.scripts.layer_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deepgemm_ascend_tpu'))\n"
         "print(bad)\n"

@@ -1,0 +1,154 @@
+"""The port's measurement scripts, run in process on the CPU at small sizes.
+
+Each script's ``main([... "--device", "cpu"])`` — or, where its shapes are
+fixed at full size (the probe's rows, the headline), the function the CLI
+calls with those shapes — runs the plain path and prints its line with the
+JAX script's keys. No number printed here is a device measurement; the
+tests check the lines' form, the counts of kernels reached (plain versions
+on the CPU), and that the serve_bench modes the port lacks raise
+``NotImplementedError`` rather than skip.
+"""
+
+import json
+
+import pytest
+import torch
+
+from deepgemm_ascend_tpu_torch.ops import _kernels
+from deepgemm_ascend_tpu_torch.scripts import (headline, layer_bench,
+                                               profile_kernel, serve_bench,
+                                               straggler_probe)
+
+CPU = ["--device", "cpu"]
+T_KW = dict(iters=2, repeats=1, min_chain_seconds=0.0)
+
+
+def _json_lines(out: str):
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def _plain_calls():
+    return {n: c.plain_calls for n, c in _kernels.COUNTERS.items()
+            if c.plain_calls}
+
+
+def test_probe_dispatch_floor_on_cpu(capsys):
+    _kernels.reset_counters()
+    floor = straggler_probe.dispatch_floor(torch.device("cpu"), 5, T_KW)
+    assert set(floor) == {"cpu_chain_us", "host_us"}
+    assert all(v > 0 for v in floor.values())
+    assert "[probe] dispatch floor (P0" in capsys.readouterr().out
+    assert set(_plain_calls()) == {"copy_probe"}
+    assert _kernels.COUNTERS["copy_probe"].launches == 0
+    assert _kernels.COUNTERS["copy_probe"].bare_launches == 0
+
+
+@pytest.mark.parametrize("row", straggler_probe.ROWS)
+def test_probe_rows_at_small_shapes(row, capsys):
+    cpu = torch.device("cpu")
+    _kernels.reset_counters()
+    if row == "fp8small":
+        res = straggler_probe.row_fp8small(16, 256, 256, cpu, T_KW)
+        want = {"fp8_gemm", "fp8_gemm_folded"}
+    elif row == "masked":
+        res = straggler_probe.row_masked(2, 32, 256, 256, cpu, T_KW)
+        want = {"grouped_gemm", "grouped_gemm_contiguous"}
+    elif row == "primes":
+        res = straggler_probe.row_primes(((33, 97, 300),), cpu, T_KW)
+        want = {"gemm"}
+    else:
+        res = straggler_probe.row_bf16cube(128, cpu, T_KW)
+        want = {"gemm"}
+    out = capsys.readouterr().out
+    assert set(_plain_calls()) == want
+    timed = [r for r in res if "us" in r]
+    assert timed and all(r["us"] > 0 and r["pct_ls"] > 0 for r in timed)
+    na = [r for r in res if "na" in r]
+    assert all(r["tag"] in out for r in res)
+    if row != "primes":          # the JAX block-size variants
+        assert na and any(r["na"] == straggler_probe.FIXED_TILE for r in na)
+
+
+@pytest.mark.parametrize("op", ["fp8_gemm", "gemm"])
+def test_profile_kernel_main(op, tmp_path, capsys):
+    argv = ["--op", op, "-m", "64", "-n", "256", "-k", "256", "--check",
+            "--iters", "2", "--min-chain", "0", "--trace-dir",
+            str(tmp_path)] + CPU
+    assert profile_kernel.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "[profile] correctness: ok=True" in out
+    assert f"[profile] {op} 64x256x256 cfg=auto:" in out
+    assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+def test_headline_line_at_small_size():
+    line = headline.run(256, "cpu", iters=2)
+    assert set(line) >= {"metric", "value", "unit", "vs_baseline"}
+    # value is rounded to 0.01 TFLOP/s, as in bench.py: 0.0 on a slow CPU.
+    assert line["metric"] == "fp8_gemm_256_tflops" and line["value"] >= 0
+    assert "error" not in line and line["unit"] == "TFLOP/s"
+
+
+SERVE = ["--model", "tiny", "--batch", "2", "--steps", "4"] + CPU
+
+
+@pytest.mark.parametrize("mode,quant,keys", [
+    ("scan", "fp8", {"metric", "mode", "expert_quant", "model", "batch",
+                     "steps", "max_seq", "flash_decode", "tokens_per_s",
+                     "ms_per_step"}),
+    ("scan", "int8", {"tokens_per_s", "ms_per_step"}),
+    ("engine", "fp8", {"metric", "mode", "expert_quant", "speculative_k",
+                       "spec_drafting", "spec_accept_rate", "model", "slots",
+                       "decode_chunk", "tokens_per_s", "decode_steps"}),
+    ("mixed", "fp8", {"metric", "mode", "model", "slots", "requests",
+                      "decode_chunk", "tokens_per_s_wall", "prefills",
+                      "prefill_dispatches"})])
+def test_serve_bench_modes(mode, quant, keys, capsys):
+    _kernels.reset_counters()
+    assert serve_bench.main(["--mode", mode, "--expert-quant", quant]
+                            + SERVE) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert keys <= set(line) and line["mode"] == mode
+    rate = line.get("tokens_per_s", line.get("tokens_per_s_wall"))
+    assert rate > 0
+    experts = "int8_grouped_masked" if quant == "int8" else "grouped_gemm"
+    assert experts in _plain_calls()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "chunksweep"], ["--mode", "prefix"], ["--mode", "scaling"],
+    ["--mode", "engine", "--speculative-k", "2"]])
+def test_serve_bench_unported_modes_raise(argv, capsys):
+    with pytest.raises(NotImplementedError):
+        serve_bench.main(argv + SERVE)
+    assert not _json_lines(capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("quant", ["fp8", "int8"])
+def test_layer_bench_main(quant, capsys):
+    _kernels.reset_counters()
+    assert layer_bench.main(["--configs", "tiny:1", "tiny:2", "--batch", "4",
+                             "--cache-len", "64", "--iters", "2",
+                             "--min-chain", "0", "--expert-quant", quant]
+                            + CPU) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2 and all(ln.startswith("[layer_bench] tiny ep=")
+                                   and "ms/layer" in ln and "tok/s" in ln
+                                   for ln in lines)
+    assert "(E_local=4)" in lines[1]
+    experts = "int8_grouped_masked" if quant == "int8" else "grouped_gemm"
+    assert set(_plain_calls()) == {"fp8_gemm", "flash_decode", experts}
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the CPU-only host: the default device is CUDA")
+    for main in (straggler_probe.main, headline.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_kernel.main(["-m", "8", "-n", "128", "-k", "128"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_bench.main(["--model", "tiny"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        layer_bench.main(["--configs", "tiny:1"])
