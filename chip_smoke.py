@@ -16,7 +16,14 @@ Phases, each of which raises on failure (exit code ≠ 0):
    and, where one PyTorch call computes the same function, that call's
    time (``torch._int_mm`` for K7's integer product; ``torch._scaled_mm``
    with blockwise scales for K1, where this torch accepts them;
-   ``torch.matmul`` for the dense GEMMs K10 and K11). The int8 kernels
+   ``torch.matmul`` for the dense GEMMs K10 and K11). Every K10 row shows
+   its route (``ops.gemm.route``: wgmma where TMA can describe the
+   operands, else mma_tile), its time before the Hopper redesign
+   (``prev_ms``: quoted from ``PREV_MS``, not measured in the run; in the
+   log and the report only) and, for 16-bit inputs, its time with bf16
+   output beside
+   cuBLAS's 16-bit one (``bf16_out_ms``, also checked); every K12 row its
+   route (always the new kernel) and earlier time. The int8 kernels
    (K7, K9, K6) must equal their plain versions bit for bit. The dense
    GEMM's shapes that ``select_config`` sends to split-K (K11) are listed,
    and K11 is timed beside K10 there. The folded-scale fp8 GEMM (K12) at
@@ -150,7 +157,7 @@ from deepgemm_ascend_tpu_torch.ops.flash_common import (PV_ROUNDING,
 from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8mod
 from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm,
                                                 gemm_ksplit_plain, gemm_plain,
-                                                gemm_with_config)
+                                                gemm_with_config, route)
 from deepgemm_ascend_tpu_torch.parallel import (ring_attention_prefill,
                                                 ring_flash_prefill,
                                                 zigzag_inverse, zigzag_order)
@@ -270,6 +277,59 @@ ENGINE_SLOTS = 16
 SERVE_STEPS = 64
 LAYER_CONFIGS = ("v2_lite_full:1", "v3_style:32")
 
+# K10's and K12's times before their Hopper redesign, from the report of
+# the last run of this script's phase 2 on the kernels of that time (the
+# run that added the probe's and the 4096³ rows; cold ms, NVIDIA H100
+# 80GB HBM3, 700.00 W). Each such row prints its earlier time beside the
+# new one as prev_ms, labelled as that run's; it is quoted, not measured,
+# so the kernels line leaves it out.
+PREV_MS = {
+    "gemm": {
+        "m=16 n=2048 k=2048 bf16 nn": 0.0459,
+        "m=2048 n=2048 k=2048 bf16 nn": 0.1041,
+        "m=16 n=512 k=2048 bf16 nn": 0.0451,
+        "m=2048 n=512 k=2048 bf16 nn": 0.0464,
+        "m=16 n=22016 k=2048 bf16 nn": 0.0631,
+        "m=2048 n=22016 k=2048 bf16 nn": 1.1894,
+        "m=16 n=2048 k=11008 bf16 nn": 0.2276,
+        "m=2048 n=2048 k=11008 bf16 nn": 0.5061,
+        "m=16 n=2816 k=2048 bf16 nn": 0.0464,
+        "m=2048 n=2816 k=2048 bf16 nn": 0.1499,
+        "m=16 n=2048 k=1408 bf16 nn": 0.0337,
+        "m=2048 n=2048 k=1408 bf16 nn": 0.0757,
+        "m=2048 n=2048 k=2048 fp16 nn": 0.1049,
+        "m=2048 n=2048 k=2048 f32 nn": 1.0557,
+        "m=2048 n=2048 k=2048 bf16 nt": 0.1244,
+        "m=2048 n=2048 k=2048 bf16 tn": 0.1068,
+        "m=2048 n=2048 k=2048 bf16 tt": 0.1058,
+        "m=33 n=97 k=1000 bf16 nn": 0.08,
+        "batch=4 m=2048 n=2048 k=2048 bf16 nn": 0.3822,
+        "m=1279 n=5003 k=7681 bf16 nn": 2.9927,
+        "m=1279 n=5120 k=7808 bf16 nn": 0.7383,
+        "m=3511 n=6151 k=8191 bf16 nn": 11.4618,
+        "m=3511 n=6272 k=8192 bf16 nn": 2.2072,
+        "m=5119 n=6997 k=9901 bf16 nn": 21.609,
+        "m=5119 n=7040 k=9984 bf16 nn": 4.18,
+        "m=4096 n=4096 k=4096 bf16 nn": 0.8235,
+    },
+    "fp8_gemm_folded": {
+        "m=64 n=512 k=2048 b_layout=t": 0.0377,
+        "m=16 n=2048 k=2048 b_layout=t": 0.0376,
+        "m=2048 n=2048 k=2048 b_layout=t": 0.1028,
+        "m=16 n=512 k=2048 b_layout=t": 0.0382,
+        "m=2048 n=512 k=2048 b_layout=t": 0.0393,
+        "m=16 n=22016 k=2048 b_layout=t": 0.0525,
+        "m=2048 n=22016 k=2048 b_layout=t": 1.0136,
+        "m=16 n=2048 k=11008 b_layout=t": 0.1807,
+        "m=2048 n=2048 k=11008 b_layout=t": 0.505,
+        "m=16 n=2816 k=2048 b_layout=t": 0.0376,
+        "m=2048 n=2816 k=2048 b_layout=t": 0.1384,
+        "m=16 n=2048 k=1408 b_layout=t": 0.028,
+        "m=2048 n=2048 k=1408 b_layout=t": 0.0732,
+        "m=2048 n=2048 k=2048 b_layout=n": 0.2651,
+    },
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -324,7 +384,28 @@ def phase_device() -> dict:
         regs = [ln.strip() for ln in text.splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"  ptxas {src}: {regs[:2]}")
-    return {"name": name, "count": count, "smi": smi, "build_s": build_s}
+    sm90 = sm90_instances(_kernels.build_log())
+    for inst in sm90:
+        log(f"  ptxas {inst}")
+    return {"name": name, "count": count, "smi": smi, "build_s": build_s,
+            "sm90_instances": sm90}
+
+
+def sm90_instances(logs: dict) -> list:
+    """Stack, spills and registers of every instance of the Hopper main
+    loop's kernels (K10's wgmma route, K12), from nvcc's -Xptxas -v, under
+    their mangled names (the template arguments: tile, stages, layout
+    flags, types)."""
+    out = []
+    for text in logs.values():
+        lines = text.splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln and (
+                    "gemm_sm90" in ln or "folded_sm90" in ln):
+                props = " ".join(x.strip() for x in lines[i + 2:i + 4])
+                name = ln.split("'")[1]
+                out.append(f"{name}: {props}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -661,34 +742,50 @@ def check_gemm(m: int, n: int, k: int, seed: int, dtype=torch.bfloat16,
                layout: str = "nn", batch: int = 0) -> dict:
     """K10 (forced with the COMMON config) against its plain version;
     ``batch`` > 0 runs ``bgemm`` over that many products in one launch.
-    Library yardstick: torch.matmul on the same operands in their own type
-    (cuBLAS; for 16-bit inputs it stores 16-bit outputs, half of K10's
-    f32 store)."""
+    Its route (wgmma where TMA can describe the operands, else mma_tile),
+    its time before the Hopper redesign, and for 16-bit inputs its time
+    with bf16 output: the like-for-like yardstick of torch.matmul
+    (cuBLAS), which stores 16-bit outputs, half of K10's f32 store."""
     lead = (batch,) if batch else ()
     a_in, b_in, a, b = _dense_operands(lead, m, n, k, dtype, layout, seed)
     a_t, b_t = layout[0] == "t", layout[1] == "t"
-    if batch:
-        run = lambda: bgemm(a_in, b_in, config=COMMON)
-    else:
-        run = lambda: gemm_with_config(a_in, b_in, config=COMMON,
-                                       layout=layout)
+
+    def run(out_dtype=torch.float32):
+        if batch:
+            return bgemm(a_in, b_in, config=COMMON, out_dtype=out_dtype)
+        return gemm_with_config(a_in, b_in, config=COMMON, layout=layout,
+                                out_dtype=out_dtype)
+
     plain = lambda: gemm_plain(a_in, b_in, a_t=a_t, b_t=b_t)
     got, ref = run(), plain()
     torch.cuda.synchronize()
     b_ms, b_by = _gemm_bound(max(batch, 1), m, n, k, dtype)
     name = {torch.bfloat16: "bf16", torch.float16: "fp16",
             torch.float32: "f32"}[dtype]
-    return {"shape": (f"batch={batch} " if batch else "")
-            + f"m={m} n={n} k={k} {name} {layout}",
+    shape = (f"batch={batch} " if batch else "") + \
+        f"m={m} n={n} k={k} {name} {layout}"
+    ok = gemm_close(got, ref, a, b)
+    bf16_ms = None
+    if dtype != torch.float32:
+        got16 = run(torch.bfloat16)
+        ref16 = gemm_plain(a_in, b_in, a_t=a_t, b_t=b_t,
+                           out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        ok = ok and gemm_close(got16, ref16, a, b)
+        bf16_ms = cold_ms(lambda: run(torch.bfloat16))
+    return {"shape": shape,
             "picked": _picked(m, n, k, dtype),
-            "ok": gemm_close(got, ref, a, b),
+            "route": route(a_in, b_in, layout),
+            "ok": ok,
             "max_abs_err": float((got - ref).abs().max()),
             "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
+            "prev_ms": PREV_MS["gemm"].get(shape),
+            "bf16_out_ms": bf16_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cold_ms(lambda: torch.matmul(a, b)),
             "library_note": "torch.matmul (cuBLAS) on the same operands; "
                             + ("f32 output" if dtype == torch.float32 else
-                               "16-bit output, half of K10's f32 store")}
+                               "16-bit output (bf16_out_ms is K10's)")}
 
 
 def check_ksplit(m: int, n: int, k: int, splits: int, seed: int,
@@ -784,7 +881,9 @@ def check_fp8_folded(m: int, n: int, k: int, seed: int,
     kb = k // 128
     nbytes = m * k + m * kb * 4 + n * k + (n // 128) * kb * 4 + m * n * 2
     b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, BF16_OPS_PER_S)
-    return {"shape": f"m={m} n={n} k={k} b_layout={b_layout}",
+    shape = f"m={m} n={n} k={k} b_layout={b_layout}"
+    return {"shape": shape, "route": "wgmma",
+            "prev_ms": PREV_MS["fp8_gemm_folded"].get(shape),
             "ok": gemm_close(got, ref, a_sc, b_sc) and rel < FOLDED_REL_L2,
             "rel_l2_vs_k1": rel,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
@@ -1103,6 +1202,11 @@ def phase_kernels() -> dict:
                 + (f" library_ms={r['library_ms']}" if "library_ms" in r
                    else "")
                 + (f" select_config={r['picked']}" if "picked" in r else "")
+                + (f" route={r['route']}" if "route" in r else "")
+                + (f" prev_ms(before the redesign, quoted)={r['prev_ms']}"
+                   if r.get("prev_ms") else "")
+                + (f" bf16_out_ms={r['bf16_out_ms']:.4f}"
+                   if r.get("bf16_out_ms") else "")
                 + (f" K10 ms={r['k10_ms']:.4f} ({r['why']})" if "k10_ms" in r
                    else "")
                 + (f" with fold ms={r['library_with_fold_ms']:.4f} rel-L2 vs "
@@ -2048,7 +2152,8 @@ def summarize(kernels: dict, runs: list) -> list:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": lib_ms,
             "library_note": lib_note or NO_LIBRARY.get(name),
-            "shape": head["shape"]})
+            "shape": head["shape"],
+            **({"path": head["route"]} if "route" in head else {})})
     return summary
 
 

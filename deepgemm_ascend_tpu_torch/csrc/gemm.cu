@@ -5,19 +5,43 @@
 //   K11 _ksplit_kernel (:219, call :269) split-K, nn       -> dga_gemm_ksplit
 // Both compute C = A . B with an f32 accumulator held across the block's
 // whole K range; A is stored (m, k) or, transposed, (k, m); B (k, n) or
-// (n, k). They share one kernel: a block owns one 64 x 64 output tile and
-// one K range [k_begin, k_end). K10 gives every block all of K and rounds
-// the accumulator once to the output type (RN), as acc_ref[:].astype(
-// out_dtype) does (:90). K11 gives block (s, tile) the 64-deep K blocks
+// (n, k). The accumulator is rounded once to the output type (RN), as
+// acc_ref[:].astype(out_dtype) does (:90).
+//
+// Two routes, chosen by the caller (ops/gemm.py:route) and passed in; an
+// entry refuses (cudaErrorInvalidValue) a route it cannot take, so no call
+// switches routes silently.
+//
+// Route 1, "wgmma" (K10, bf16/fp16 inputs whose operands TMA can describe:
+// 16-byte aligned bases, row and batch pitches that are multiples of 16
+// bytes): the Hopper main loop of sm90_gemm.cuh. A producer warp keeps a
+// ring of shared-memory stages filled by TMA (64-deep K blocks, 128-byte
+// swizzle, out-of-bounds boxes zero-filled: the K tail and the M/N edges
+// need no mask), and consumer warpgroups run wgmma.mma_async on them, each
+// owning 64 rows of the tile, with setmaxnreg moving registers from the
+// producer warpgroup to them. Tiles: 128 x 256 (two consumer warpgroups,
+// 4 stages of 48 KB) for m > 64; 64 x 64 (one consumer, 6 stages of 16 KB,
+// two blocks an SM) for m <= 64, where the operand bytes bound the kernel
+// and the stages keep B streaming, and wherever 128 x 256 tiles would
+// leave most SMs idle. Operands stored with K as the row index
+// (A (k, m), B (k, n)) are read MN-major through wgmma's transpose bits.
+// The grid is 1-D over the output tiles in bands of 16 (sm90::tile_of)
+// and z over the batch; the kernel takes a K range, which K10 sets to all
+// of K.
+//
+// Route 0, "mma_tile" (every shape: K11, f32 inputs, and 16-bit operands
+// TMA cannot describe, such as an odd leading dimension): a block owns one
+// 64 x 64 output tile and one K range [k_begin, k_end). K10 gives every
+// block all of K. K11 gives block (s, tile) the 64-deep K blocks
 // [s*per, min(nk, (s+1)*per)) and stores its f32 sum into slice s of a
 // (k_split, m, n) partials buffer; a range past K stores zeros (the buffer
 // comes from torch.empty). The wrapper sums the slices, as jnp.sum does
 // outside the TPU kernel (:285).
 //
-// bf16 and fp16 inputs: mma.sync.m16n8k16 with f32 accumulators, each
-// input type with its own mma. Fragments come from shared memory through
-// ldmatrix; the 16-bit elements allow .trans, so an operand stored with K
-// as its row index (A (k, m), B (k, n)) loads through ldmatrix.trans and
+// bf16 and fp16 inputs on route 0: mma.sync.m16n8k16 with f32
+// accumulators, each input type with its own mma. Fragments come from
+// shared memory through ldmatrix; the 16-bit elements allow .trans, so an
+// operand stored with K as its row index loads through ldmatrix.trans and
 // no layout needs a transpose in memory. Shared-memory rows are 64
 // elements plus 8 of padding (144 bytes), which keeps the eight 16-byte
 // rows of each ldmatrix on distinct banks. Global loads are 16 bytes wide
@@ -25,32 +49,31 @@
 // is aligned, staged in registers one K step ahead (the next step's loads
 // are in flight during this step's math); else element by element.
 //
-// f32 inputs: FFMA on the CUDA cores in full f32, each output a running
-// fmaf over k. Not TF32, which keeps ~3 decimal digits where the JAX
-// package holds its f32 GEMM to 1e-4 (tests/test_gemm.py:51-67).
+// f32 inputs (route 0): FFMA on the CUDA cores in full f32, each output a
+// running fmaf over k. Not TF32, which keeps ~3 decimal digits where the
+// JAX package holds its f32 GEMM to 1e-4 (tests/test_gemm.py:51-67).
 //
-// Ragged edges: the K tail of both operands is zero-filled in shared
-// memory (garbage times zero can be NaN, gemm.py:72-83); rows past M and
-// columns past N are zero-filled and never stored.
+// Ragged edges on route 0: the K tail of both operands is zero-filled in
+// shared memory (garbage times zero can be NaN, gemm.py:72-83); rows past
+// M and columns past N are zero-filled and never stored.
 //
-// Grid: x and y walk the output tiles, in M-major raster (n tiles along x)
-// or N-major (m tiles along x: SwizzleDir.N_MAJOR); z walks batch x splits.
+// Grid of route 0: x and y walk the output tiles, in M-major raster (n
+// tiles along x) or N-major (m tiles along x: SwizzleDir.N_MAJOR); z walks
+// batch x splits.
 //
 // Bound on the card: the operand bytes at decode (m = 16), the tensor
 // cores (989 TFLOP/s bf16/fp16) or the CUDA cores (67 TFLOP/s f32) at
-// prefill. This is the simple design: mma.sync at a fraction of the wgmma
-// rate, no TMA or cp.async ring, 64 x 64 tiles.
+// prefill. Route 0 is the simple design (mma.sync, no TMA or cp.async
+// ring, 64 x 64 tiles); route 1 runs at the wgmma rate with loads
+// overlapped with math.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
-
-using dga::ldsm_x4;
-using dga::ldsm_x4_trans;
 
 constexpr int kBM = 64;
 constexpr int kBN = 64;
@@ -89,38 +112,36 @@ __device__ __forceinline__ Win b_win(bool b_t, int n, int n0, int k0, int k_end)
   return b_t ? Win{n0, n, k0, k_end} : Win{k0, k_end, n0, n};
 }
 
-__device__ __forceinline__ void store1(float* c, float x) { *c = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* c, float x) { *c = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void store1(__half* c, float x) { *c = __float2half_rn(x); }
-__device__ __forceinline__ void store2(float* c, float x, float y) {
-  *reinterpret_cast<float2*>(c) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* c, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(x, y);
-}
-__device__ __forceinline__ void store2(__half* c, float x, float y) {
-  *reinterpret_cast<__half2*>(c) = __floats2half2_rn(x, y);
+using dga::sm90::smem_u32;
+using dga::sm90::store1;
+using dga::sm90::store_cols;
+
+// ldmatrix: four 8 x 8 16-bit matrices from shared memory, as stored or
+// transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
 }
 
-// Stores x, y at columns col, col + 1 (col even) of a row of n columns,
-// dropping what lies past n; a pair store needs an even n to be aligned.
-template <typename OutT>
-__device__ __forceinline__ void store_cols(OutT* row, int col, int n, float x, float y) {
-  if (col + 1 < n && (n & 1) == 0) {
-    store2(row + col, x, y);
-  } else {
-    if (col < n) store1(row + col, x);
-    if (col + 1 < n) store1(row + col + 1, y);
-  }
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
 }
 
+// mma.sync.m16n8k16 with f32 accumulators, one per input type.
 template <typename T>
 struct Mma;
 
 template <>
 struct Mma<__nv_bfloat16> {
   static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    dga::mma_bf16_f32(c, a, b);
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 };
 
@@ -379,8 +400,141 @@ void launch16(const Args& p, int out_code, dim3 grid, cudaStream_t s) {
   else by_out<Launch16<T, false, false>::template Out>(out_code, p, grid, s);
 }
 
+// ---------------------------------------------------------------- route 1
+
+namespace s9 = dga::sm90;
+
+struct TmaArgs {
+  void* c;
+  int m, n;
+  int tiles_m, tiles_n;
+  int n_major;
+  int kb_begin, kb_count;   // the K range, in s9::kBK-deep blocks
+};
+
+// BM / 64 consumer warpgroups, then the producer warpgroup (one thread of
+// it issues every TMA load). With two consumers, setmaxnreg moves the
+// registers: 128 x 40 + 256 x 232 = 384 x 168, the launch's share.
+template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename OutT>
+__global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 64 ? 2 : 1)
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb, TmaArgs p) {
+  using R = s9::Ring<BM, BN, STAGES>;
+  constexpr int kConsumers = BM / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = s9::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::kBytes);
+  uint64_t* empty = full + STAGES;
+  int tm, tn;
+  s9::tile_of(p.tiles_m, p.tiles_n, p.n_major, tm, tn);
+  const int m0 = tm * BM, n0 = tn * BN, batch = blockIdx.z;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      s9::mbar_init(&full[i], 1);
+      s9::mbar_init(&empty[i], kConsumers);
+    }
+    s9::fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == kConsumers) {
+    if constexpr (kConsumers == 2) s9::regs_dec<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < p.kb_count; ++kb) {
+        const int k0 = (p.kb_begin + kb) * s9::kBK;
+        s9::mbar_wait(&empty[s], phase ^ 1);
+        s9::mbar_expect_tx(&full[s], R::kStage);
+        uint8_t* a = ring + s * R::kStage;
+        uint8_t* b = a + R::kA;
+        if (A_MN) {
+#pragma unroll
+          for (int i = 0; i < BM / 64; ++i)
+            s9::tma_load(a + i * s9::kPanel, &ta, &full[s], m0 + 64 * i, k0, batch);
+        } else {
+          s9::tma_load(a, &ta, &full[s], k0, m0, batch);
+        }
+        if (B_MN) {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            s9::tma_load(b + j * s9::kPanel, &tb, &full[s], n0 + 64 * j, k0, batch);
+        } else {
+          s9::tma_load(b, &tb, &full[s], k0, n0, batch);
+        }
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    if constexpr (kConsumers == 2) s9::regs_inc<232>();
+    float acc[BN / 2];
+    s9::mma_loop<T, BM, BN, STAGES, A_MN, B_MN>(acc, ring, full, empty, p.kb_count, wg,
+                                                [](int) {});
+    OutT* c = static_cast<OutT*>(p.c) + (size_t)batch * p.m * p.n;
+    s9::store_tile<BN>(acc, c, p.m, p.n, m0 + wg * 64, n0);
+  }
+}
+
+// Maps of A and B (16-bit), then the launch over K blocks [kb_begin,
+// kb_begin + kb_count).
+template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename OutT>
+int run_sm90(const void* a, const void* b, void* c, int batch, int m, int n, int k, int n_major,
+             int kb_begin, int kb_count, cudaStream_t s) {
+  const CUtensorMapDataType dt = std::is_same<T, __nv_bfloat16>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint64_t mk = (uint64_t)m * k, kn = (uint64_t)k * n;
+  CUtensorMap ta, tb;
+  int rc = A_MN ? s9::make_map(&ta, dt, 2, a, m, k, batch, m, mk, 64, 64, sw)
+                : s9::make_map(&ta, dt, 2, a, k, m, batch, k, mk, 64, BM, sw);
+  if (rc) return rc;
+  rc = B_MN ? s9::make_map(&tb, dt, 2, b, n, k, batch, n, kn, 64, 64, sw)
+            : s9::make_map(&tb, dt, 2, b, k, n, batch, k, kn, 64, BN, sw);
+  if (rc) return rc;
+  const int tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
+  const TmaArgs p{c, m, n, tiles_m, tiles_n, n_major, kb_begin, kb_count};
+  const dim3 grid(tiles_m * tiles_n, 1, batch);
+  return s9::launch<gemm_sm90_kernel<T, BM, BN, STAGES, A_MN, B_MN, OutT>>(
+      grid, (BM / 64 + 1) * 128, s9::Ring<BM, BN, STAGES>::kSmem, s, ta, tb, p);
+}
+
+// The tile (sm90::large_tile): 128 x 256, or 64 x 64 with two blocks an SM.
+template <typename T, bool A_MN, bool B_MN, typename OutT>
+int tile_sm90(const void* a, const void* b, void* c, int batch, int m, int n, int k, int n_major,
+              cudaStream_t s) {
+  const int kb = (k + s9::kBK - 1) / s9::kBK;
+  const long long tiles = (long long)((m + 127) / 128) * ((n + 255) / 256) * batch;
+  if (s9::large_tile(m, tiles))
+    return run_sm90<T, 128, 256, 4, A_MN, B_MN, OutT>(a, b, c, batch, m, n, k, n_major, 0, kb, s);
+  return run_sm90<T, 64, 64, 6, A_MN, B_MN, OutT>(a, b, c, batch, m, n, k, n_major, 0, kb, s);
+}
+
+template <typename T, bool A_MN, bool B_MN>
+int out_sm90(int out_code, const void* a, const void* b, void* c, int batch, int m, int n, int k,
+             int n_major, cudaStream_t s) {
+  if (out_code == 0) return tile_sm90<T, A_MN, B_MN, float>(a, b, c, batch, m, n, k, n_major, s);
+  if (out_code == 1)
+    return tile_sm90<T, A_MN, B_MN, __nv_bfloat16>(a, b, c, batch, m, n, k, n_major, s);
+  return tile_sm90<T, A_MN, B_MN, __half>(a, b, c, batch, m, n, k, n_major, s);
+}
+
+// A stored (k, m) is MN-major for wgmma; B stored (k, n) too (not b_t).
+template <typename T>
+int layout_sm90(int a_t, int b_t, int out_code, const void* a, const void* b, void* c, int batch,
+                int m, int n, int k, int n_major, cudaStream_t s) {
+  if (a_t && b_t) return out_sm90<T, true, false>(out_code, a, b, c, batch, m, n, k, n_major, s);
+  if (a_t) return out_sm90<T, true, true>(out_code, a, b, c, batch, m, n, k, n_major, s);
+  if (b_t) return out_sm90<T, false, false>(out_code, a, b, c, batch, m, n, k, n_major, s);
+  return out_sm90<T, false, true>(out_code, a, b, c, batch, m, n, k, n_major, s);
+}
+
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
 
+// Route 0: the 64 x 64 tile (K11 and every input type).
 int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k, int a_t, int b_t,
            int in_code, int out_code, int n_major, int splits, int k_per, void* stream) {
   const long long tiles_m = (m + kBM - 1) / kBM, tiles_n = (n + kBN - 1) / kBN;
@@ -411,11 +565,29 @@ int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k
   return (int)cudaGetLastError();
 }
 
+// Route 1: 16-bit inputs, K > 0, operands TMA can describe (the maps
+// refuse the rest).
+int launch_sm90(const void* a, const void* b, void* c, int batch, int m, int n, int k, int a_t,
+                int b_t, int in_code, int out_code, int n_major, void* stream) {
+  if (batch <= 0 || batch > kMaxGridYZ || m <= 0 || n <= 0 || k <= 0 || in_code < 1 ||
+      in_code > 2 || out_code < 0 || out_code > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_code == 1)
+    return layout_sm90<__nv_bfloat16>(a_t, b_t, out_code, a, b, c, batch, m, n, k, n_major, s);
+  return layout_sm90<__half>(a_t, b_t, out_code, a, b, c, batch, m, n, k, n_major, s);
+}
+
 }  // namespace
 
-// K10: c (batch, m, n) of out type out_code = a . b per batch element.
+// K10: c (batch, m, n) of out type out_code = a . b per batch element, on
+// route 0 (mma_tile) or 1 (wgmma).
 extern "C" int dga_gemm(const void* a, const void* b, void* c, int batch, int m, int n, int k,
-                        int a_t, int b_t, int in_code, int out_code, int n_major, void* stream) {
+                        int a_t, int b_t, int in_code, int out_code, int n_major, int route,
+                        void* stream) {
+  if (route == 1)
+    return launch_sm90(a, b, c, batch, m, n, k, a_t, b_t, in_code, out_code, n_major, stream);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   return launch(a, b, c, batch, m, n, k, a_t, b_t, in_code, out_code, n_major, 1, k, stream);
 }
 

@@ -67,7 +67,7 @@ KERNELS = {
     "grouped_gemm_contiguous": ("grouped_gemm", "dga_grouped_gemm_contiguous",
                                 [_P] * 6 + [_I] * 4 + [_L] * 6
                                 + [_I, _I, _P]),
-    "gemm": ("gemm", "dga_gemm", [_P, _P, _P] + [_I] * 9 + [_P]),
+    "gemm": ("gemm", "dga_gemm", [_P, _P, _P] + [_I] * 10 + [_P]),
     "gemm_ksplit": ("gemm", "dga_gemm_ksplit", [_P, _P, _P] + [_I] * 7 + [_P]),
     "flash_decode": ("flash_decode", "dga_flash_decode_inplace",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -18,8 +18,10 @@ Port of ``deepgemm_ascend_tpu/ops/fp8_gemm.py``. A carries per-(token,
   rel-L2 of K1 but outside the strict outlier gate, hence the opt-in.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
-``csrc/fp8_gemm.cu`` (fixed 64×64 tiles; the tiling knobs of a
-``GemmConfig`` are not read). On a CPU tensor they run
+``csrc/fp8_gemm.cu``: K1 on fixed 64×64 tiles, K12 on the Hopper main
+loop of ``csrc/sm90_gemm.cuh`` (TMA loads of the e4m3 bytes, a fold
+into bf16 overlapped with wgmma; its tiles follow the shape). The tiling
+knobs of a ``GemmConfig`` are not read. On a CPU tensor they run
 :func:`fp8_gemm_plain` or :func:`fp8_gemm_folded_plain`, the same
 arithmetic in PyTorch. ``mxu_dtype`` (a TPU MXU knob) is not ported.
 

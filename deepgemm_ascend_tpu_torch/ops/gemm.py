@@ -6,14 +6,20 @@ accumulator for bf16, fp16 and f32 inputs, output f32 by default (bf16 or
 fp16 on request); ``layout`` names the storage of (A, B): "n" as the
 logical operand ((m, k) / (k, n)), "t" transposed ((k, m) / (n, k)).
 
-On a CUDA tensor the wrappers launch ``csrc/gemm.cu``: K10 on fixed
-64 × 64 output tiles with 64-deep K blocks (:data:`TILE_M`, ...), or K11
-when the config is ``KernelType.KSPLIT`` with ``k_split > 1``, at least
+On a CUDA tensor the wrappers launch ``csrc/gemm.cu``: K10, or K11 when
+the config is ``KernelType.KSPLIT`` with ``k_split > 1``, at least
 ``k_split`` K blocks and the nn layout (JAX :171-173); K11's f32 partials
-are summed and cast here, as ``jnp.sum`` does outside the TPU kernel. Of a
-``GemmConfig`` the kernels read ``kernel_type``, ``k_split``, ``swizzle``
-(the raster order of the output tiles) and ``pad_k`` (nn: K padded with
-zeros to a multiple of the 64-deep block); the block sizes are fixed.
+are summed and cast here, as ``jnp.sum`` does outside the TPU kernel. K10
+takes one of two routes, decided here by :func:`route` and passed to the
+kernel, which refuses a route it cannot take: ``"wgmma"`` (bf16/fp16
+operands that TMA can describe: the Hopper main loop of
+``csrc/sm90_gemm.cuh``, 128 × 256 tiles, or 64 × 64 for m ≤ 64 and where
+128 × 256 tiles would leave most SMs idle) or
+``"mma_tile"`` (everything else, and K11: fixed 64 × 64 output tiles with
+64-deep K blocks, :data:`TILE_M`, ...). Of a ``GemmConfig`` the kernels
+read ``kernel_type``, ``k_split``, ``swizzle`` (the raster order of the
+output tiles) and ``pad_k`` (nn: K padded with zeros to a multiple of the
+64-deep block); the block sizes are fixed.
 ``KernelType.XLA`` — the JAX package's product outside Pallas — is a plain
 ``torch.matmul`` in f32. On a CPU tensor the wrappers run the kernels'
 plain versions, :func:`gemm_plain` and :func:`gemm_ksplit_plain`.
@@ -36,12 +42,13 @@ from ..utils.common import ceil_div
 from . import _kernels
 
 __all__ = ["gemm", "bgemm", "gemm_with_config", "gemm_plain",
-           "gemm_ksplit_plain"]
+           "gemm_ksplit_plain", "route"]
 
 K10 = _kernels.COUNTERS["gemm"]
 K11 = _kernels.COUNTERS["gemm_ksplit"]
-# The C interface's type codes.
+# The C interface's type codes, and K10's route codes.
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = ("mma_tile", "wgmma")
 
 
 def _check_layout(layout: str):
@@ -81,6 +88,21 @@ def gemm_ksplit_plain(a, b, k_split: int, *, out_dtype=torch.float32):
                           b[..., s * per:(s + 1) * per, :])
              for s in range(k_split)]
     return torch.stack(parts, dim=-3).sum(dim=-3).to(out_dtype)
+
+
+def route(a, b, layout: str = "nn") -> str:
+    """K10's route for the stored operands ``a``, ``b`` (contiguous, any
+    leading dims the batch) in ``layout``: ``"wgmma"`` where TMA can
+    describe both — bf16/fp16, k > 0, 16-byte aligned ``data_ptr``s and row
+    pitches (the stored last dims) that are multiples of 8 elements (16
+    bytes; a batch's matrix pitch then is too) — else ``"mma_tile"``."""
+    a_t, _ = _check_layout(layout)
+    k = a.shape[-2] if a_t else a.shape[-1]
+    if (a.dtype not in (torch.bfloat16, torch.float16) or b.dtype != a.dtype
+            or k == 0 or a.shape[-1] % 8 or b.shape[-1] % 8
+            or a.data_ptr() % 16 or b.data_ptr() % 16):
+        return "mma_tile"
+    return "wgmma"
 
 
 def _cuda_checks(a, b, out_dtype):
@@ -135,7 +157,8 @@ def _run(a, b, config: GemmConfig, layout: str, out_dtype):
     rc = _kernels.entry("gemm")(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, m, n, k, int(a_t),
         int(b_t), _CODES[a.dtype], _CODES[out_dtype],
-        int(config.swizzle == SwizzleDir.N_MAJOR), stream)
+        int(config.swizzle == SwizzleDir.N_MAJOR),
+        ROUTES.index(route(a, b, layout)), stream)
     _kernels.check(rc, "gemm")
     K10.launches += 1
     return out

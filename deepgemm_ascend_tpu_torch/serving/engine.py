@@ -67,26 +67,63 @@ def _prefill(params: ModelParams, caches: List[KVCache], cfg: ModelConfig,
                   torch.from_numpy(last_idx).to(dev, torch.int64)]
 
 
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``'s roundings: exp in ``x``'s dtype, the sum in f32
+    rounded back to it, one division in it."""
+    u = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return u / u.sum(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+_SCAN_BLOCK = 16
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last dim in ``x``'s dtype, each addition
+    rounded to it, in the order XLA's CPU backend evaluates ``jnp.cumsum``:
+    blocks of 16 scanned in sequence, the block totals scanned the same way
+    (recursively), then each block offset by the sum before it. In bf16 the
+    order decides which tokens the nucleus keeps (a sum near 0.9 drops
+    addends below its ulp, 2⁻⁸), so a 16-bit sum follows JAX's; an f32 sum
+    is ``torch.cumsum``, whose order can flip only the boundary token."""
+    n = x.shape[-1]
+    nb = -(-n // _SCAN_BLOCK)
+    q = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    q = q.reshape(*x.shape[:-1], nb, _SCAN_BLOCK).clone()
+    for j in range(1, _SCAN_BLOCK):
+        q[..., j] = q[..., j - 1] + q[..., j]
+    if nb > 1:
+        before = torch.nn.functional.pad(_cumsum(q[..., -1]), (1, 0))[..., :-1]
+        q = q + before[..., None]
+    return q.reshape(*x.shape[:-1], -1)[..., :n]
+
+
 def sample_logits(logits: torch.Tensor,
                   generator: Optional[torch.Generator] = None, *,
                   temperature: float = 0.0, top_k: int = 0,
                   top_p: float = 1.0) -> torch.Tensor:
     """Greedy (temperature 0) or temperature sampling with optional top-k /
-    nucleus (top-p) truncation. logits: (..., vocab) → (...,) int32. The
-    random draw uses ``generator`` (the JAX package draws from its key: same
+    nucleus (top-p) truncation. logits: (..., vocab) → (...,) int32.
+    Temperature, top-k and top-p are computed in the logits' own dtype, as
+    the JAX package does (JAX ``engine.py:172-192``), so a bf16 caller keeps
+    the same tokens. The draw takes f32 probabilities of the kept logits
+    from ``generator`` (the JAX package draws from its key: same
     distribution, other bits)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits.to(torch.float32) / temperature
+    # JAX divides by the temperature as a weak-typed scalar: rounded to the
+    # logits' dtype first.
+    logits = logits / torch.tensor(temperature, dtype=logits.dtype)
     top_k = min(top_k, logits.shape[-1])   # top_k > vocab would crash
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
+                           device=logits.device)
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, neg_inf, logits)
     if top_p < 1.0:
         sorted_l = torch.sort(logits, dim=-1, descending=True).values
-        probs = torch.softmax(sorted_l, dim=-1)
-        cum = torch.cumsum(probs, dim=-1)
+        probs = _softmax(sorted_l)
+        cum = (torch.cumsum(probs, dim=-1) if probs.dtype == torch.float32
+               else _cumsum(probs))
         # Smallest prefix with cumulative prob ≥ top_p stays; rank 0 always
         # survives (even for top_p <= 0).
         keep = cum - probs < top_p
@@ -95,7 +132,7 @@ def sample_logits(logits: torch.Tensor,
                              torch.full_like(sorted_l, float("inf")))
         cutoff = cutoff.amin(dim=-1, keepdim=True)
         logits = torch.where(logits < cutoff, neg_inf, logits)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
     draw = torch.multinomial(flat, 1, generator=generator)
     return draw.reshape(probs.shape[:-1]).to(torch.int32)

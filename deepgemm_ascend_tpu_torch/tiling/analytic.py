@@ -3,8 +3,9 @@
 Port of ``select_kernel_type`` of ``deepgemm_ascend_tpu/tiling/analytic.py``
 (:290-325) and nothing else of that module: its roofline tiler, VMEM
 budget and candidate enumeration are TPU models and wait for the port's
-tiling slice. The tile reasoned over is K10's fixed tile
-(``ops/gemm.py``: 64 × 64 output, 64-deep K blocks).
+tiling slice. The tile reasoned over is the mma_tile route's fixed tile
+(``csrc/gemm.cu``: 64 × 64 output, 64-deep K blocks), on which K11
+splits; K10's wgmma route, with its own tiles, is not modelled yet.
 
 The objective is the JAX package's: over split counts ``s``, minimise the
 per-core makespan ``ceil(s·nm·nn / cores) · ceil(nk / s)`` (ties go to

@@ -17,7 +17,10 @@ import torch
 from ..config import GemmConfig, KernelType
 from . import analytic, platform
 
-# K10's fixed tile (csrc/gemm.cu: kBM, kBN, kBK).
+# The tile the selector reasons with: the mma_tile route's fixed 64 × 64
+# output tile and 64-deep K block (csrc/gemm.cu: kBM, kBN, kBK), which K11
+# splits over. K10's wgmma route picks its own tiles (128 × 256, or 64 × 64
+# where those leave most SMs idle); the selector does not model them yet.
 TILE_M = TILE_N = TILE_K = 64
 # The ops whose K11 path exists: split-K is nn only (ops/gemm.py).
 _KSPLIT_OPS = ("gemm", "bgemm")

@@ -23,6 +23,7 @@ from deepgemm_ascend_tpu.utils import golden
 import deepgemm_ascend_tpu_torch as tdga
 from deepgemm_ascend_tpu_torch.config import GemmConfig, KernelType, SwizzleDir
 from deepgemm_ascend_tpu_torch.ops import _kernels
+from deepgemm_ascend_tpu_torch.ops.gemm import route
 from deepgemm_ascend_tpu_torch.tiling import analytic, platform, selector
 from torch_bridge import bf16_within_one_ulp, to_numpy
 
@@ -212,6 +213,49 @@ def test_bgemm_rank_mismatch_raises_as_jax():
 # ---------------------------------------------------------------- tiling
 
 H100 = platform.PlatformInfo("NVIDIA H100 80GB HBM3", 132)
+
+
+# K10's route (ops/gemm.py:route): the stored operands and what TMA needs.
+# Each case: (m, n, k, offset of A's data, offset of B's data, batch), in
+# elements; the expected route follows from the stored row pitches.
+ROUTE_CASES = {
+    "aligned": (64, 128, 256, 0, 0, 1),
+    "edges": (130, 136, 1000, 0, 0, 1),       # pitches 1000/136 or 130
+    "unaligned_a": (64, 128, 256, 1, 0, 1),
+    "unaligned_b": (64, 128, 256, 0, 3, 1),
+    "odd_m": (65, 128, 256, 0, 0, 1),         # a pitch only when A is (k, m)
+    "odd_k": (64, 128, 1001, 0, 0, 1),        # a pitch of A (m, k) or B (n, k)
+    "odd_n": (64, 97, 256, 0, 0, 1),          # a pitch only when B is (k, n)
+    "batch": (200, 136, 1000, 0, 0, 3),
+    "k0": (64, 128, 0, 0, 0, 1),
+}
+
+
+def _stored(shape, dtype, offset):
+    """A contiguous tensor of ``shape`` whose data starts ``offset``
+    elements into its buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+@pytest.mark.parametrize("dtype", ["bf16", "fp16", "f32"])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "tt"])
+def test_route_is_wgmma_where_tma_describes_both_operands(case, dtype,
+                                                          layout):
+    m, n, k, off_a, off_b, batch = ROUTE_CASES[case]
+    td = DTYPES[dtype][1]
+    lead = (batch,) if batch > 1 else ()
+    a_t, b_t = layout[0] == "t", layout[1] == "t"
+    a = _stored((*lead, *((k, m) if a_t else (m, k))), td, off_a)
+    b = _stored((*lead, *((n, k) if b_t else (k, n))), td, off_b)
+    pitches = (m if a_t else k, k if b_t else n)
+    want = ("wgmma" if dtype != "f32" and k > 0 and off_a % 8 == 0
+            and off_b % 8 == 0 and all(p % 8 == 0 for p in pitches)
+            else "mma_tile")
+    assert route(a, b, layout) == want
+    if case in ("aligned", "edges", "batch") and dtype != "f32":
+        assert want == ("mma_tile" if case == "edges" and a_t else "wgmma")
 
 
 @pytest.mark.parametrize("m,n,k", [(16, 2048, 11008), (16, 512, 2048),

@@ -41,7 +41,8 @@ from deepgemm_ascend_tpu_torch.ops.flash_decode import (
 from deepgemm_ascend_tpu_torch.ops.flash_prefill import (
     flash_prefill_gqa, flash_prefill_plain)
 from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm_ksplit_plain,
-                                                gemm_plain, gemm_with_config)
+                                                gemm_plain, gemm_with_config,
+                                                route)
 from torch_bridge import bf16_within_one_ulp, f32_close, to_numpy
 
 pytestmark = pytest.mark.gpu
@@ -326,22 +327,101 @@ def test_gemm_kernel_rounds_once_to_out_dtype(dev, out_dtype, dtype):
 
 
 def test_gemm_kernel_swizzle_and_unaligned_pointers(dev):
-    """N-major raster gives the same tiles; an operand whose data pointer
-    is not 16-byte aligned takes the element loads."""
+    """N-major raster gives the same tiles, bit for bit, within one route;
+    an operand whose data pointer is not 16-byte aligned takes the
+    mma_tile route (TMA cannot describe it), and its aligned clone the
+    wgmma route, which sums in another order: the two are held to the
+    plain product's tolerance, not to each other's bits."""
     m, n, k = 96, 192, 256
     g = _gen(2, dev)
     flat_a = torch.randn(m * k + 1, generator=g, device=dev).to(torch.bfloat16)
     a = flat_a[1:].view(m, k)                     # 2-byte offset
     b = torch.randn(k, n, generator=g, device=dev).to(torch.bfloat16)
     assert a.data_ptr() % 16 and a.is_contiguous()
+    assert route(a, b) == "mma_tile" and route(a.clone(), b) == "wgmma"
     base = GemmConfig(block_m=64, block_n=64, block_k=64)
+    n_cfg = base.replace(swizzle=SwizzleDir.N_MAJOR)
     m_major = gemm_with_config(a, b, config=base)
-    n_major = gemm_with_config(a, b, config=base.replace(
-        swizzle=SwizzleDir.N_MAJOR))
+    n_major = gemm_with_config(a, b, config=n_cfg)
     aligned = gemm_with_config(a.clone(), b, config=base)
+    aligned_n = gemm_with_config(a.clone(), b, config=n_cfg)
     torch.cuda.synchronize()
-    assert torch.equal(m_major, n_major) and torch.equal(m_major, aligned)
-    assert_gemm_close(m_major, gemm_plain(a, b), a, b)
+    assert torch.equal(m_major, n_major) and torch.equal(aligned, aligned_n)
+    ref = gemm_plain(a, b)
+    assert_gemm_close(m_major, ref, a, b)
+    assert_gemm_close(aligned, ref, a, b)
+
+
+# ---- K10 on the wgmma route (TMA + wgmma, csrc/sm90_gemm.cuh)
+
+
+def _wgmma_expected(m, n, k, layout):
+    """The route of contiguous operands: every stored row pitch (the stored
+    last dims) a multiple of 8 elements."""
+    pitches = (m if layout[0] == "t" else k, k if layout[1] == "t" else n)
+    return "wgmma" if all(p % 8 == 0 for p in pitches) else "mma_tile"
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "tt"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gemm_wgmma_route_matches_plain(dev, dtype, layout, out_dtype):
+    """Every m the two tile shapes meet: 1 and 16 (decode), 64 and 65 (the
+    64-row variant's edge), 200 (a ragged 128-row tile), 2048 (16 tiles),
+    in every layout, input and output type; n = 256 (one 256-wide tile) and
+    k = 512. Where A is stored (k, m) with m not a multiple of 8, the route
+    is mma_tile (checked), and the product is held the same way."""
+    n, k = 256, 512
+    for m in (1, 16, 64, 65, 200, 2048):
+        a_in, b_in, a, b = _dense(m, n, k, dtype, layout, dev, seed=m)
+        assert route(a_in, b_in, layout) == _wgmma_expected(m, n, k, layout)
+        cfg = GemmConfig(block_m=64, block_n=64, block_k=64)
+        got = gemm_with_config(a_in, b_in, config=cfg, layout=layout,
+                               out_dtype=out_dtype)
+        ref = gemm_plain(a, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert_gemm_close(got, ref, a, b)
+
+
+@pytest.mark.parametrize("mnk", [(130, 136, 1000), (16, 136, 1000),
+                                 (2048, 264, 1000)])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "tt"])
+def test_gemm_wgmma_route_edges(dev, mnk, layout):
+    """A K tail inside the last 64-deep block (k = 1000), an N edge inside
+    a tile (n = 136, 264) and an M edge (m = 130), zero-filled by TMA."""
+    m, n, k = mnk
+    a_in, b_in, a, b = _dense(m, n, k, torch.bfloat16, layout, dev, seed=7)
+    assert route(a_in, b_in, layout) == _wgmma_expected(m, n, k, layout)
+    cfg = GemmConfig(block_m=64, block_n=64, block_k=64)
+    got = gemm_with_config(a_in, b_in, config=cfg, layout=layout)
+    ref = gemm_plain(a, b)
+    torch.cuda.synchronize()
+    assert_gemm_close(got, ref, a, b)
+
+
+@pytest.mark.parametrize("swizzle", [SwizzleDir.M_MAJOR, SwizzleDir.N_MAJOR])
+def test_gemm_wgmma_route_batch_and_raster(dev, swizzle):
+    """bgemm over a batch of 3 (the batch a grid axis, a 3-D tensor map),
+    and both raster orders over 17 x 5 output tiles (bands of 16 with a
+    ragged last band): the same bits either way."""
+    g = _gen(8, dev)
+    a = torch.randn(3, 200, 1000, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(3, 1000, 136, generator=g, device=dev).to(torch.bfloat16)
+    assert route(a, b) == "wgmma"
+    got = bgemm(a, b, config=GemmConfig(swizzle=swizzle))
+    torch.cuda.synchronize()
+    for i in range(3):
+        assert_gemm_close(got[i], gemm_plain(a[i], b[i]), a[i], b[i])
+    a2 = torch.randn(17 * 128, 512, generator=g, device=dev).to(torch.bfloat16)
+    b2 = torch.randn(512, 5 * 256, generator=g, device=dev).to(torch.bfloat16)
+    base = GemmConfig(block_m=64, block_n=64, block_k=64)
+    got2 = gemm_with_config(a2, b2, config=base.replace(swizzle=swizzle))
+    ref2 = gemm_with_config(a2, b2, config=base)
+    torch.cuda.synchronize()
+    assert torch.equal(got2, ref2)
+    assert_gemm_close(got2, gemm_plain(a2, b2), a2, b2)
 
 
 @pytest.mark.parametrize("k_split,k", [(4, 2048), (3, 1000), (4, 320)])
@@ -480,6 +560,32 @@ def test_fp8_gemm_folded_kernel_matches_plain(dev, m, b_layout, out_dtype):
     assert_gemm_close(got, ref, a_sc, b_sc)
     rel = float((got.float() - k1).norm() / k1.norm())
     assert rel < 5e-3
+
+
+LITE_GEMMS = [(2048, 2048), (512, 2048), (22016, 2048), (2048, 11008),
+              (2816, 2048), (2048, 1408)]
+
+
+@pytest.mark.parametrize("m", [1, 16, 100, 2048])
+@pytest.mark.parametrize("b_layout", ["t", "n"])
+def test_fp8_gemm_folded_kernel_at_model_shapes(dev, m, b_layout):
+    """K12 at V2_LITE's projection shapes (n, k) and both b_layouts, on the
+    64-row tile (m = 1, 16), the 128-row tile with a ragged M (100) and 16
+    row tiles (2048): the plain version's tolerance, and 5e-3 rel-L2 of
+    K1."""
+    b_t = b_layout == "t"
+    for i, (n, k) in enumerate(LITE_GEMMS):
+        a_q, a_s, b_q, b_s = _operands(m, n, k, b_t, dev, seed=20 + i)
+        bs_view = b_s.t() if b_t else b_s
+        got = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout,
+                              scale_mode="folded", allow_relaxed=True)
+        ref = fp8mod.fp8_gemm_folded_plain(a_q, a_s, b_q, bs_view, b_t=b_t)
+        k1 = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout,
+                             out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        a_sc, b_sc = fp8mod.fold_operands(a_q, a_s, b_q, bs_view, b_t=b_t)
+        assert_gemm_close(got, ref, a_sc, b_sc)
+        assert float((got.float() - k1).norm() / k1.norm()) < 5e-3
 
 
 def test_fp8_gemm_folded_expanded_panel_matches_compact(dev):

@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from deepgemm_ascend_tpu_torch.ops import _kernels
-from deepgemm_ascend_tpu_torch.scripts import (headline, layer_bench,
-                                               profile_kernel, serve_bench,
-                                               straggler_probe)
+from deepgemm_ascend_tpu_torch.scripts import (headline, k12_fold_ablation,
+                                               layer_bench, profile_kernel,
+                                               serve_bench, straggler_probe)
 
 CPU = ["--device", "cpu"]
 T_KW = dict(iters=2, repeats=1, min_chain_seconds=0.0)
@@ -152,3 +152,15 @@ def test_entry_points_default_to_cuda():
         serve_bench.main(["--model", "tiny"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         layer_bench.main(["--configs", "tiny:1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        k12_fold_ablation.main([])
+
+
+def test_k12_ablation_swaps_only_k12_entry():
+    """The ablation runs its variants through the package's K12 wrapper by
+    swapping that one C entry for the duration, then puts it back."""
+    real = _kernels.entry
+    variant = object()
+    with k12_fold_ablation.k12_entry(variant):
+        assert _kernels.entry("fp8_gemm_folded") is variant
+    assert _kernels.entry is real

@@ -16,12 +16,14 @@ generation.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from deepgemm_ascend_tpu import models as jmodels
 from deepgemm_ascend_tpu.serving import Engine as JEngine
+from deepgemm_ascend_tpu.serving import sample_logits as jsample_logits
 from deepgemm_ascend_tpu_torch import models as tmodels
 from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.serving import Engine, Scheduler, sample_logits
@@ -99,6 +101,61 @@ def test_sample_logits_seeded_draws_repeat():
     b = sample_logits(logits, torch.Generator().manual_seed(7),
                       temperature=1.0, top_p=0.8)
     assert torch.equal(a, b)
+
+
+# Kept sets of top-k / top-p against JAX: each package's own draw is stubbed
+# out (jax.random.categorical, torch.multinomial) to expose the logits it
+# would sample from. Logits ~N(0, 3²), 16 × 32000 per seed, from numpy.
+SAMPLING_MODES = [(0.7, 50, 1.0), (0.7, 0, 0.9), (1.3, 40, 0.95)]
+# Tokens a row may differ by. f32: the one boundary token that cumsum order
+# could flip (the port sums f32 with torch.cumsum, not in XLA's order).
+# bf16: both packages truncate in bf16 with the same roundings
+# (the temperature rounded to bf16 first, jax.nn.softmax's sum in f32, XLA's
+# blocked prefix sum); this test measures 0 rows of 48 differing in every
+# mode (truncating in f32 instead left 125 and 26 of 160 rows differing in
+# the two top-p modes).
+KEPT_ALLOWANCE = {"f32": 1, "bf16": 0}
+
+
+def _kept_jax(x, dtype, monkeypatch, **kw):
+    seen = {}
+
+    def draw(key, logits, axis=-1):
+        seen["kept"] = np.asarray(logits.astype(jnp.float32)) > -np.inf
+        return jnp.argmax(logits, axis=axis)
+
+    monkeypatch.setattr(jax.random, "categorical", draw)
+    jsample_logits(jnp.asarray(x, dtype), jax.random.PRNGKey(0), **kw)
+    return seen["kept"]
+
+
+def _kept_torch(x, dtype, monkeypatch, **kw):
+    seen = {}
+
+    def draw(probs, num_samples, generator=None):
+        seen["kept"] = (probs > 0).numpy()
+        return torch.argmax(probs, dim=-1, keepdim=True)
+
+    monkeypatch.setattr(torch, "multinomial", draw)
+    sample_logits(torch.from_numpy(x).to(dtype), **kw)
+    return seen["kept"]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("temperature,top_k,top_p", SAMPLING_MODES)
+def test_sample_logits_kept_set_matches_jax(dtype, temperature, top_k, top_p,
+                                            monkeypatch):
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    kw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    for seed in range(3):
+        x = (np.random.default_rng(seed).standard_normal((16, 32000))
+             * 3).astype(np.float32)
+        want = _kept_jax(x, jdt, monkeypatch, **kw)
+        got = _kept_torch(x, tdt, monkeypatch, **kw)
+        assert want.sum(-1).min() >= 1
+        diff = (want != got).sum(-1)
+        assert diff.max() <= KEPT_ALLOWANCE[dtype], (seed, diff.tolist())
 
 
 # ---- engine ----
