@@ -7,26 +7,30 @@ Phases, each of which raises on failure (exit code ≠ 0):
 
 1. device: the card's name, count and power limit; build every CUDA kernel
    from ``deepgemm_ascend_tpu_torch/csrc`` (one nvcc per source, in
-   parallel) and report the build time;
+   parallel) and report the build time, and the registers and spills of
+   every instance of the Hopper main loop (K10/K11, K12, K7);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes serving V2_LITE gives it (and V2_LITE_FULL's MoE-layer
    shapes for K2/K3/K6/K8), with its time (CUDA events, warm-up, L2
-   flushed before every launch), the plain version's time, the bound
+   flushed before every launch, the launches queued behind a spin kernel
+   so that no host time is counted), the plain version's time, the bound
    max(bytes / 3.35 TB/s, operations / peak) of the H100 SXM data sheet
    and, where one PyTorch call computes the same function, that call's
    time (``torch._int_mm`` for K7's integer product; ``torch._scaled_mm``
    with blockwise scales for K1, where this torch accepts them;
-   ``torch.matmul`` for the dense GEMMs K10 and K11). Every K10 row shows
-   its route (``ops.gemm.route``: wgmma where TMA can describe the
-   operands, else mma_tile), its time before the Hopper redesign
-   (``prev_ms``: quoted from ``PREV_MS``, not measured in the run; in the
-   log and the report only) and, for 16-bit inputs, its time with bf16
-   output beside
-   cuBLAS's 16-bit one (``bf16_out_ms``, also checked); every K12 row its
-   route (always the new kernel) and earlier time. The int8 kernels
+   ``torch.matmul`` for the dense GEMMs K10 and K11). Every K10 and K11
+   row shows its route (``ops.gemm.route``: wgmma where TMA can describe
+   the operands, else mma_tile), every K7 row its own
+   (``ops.int8_gemm.route``: wgmma for B stored K-major with k a multiple
+   of 16, else int8_tile); each of them, and every K12 row (always the
+   new kernel), its time before the Hopper redesign (``prev_ms``: quoted
+   from ``PREV_MS``, not measured in the run; in the log and the report
+   only); K10 rows with 16-bit inputs their time with bf16 output beside
+   cuBLAS's 16-bit one (``bf16_out_ms``, also checked). The int8 kernels
    (K7, K9, K6) must equal their plain versions bit for bit. The dense
    GEMM's shapes that ``select_config`` sends to split-K (K11) are listed,
-   and K11 is timed beside K10 there. The folded-scale fp8 GEMM (K12) at
+   and K11 is timed beside K10 there (``k10_ms``), as at the explicit
+   split counts of the dense FFN's decode down projection. The folded-scale fp8 GEMM (K12) at
    K1's shapes, against its plain version (f32 sum order plus one bf16
    ulp) and within 5e-3 rel-L2 of K1, beside ``torch.matmul`` of the
    operands folded in PyTorch; the read-only decode attentions (K5a, K5b)
@@ -277,12 +281,13 @@ ENGINE_SLOTS = 16
 SERVE_STEPS = 64
 LAYER_CONFIGS = ("v2_lite_full:1", "v3_style:32")
 
-# K10's and K12's times before their Hopper redesign, from the report of
-# the last run of this script's phase 2 on the kernels of that time (the
-# run that added the probe's and the 4096³ rows; cold ms, NVIDIA H100
-# 80GB HBM3, 700.00 W). Each such row prints its earlier time beside the
-# new one as prev_ms, labelled as that run's; it is quoted, not measured,
-# so the kernels line leaves it out.
+# Times before the Hopper redesign of K10, K12, K7 and K11. K10's and
+# K12's are from the report of the last run of this script's phase 2 on
+# the kernels of that time (the run that added the probe's and the 4096³
+# rows; cold ms, NVIDIA H100 80GB HBM3, 700.00 W); K7's and K11's below.
+# Each such row prints its earlier time beside the new one as prev_ms,
+# labelled as quoted; it is not measured in the run, so the kernels line
+# leaves it out.
 PREV_MS = {
     "gemm": {
         "m=16 n=2048 k=2048 bf16 nn": 0.0459,
@@ -311,6 +316,24 @@ PREV_MS = {
         "m=5119 n=6997 k=9901 bf16 nn": 21.609,
         "m=5119 n=7040 k=9984 bf16 nn": 4.18,
         "m=4096 n=4096 k=4096 bf16 nn": 0.8235,
+    },
+    # K7's (int8_tile route) and K11's (mma_tile route) before theirs:
+    # measured, not quoted from a report — the mean of two runs of this
+    # script's phase 2 on the tree before the redesign, alternated with
+    # two on the redesign in one run on one card (cold ms, the reps
+    # queued behind timing.cold_ms's spin; NVIDIA H100 80GB HBM3,
+    # 700.00 W).
+    "int8_gemm": {
+        "m=16 n=2048 k=2048": 0.022,
+        "m=2048 n=2048 k=2048": 0.0606,
+        "m=16 n=22016 k=2048": 0.0364,
+        "m=2048 n=22016 k=2048": 0.6352,
+        "m=16 n=2048 k=11008": 0.0866,
+        "m=2048 n=2048 k=11008": 0.2687,
+    },
+    "gemm_ksplit": {
+        "m=16 n=2048 k=11008 bf16 k_split=4": 0.0737,
+        "m=16 n=2048 k=11008 bf16 k_split=3": 0.0915,
     },
     "fp8_gemm_folded": {
         "m=64 n=512 k=2048 b_layout=t": 0.0377,
@@ -393,15 +416,17 @@ def phase_device() -> dict:
 
 def sm90_instances(logs: dict) -> list:
     """Stack, spills and registers of every instance of the Hopper main
-    loop's kernels (K10's wgmma route, K12), from nvcc's -Xptxas -v, under
+    loop's kernels (K10's and K11's wgmma route, K12, K7's wgmma route),
+    from nvcc's -Xptxas -v, under
     their mangled names (the template arguments: tile, stages, layout
     flags, types)."""
     out = []
     for text in logs.values():
         lines = text.splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and (
-                    "gemm_sm90" in ln or "folded_sm90" in ln):
+            if "Compiling entry function" in ln and any(
+                    kern in ln for kern in ("gemm_sm90", "folded_sm90",
+                                            "int8_sm90")):
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 name = ln.split("'")[1]
                 out.append(f"{name}: {props}")
@@ -551,6 +576,9 @@ def _int_mm_yardstick(a_q, b_q) -> dict:
 
 
 def check_int8_gemm(m: int, n: int, k: int, seed: int) -> dict:
+    """K7 with B stored (n, k), bit for bit against its plain version; its
+    route (``ops.int8_gemm.route``: wgmma where k is a multiple of 16) and
+    its time before the Hopper redesign (``PREV_MS``, quoted)."""
     a_q, a_s, b_q, b_s = _int8_operands((m, k), (n, k), seed)
     run = lambda: i8mod.int8_gemm(a_q, a_s, b_q, b_s, b_layout="t")
     plain = lambda: i8mod.int8_gemm_plain(a_q, a_s, b_q, b_s, b_t=True)
@@ -559,7 +587,9 @@ def check_int8_gemm(m: int, n: int, k: int, seed: int) -> dict:
     ok = torch.equal(got, ref) and bool(torch.isfinite(got).all())
     nbytes = m * k + m * 4 + n * k + n * 4 + m * n * 2
     b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
-    return {"shape": f"m={m} n={n} k={k}", "ok": ok,
+    shape = f"m={m} n={n} k={k}"
+    return {"shape": shape, "ok": ok, "route": i8mod.route(a_q, b_q, "t"),
+            "prev_ms": PREV_MS["int8_gemm"].get(shape),
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
             "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -790,7 +820,8 @@ def check_gemm(m: int, n: int, k: int, seed: int, dtype=torch.bfloat16,
 
 def check_ksplit(m: int, n: int, k: int, splits: int, seed: int,
                  why: str) -> dict:
-    """K11 with ``splits`` splits against its plain version, and K10 (the
+    """K11 with ``splits`` splits against its plain version, its route and
+    time before the Hopper redesign (``PREV_MS``, quoted), and K10 (the
     COMMON config) timed at the same shape."""
     a, b, _, _ = _dense_operands((), m, n, k, torch.bfloat16, "nn", seed)
     cfg = GemmConfig(block_m=64, block_n=64, block_k=64,
@@ -800,8 +831,10 @@ def check_ksplit(m: int, n: int, k: int, splits: int, seed: int,
     got, ref = run(), plain()
     torch.cuda.synchronize()
     b_ms, b_by = _gemm_bound(1, m, n, k, torch.bfloat16)
-    return {"shape": f"m={m} n={n} k={k} bf16 k_split={splits}",
-            "why": why, "ok": gemm_close(got, ref, a, b),
+    shape = f"m={m} n={n} k={k} bf16 k_split={splits}"
+    return {"shape": shape, "why": why, "route": route(a, b),
+            "prev_ms": PREV_MS["gemm_ksplit"].get(shape),
+            "ok": gemm_close(got, ref, a, b),
             "max_abs_err": float((got - ref).abs().max()),
             "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "k10_ms": cold_ms(lambda: gemm_with_config(a, b, config=COMMON)),

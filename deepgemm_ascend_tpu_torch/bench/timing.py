@@ -11,7 +11,9 @@ questions:
 * :func:`cold_ms` — *cold, per launch*: the median of single launches,
   each after a 256 MB write that flushes the 50 MB L2, as a caller that
   touches its operands once finds them. This is what ``chip_smoke.py``'s
-  kernel table reports (its method, moved here unchanged).
+  kernel table reports. The timed calls queue up behind a spin kernel, so
+  the card runs them back to back whatever their host cost: the events
+  time the device alone.
 
 The JAX timer works around a TPU runtime that acknowledged
 ``block_until_ready`` before the device finished: it chained ``iters``
@@ -35,6 +37,9 @@ import torch
 
 # cold_ms's flush: 256 MB of int32, five times the H100's 50 MB L2.
 _FLUSH_INT32 = 64 * 2 ** 20
+# cold_ms's hold: a spin of 4e7 SM cycles (~20 ms at the H100's clocks),
+# during which the host queues every timed call.
+_HOLD_CYCLES = 40_000_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +134,19 @@ def time_gemm_like(fn: Callable, *args, **kw) -> Timing:
 def cold_ms(fn: Callable, reps: int = 10, warmup: int = 2) -> float:
     """Median device time in ms of one call of ``fn()``, the L2 cache
     flushed by a 256 MB write before every timed launch (CUDA events; the
-    card only)."""
+    card only).
+
+    The reps are queued behind a ~20 ms spin kernel (``torch.cuda._sleep``)
+    so that the card reaches them only once the host has queued them all:
+    a call whose host side outlasts the flush (a wrapper with several
+    launches, such as K11's kernel and sum) would otherwise leave the card
+    idle between its events, and the idle time would be counted. A call
+    that synchronizes inside is still timed with its host wait."""
     flush = torch.empty(_FLUSH_INT32, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(_HOLD_CYCLES)
     pairs = []
     for _ in range(reps):
         flush.zero_()

@@ -12,31 +12,37 @@
 // entry refuses (cudaErrorInvalidValue) a route it cannot take, so no call
 // switches routes silently.
 //
-// Route 1, "wgmma" (K10, bf16/fp16 inputs whose operands TMA can describe:
-// 16-byte aligned bases, row and batch pitches that are multiples of 16
-// bytes): the Hopper main loop of sm90_gemm.cuh. A producer warp keeps a
-// ring of shared-memory stages filled by TMA (64-deep K blocks, 128-byte
-// swizzle, out-of-bounds boxes zero-filled: the K tail and the M/N edges
-// need no mask), and consumer warpgroups run wgmma.mma_async on them, each
-// owning 64 rows of the tile, with setmaxnreg moving registers from the
-// producer warpgroup to them. Tiles: 128 x 256 (two consumer warpgroups,
-// 4 stages of 48 KB) for m > 64; 64 x 64 (one consumer, 6 stages of 16 KB,
-// two blocks an SM) for m <= 64, where the operand bytes bound the kernel
+// Route 1, "wgmma" (K10 and K11, bf16/fp16 inputs whose operands TMA can
+// describe: 16-byte aligned bases, row and batch pitches that are
+// multiples of 16 bytes): the Hopper main loop of sm90_gemm.cuh. A
+// producer warp keeps a ring of shared-memory stages filled by TMA
+// (64-deep K blocks, 128-byte swizzle, out-of-bounds boxes zero-filled:
+// the K tail and the M/N edges need no mask), and consumer warpgroups run
+// wgmma.mma_async on them, each owning 64 rows of the tile, with
+// setmaxnreg moving registers from the producer warpgroup to them. Tiles:
+// 128 x 256 (two consumer warpgroups, 4 stages of 48 KB) for m > 64;
+// 64 x 64 (one consumer, 6 stages of 16 KB, two blocks an SM) for
+// m <= 64, where the operand bytes bound the kernel
 // and the stages keep B streaming, and wherever 128 x 256 tiles would
 // leave most SMs idle. Operands stored with K as the row index
 // (A (k, m), B (k, n)) are read MN-major through wgmma's transpose bits.
 // The grid is 1-D over the output tiles in bands of 16 (sm90::tile_of)
-// and z over the batch; the kernel takes a K range, which K10 sets to all
-// of K.
+// and z over the batch (K11: batch x splits); the kernel takes a K range,
+// which K10 sets to all of K and K11 to its split's. K11's tile follows
+// from its whole grid: at decode (m = 16) the 64 x 64 tile, two blocks an
+// SM, which is what lets the splits fill the card where K10's few tiles
+// leave most SMs idle.
 //
-// Route 0, "mma_tile" (every shape: K11, f32 inputs, and 16-bit operands
-// TMA cannot describe, such as an odd leading dimension): a block owns one
-// 64 x 64 output tile and one K range [k_begin, k_end). K10 gives every
-// block all of K. K11 gives block (s, tile) the 64-deep K blocks
-// [s*per, min(nk, (s+1)*per)) and stores its f32 sum into slice s of a
-// (k_split, m, n) partials buffer; a range past K stores zeros (the buffer
-// comes from torch.empty). The wrapper sums the slices, as jnp.sum does
-// outside the TPU kernel (:285).
+// Both routes split K the same way: K11 gives block (s, tile) the 64-deep
+// K blocks [s*per, min(nk, (s+1)*per)) and stores its f32 sum into slice s
+// of a (k_split, m, n) partials buffer; a range past K stores zeros (the
+// buffer comes from torch.empty). The wrapper sums the slices, as jnp.sum
+// does outside the TPU kernel (:285).
+//
+// Route 0, "mma_tile" (every shape: f32 inputs, and 16-bit operands TMA
+// cannot describe, such as an odd leading dimension): a block owns one
+// 64 x 64 output tile and one K range [k_begin, k_end); K10 gives every
+// block all of K.
 //
 // bf16 and fp16 inputs on route 0: mma.sync.m16n8k16 with f32
 // accumulators, each input type with its own mma. Fragments come from
@@ -409,13 +415,18 @@ struct TmaArgs {
   int m, n;
   int tiles_m, tiles_n;
   int n_major;
-  int kb_begin, kb_count;   // the K range, in s9::kBK-deep blocks
+  int kb_begin, kb_count;   // the K range in s9::kBK-deep blocks (K11: 0, blocks a split)
+  int splits, kb_total;     // K11: splits of a batch element, K blocks in all
 };
 
 // BM / 64 consumer warpgroups, then the producer warpgroup (one thread of
 // it issues every TMA load). With two consumers, setmaxnreg moves the
 // registers: 128 x 40 + 256 x 232 = 384 x 168, the launch's share.
-template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename OutT>
+// SPLIT (K11): blockIdx.z is batch element z / splits, split z % splits,
+// which sums K blocks [s * kb_count, min(kb_total, (s + 1) * kb_count));
+// a split past K issues no load and stores a zero tile. Either way block
+// z writes the z-th m x n slice of c.
+template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename OutT, bool SPLIT>
 __global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 64 ? 2 : 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tb, TmaArgs p) {
@@ -427,62 +438,37 @@ __global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 64 ? 2 : 1)
   uint64_t* empty = full + STAGES;
   int tm, tn;
   s9::tile_of(p.tiles_m, p.tiles_n, p.n_major, tm, tn);
-  const int m0 = tm * BM, n0 = tn * BN, batch = blockIdx.z;
-  const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) {
-      s9::mbar_init(&full[i], 1);
-      s9::mbar_init(&empty[i], kConsumers);
-    }
-    s9::fence_barrier_init();
+  const int m0 = tm * BM, n0 = tn * BN;
+  int batch = blockIdx.z, kb_begin = p.kb_begin, kb_count = p.kb_count;
+  if constexpr (SPLIT) {
+    batch = blockIdx.z / p.splits;
+    kb_begin = (blockIdx.z % p.splits) * p.kb_count;
+    kb_count = max(0, min(p.kb_total - kb_begin, p.kb_count));
   }
+  const int wg = threadIdx.x / 128;
+  s9::init_ring<STAGES>(full, empty, kConsumers);
   __syncthreads();
   if (wg == kConsumers) {
     if constexpr (kConsumers == 2) s9::regs_dec<40>();
-    if (threadIdx.x == kConsumers * 128) {
-      int s = 0;
-      uint32_t phase = 0;
-      for (int kb = 0; kb < p.kb_count; ++kb) {
-        const int k0 = (p.kb_begin + kb) * s9::kBK;
-        s9::mbar_wait(&empty[s], phase ^ 1);
-        s9::mbar_expect_tx(&full[s], R::kStage);
-        uint8_t* a = ring + s * R::kStage;
-        uint8_t* b = a + R::kA;
-        if (A_MN) {
-#pragma unroll
-          for (int i = 0; i < BM / 64; ++i)
-            s9::tma_load(a + i * s9::kPanel, &ta, &full[s], m0 + 64 * i, k0, batch);
-        } else {
-          s9::tma_load(a, &ta, &full[s], k0, m0, batch);
-        }
-        if (B_MN) {
-#pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            s9::tma_load(b + j * s9::kPanel, &tb, &full[s], n0 + 64 * j, k0, batch);
-        } else {
-          s9::tma_load(b, &tb, &full[s], k0, n0, batch);
-        }
-        if (++s == STAGES) {
-          s = 0;
-          phase ^= 1;
-        }
-      }
-    }
+    if (threadIdx.x == kConsumers * 128)
+      s9::produce<T, BM, BN, STAGES, A_MN, B_MN>(ring, full, empty, &ta, &tb, m0, n0, batch,
+                                                 kb_begin, kb_count);
   } else {
     if constexpr (kConsumers == 2) s9::regs_inc<232>();
     float acc[BN / 2];
-    s9::mma_loop<T, BM, BN, STAGES, A_MN, B_MN>(acc, ring, full, empty, p.kb_count, wg,
+    s9::mma_loop<T, BM, BN, STAGES, A_MN, B_MN>(acc, ring, full, empty, kb_count, wg,
                                                 [](int) {});
-    OutT* c = static_cast<OutT*>(p.c) + (size_t)batch * p.m * p.n;
+    OutT* c = static_cast<OutT*>(p.c) + (size_t)blockIdx.z * p.m * p.n;
     s9::store_tile<BN>(acc, c, p.m, p.n, m0 + wg * 64, n0);
   }
 }
 
-// Maps of A and B (16-bit), then the launch over K blocks [kb_begin,
-// kb_begin + kb_count).
-template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename OutT>
+// Maps of A and B (16-bit), then the launch: K10 over all of K, K11
+// (SPLIT) over `splits` ranges of kb_per K blocks each, the grid's z axis
+// batch x splits.
+template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename OutT, bool SPLIT>
 int run_sm90(const void* a, const void* b, void* c, int batch, int m, int n, int k, int n_major,
-             int kb_begin, int kb_count, cudaStream_t s) {
+             int splits, int kb_per, cudaStream_t s) {
   const CUtensorMapDataType dt = std::is_same<T, __nv_bfloat16>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
@@ -496,21 +482,24 @@ int run_sm90(const void* a, const void* b, void* c, int batch, int m, int n, int
             : s9::make_map(&tb, dt, 2, b, k, n, batch, k, kn, 64, BN, sw);
   if (rc) return rc;
   const int tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
-  const TmaArgs p{c, m, n, tiles_m, tiles_n, n_major, kb_begin, kb_count};
-  const dim3 grid(tiles_m * tiles_n, 1, batch);
-  return s9::launch<gemm_sm90_kernel<T, BM, BN, STAGES, A_MN, B_MN, OutT>>(
+  const int kb = (k + s9::kBK - 1) / s9::kBK;
+  const TmaArgs p{c, m, n, tiles_m, tiles_n, n_major, 0, SPLIT ? kb_per : kb, splits, kb};
+  const dim3 grid(tiles_m * tiles_n, 1, batch * splits);
+  return s9::launch<gemm_sm90_kernel<T, BM, BN, STAGES, A_MN, B_MN, OutT, SPLIT>>(
       grid, (BM / 64 + 1) * 128, s9::Ring<BM, BN, STAGES>::kSmem, s, ta, tb, p);
 }
 
-// The tile (sm90::large_tile): 128 x 256, or 64 x 64 with two blocks an SM.
-template <typename T, bool A_MN, bool B_MN, typename OutT>
+// The tile (sm90::large_tile over the grid's tiles, splits included):
+// 128 x 256, or 64 x 64 with two blocks an SM.
+template <typename T, bool A_MN, bool B_MN, typename OutT, bool SPLIT = false>
 int tile_sm90(const void* a, const void* b, void* c, int batch, int m, int n, int k, int n_major,
-              cudaStream_t s) {
-  const int kb = (k + s9::kBK - 1) / s9::kBK;
-  const long long tiles = (long long)((m + 127) / 128) * ((n + 255) / 256) * batch;
+              cudaStream_t s, int splits = 1, int kb_per = 0) {
+  const long long tiles = (long long)((m + 127) / 128) * ((n + 255) / 256) * batch * splits;
   if (s9::large_tile(m, tiles))
-    return run_sm90<T, 128, 256, 4, A_MN, B_MN, OutT>(a, b, c, batch, m, n, k, n_major, 0, kb, s);
-  return run_sm90<T, 64, 64, 6, A_MN, B_MN, OutT>(a, b, c, batch, m, n, k, n_major, 0, kb, s);
+    return run_sm90<T, 128, 256, 4, A_MN, B_MN, OutT, SPLIT>(a, b, c, batch, m, n, k, n_major,
+                                                             splits, kb_per, s);
+  return run_sm90<T, 64, 64, 6, A_MN, B_MN, OutT, SPLIT>(a, b, c, batch, m, n, k, n_major, splits,
+                                                         kb_per, s);
 }
 
 template <typename T, bool A_MN, bool B_MN>
@@ -534,7 +523,7 @@ int layout_sm90(int a_t, int b_t, int out_code, const void* a, const void* b, vo
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
 
-// Route 0: the 64 x 64 tile (K11 and every input type).
+// Route 0: the 64 x 64 tile (every input type).
 int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k, int a_t, int b_t,
            int in_code, int out_code, int n_major, int splits, int k_per, void* stream) {
   const long long tiles_m = (m + kBM - 1) / kBM, tiles_n = (n + kBN - 1) / kBN;
@@ -578,6 +567,22 @@ int launch_sm90(const void* a, const void* b, void* c, int batch, int m, int n, 
   return layout_sm90<__half>(a_t, b_t, out_code, a, b, c, batch, m, n, k, n_major, s);
 }
 
+// K11 on route 1: nn (A K-major, B MN-major), f32 partials.
+int ksplit_sm90(const void* a, const void* b, void* partials, int batch, int m, int n, int k,
+                int splits, int k_per, int in_code, void* stream) {
+  if (batch <= 0 || m <= 0 || n <= 0 || k <= 0 || splits <= 0 ||
+      (long long)batch * splits > kMaxGridYZ || k_per <= 0 || k_per % s9::kBK || in_code < 1 ||
+      in_code > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kb_per = k_per / s9::kBK;
+  if (in_code == 1)
+    return tile_sm90<__nv_bfloat16, false, true, float, true>(a, b, partials, batch, m, n, k, 0, s,
+                                                              splits, kb_per);
+  return tile_sm90<__half, false, true, float, true>(a, b, partials, batch, m, n, k, 0, s, splits,
+                                                     kb_per);
+}
+
 }  // namespace
 
 // K10: c (batch, m, n) of out type out_code = a . b per batch element, on
@@ -592,8 +597,13 @@ extern "C" int dga_gemm(const void* a, const void* b, void* c, int batch, int m,
 }
 
 // K11: f32 partials (batch, splits, m, n), nn layout; split s sums K range
-// [s * k_per, min(k, (s + 1) * k_per)), k_per a multiple of 64.
+// [s * k_per, min(k, (s + 1) * k_per)), k_per a multiple of 64, and a
+// split past K writes zeros; on route 0 (mma_tile) or 1 (wgmma).
 extern "C" int dga_gemm_ksplit(const void* a, const void* b, void* partials, int batch, int m,
-                               int n, int k, int splits, int k_per, int in_code, void* stream) {
+                               int n, int k, int splits, int k_per, int in_code, int route,
+                               void* stream) {
+  if (route == 1)
+    return ksplit_sm90(a, b, partials, batch, m, n, k, splits, k_per, in_code, stream);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   return launch(a, b, partials, batch, m, n, k, 0, 0, in_code, 0, 0, splits, k_per, stream);
 }

@@ -33,17 +33,38 @@
 // works on 16-bit elements only.
 //
 // Bound on the card: the weight bytes at decode (m = 16, or a few rows per
-// expert), int8 tensor-core work at prefill. This is the simple design:
-// 64 x 64 tiles, 4 warps of 32 x 32, 128-deep K steps staged in shared
-// memory through registers (the next step's global loads are in flight
-// during this step's math; no cp.async/TMA ring), no split-K for the
-// few-block decode shapes, mma.sync at a fraction of the wgmma s8 rate.
-// Idle masked tiles still cost a block and a zero store each.
+// expert), int8 tensor-core work at prefill.
+//
+// K7 takes one of two routes, chosen by the caller (ops/int8_gemm.py:route)
+// and passed in; the entry refuses a route it cannot take:
+//   route 1, "wgmma" (B stored K-major, (n, k): b_layout 't'; k a multiple
+//     of 16 and 16-byte aligned operands, so that TMA can describe both):
+//     the Hopper main loop of sm90_gemm.cuh with 8-bit stages. A stage is
+//     128 bytes of K a row, 128 int8 elements, the bytes of the 16-bit
+//     loop's 64-element stage, so the ring, the TMA boxes and the 128-byte
+//     swizzle are the same; wgmma.mma_async m64nNk32.s32.s8.s8, four a
+//     stage, sums exactly into s32 accumulators; the epilogue scales them
+//     (sm90::store_tile_scaled). TMA zero-fills the K tail and the M/N
+//     edges, which keeps the sum exact. Tiles as K10's (sm90::large_tile):
+//     128 x 256 where those fill the card, else 64 x 64, two blocks an SM
+//     (m <= 64: 344 tiles at n = 22016). wgmma reads 8-bit operands
+//     K-major only, so B stored (k, n) cannot take this route.
+//   route 0, "int8_tile" (every layout and shape; K9 and K6 always): the
+//     simple design below: 64 x 64 tiles, 4 warps of 32 x 32, 128-deep K
+//     steps staged in shared memory through registers (the next step's
+//     global loads are in flight during this step's math; no cp.async/TMA
+//     ring), mma.sync at a fraction of the wgmma s8 rate. Idle masked tiles
+//     still cost a block and a zero store each.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sm90_gemm.cuh"
+
 namespace {
+
+namespace s9 = dga::sm90;
+using s9::store_cols;
 
 constexpr int kBM = 64;
 constexpr int kBN = 64;
@@ -72,31 +93,6 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float epilogue(int acc, float a_s, float b_s) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(acc), a_s), b_s);
-}
-
-__device__ __forceinline__ void store1(float* c, float x) { *c = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* c, float x) { *c = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void store2(float* c, float x, float y) {
-  *reinterpret_cast<float2*>(c) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* c, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(x, y);
-}
-
-// Stores x, y at columns col, col + 1 (col even) of a row of n columns,
-// dropping what lies past n; a pair store needs an even n to be aligned.
-template <typename OutT>
-__device__ __forceinline__ void store_cols(OutT* row, int col, int n, float x, float y) {
-  if (col + 1 < n && (n & 1) == 0) {
-    store2(row + col, x, y);
-  } else {
-    if (col < n) store1(row + col, x);
-    if (col + 1 < n) store1(row + col + 1, y);
-  }
 }
 
 // Zeros over rows [m0, m_end) and columns [n0, n0 + kBN) of c (n columns).
@@ -258,7 +254,7 @@ __device__ void int8_tile(const Args& p, OutT* c, int m0, int m_end, int n0) {
     __syncthreads();
   }
 
-  // Epilogue: (acc * a_s) * b_s, rounded as written.
+  // Epilogue: (acc * a_s) * b_s, rounded as written (sm90::dequant).
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = m0 + wm * 32 + i * 16 + g;
@@ -270,11 +266,11 @@ __device__ void int8_tile(const Args& p, OutT* c, int m0, int m_end, int n0) {
       const float b0 = col < p.n ? p.b_s[col] : 0.f;
       const float b1 = col + 1 < p.n ? p.b_s[col + 1] : 0.f;
       if (r < m_end)
-        store_cols(c + (size_t)r * p.n, col, p.n, epilogue(acc[i][j][0], s_lo, b0),
-                   epilogue(acc[i][j][1], s_lo, b1));
+        store_cols(c + (size_t)r * p.n, col, p.n, s9::dequant(acc[i][j][0], s_lo, b0),
+                   s9::dequant(acc[i][j][1], s_lo, b1));
       if (r + 8 < m_end)
-        store_cols(c + (size_t)(r + 8) * p.n, col, p.n, epilogue(acc[i][j][2], s_hi, b0),
-                   epilogue(acc[i][j][3], s_hi, b1));
+        store_cols(c + (size_t)(r + 8) * p.n, col, p.n, s9::dequant(acc[i][j][2], s_hi, b0),
+                   s9::dequant(acc[i][j][3], s_hi, b1));
     }
   }
 }
@@ -386,15 +382,97 @@ struct MaskedLaunch {
   }
 };
 
+// ---------------------------------------------------------------- route 1
+
+struct Sm90Args {
+  void* c;
+  const float* a_s;
+  const float* b_s;
+  int m, n;
+  int tiles_m, tiles_n;
+  int kb;   // 128-deep K stages
+};
+
+// K7 on the Hopper main loop: BM / 64 consumer warpgroups, then the
+// producer warpgroup, as gemm.cu's gemm_sm90_kernel; both operands K-major.
+template <int BM, int BN, int STAGES, typename OutT>
+__global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 64 ? 2 : 1)
+    int8_sm90_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb, Sm90Args p) {
+  using R = s9::Ring<BM, BN, STAGES>;
+  constexpr int kConsumers = BM / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = s9::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::kBytes);
+  uint64_t* empty = full + STAGES;
+  int tm, tn;
+  s9::tile_of(p.tiles_m, p.tiles_n, 0, tm, tn);
+  const int m0 = tm * BM, n0 = tn * BN;
+  const int wg = threadIdx.x / 128;
+  s9::init_ring<STAGES>(full, empty, kConsumers);
+  __syncthreads();
+  if (wg == kConsumers) {
+    if constexpr (kConsumers == 2) s9::regs_dec<40>();
+    if (threadIdx.x == kConsumers * 128)
+      s9::produce<int8_t, BM, BN, STAGES, false, false>(ring, full, empty, &ta, &tb, m0, n0, 0, 0,
+                                                        p.kb);
+  } else {
+    if constexpr (kConsumers == 2) s9::regs_inc<232>();
+    int acc[BN / 2];
+    s9::mma_loop<int8_t, BM, BN, STAGES, false, false>(acc, ring, full, empty, p.kb, wg,
+                                                       [](int) {});
+    s9::store_tile_scaled<BN>(acc, static_cast<OutT*>(p.c), p.a_s, p.b_s, p.m, p.n,
+                              m0 + wg * 64, n0);
+  }
+}
+
+// Maps of A (m, k) and B (n, k, row pitch ldb) as bytes, 128-byte boxes of
+// K, then the launch.
+template <int BM, int BN, int STAGES, typename OutT>
+int run_int8_sm90(const void* a, const void* a_s, const void* b, const void* b_s, void* c, int m,
+                  int n, int k, long long ldb, cudaStream_t s) {
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  constexpr int kDepth = s9::kStageK<int8_t>;   // 128 int8 of K a stage
+  CUtensorMap ta, tb;
+  int rc = s9::make_map(&ta, u8, 1, a, k, m, 1, k, 0, kDepth, BM, sw);
+  if (rc) return rc;
+  rc = s9::make_map(&tb, u8, 1, b, k, n, 1, ldb, 0, kDepth, BN, sw);
+  if (rc) return rc;
+  const int tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
+  const Sm90Args p{c, static_cast<const float*>(a_s), static_cast<const float*>(b_s), m, n,
+                   tiles_m, tiles_n, (k + kDepth - 1) / kDepth};
+  return s9::launch<int8_sm90_kernel<BM, BN, STAGES, OutT>>(
+      dim3(tiles_m * tiles_n), (BM / 64 + 1) * 128, s9::Ring<BM, BN, STAGES>::kSmem, s, ta, tb, p);
+}
+
+template <typename OutT>
+int tile_int8_sm90(const void* a, const void* a_s, const void* b, const void* b_s, void* c, int m,
+                   int n, int k, long long ldb, cudaStream_t s) {
+  const long long tiles = (long long)((m + 127) / 128) * ((n + 255) / 256);
+  if (s9::large_tile(m, tiles))
+    return run_int8_sm90<128, 256, 4, OutT>(a, a_s, b, b_s, c, m, n, k, ldb, s);
+  return run_int8_sm90<64, 64, 6, OutT>(a, a_s, b, b_s, c, m, n, k, ldb, s);
+}
+
 }  // namespace
 
+// K7: c (m, n) = (a . b) * a_s * b_s, bf16 or f32 (out_f32); B's strides
+// sbk (along k) and sbn (along n); on route 0 (int8_tile) or 1 (wgmma: B
+// K-major, sbk == 1; the tensor maps refuse what TMA cannot describe).
 extern "C" int dga_int8_gemm(const void* a, const void* a_s, const void* b, const void* b_s,
                              void* c, int m, int n, int k, long long sbk, long long sbn,
-                             int out_f32, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || (m + kBM - 1) / kBM > kMaxGridY)
-    return (int)cudaErrorInvalidValue;
+                             int out_f32, int route, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (sbk != 1) return (int)cudaErrorInvalidValue;
+    return out_f32 ? tile_int8_sm90<float>(a, a_s, b, b_s, c, m, n, k, sbn, s)
+                   : tile_int8_sm90<__nv_bfloat16>(a, a_s, b, b_s, c, m, n, k, sbn, s);
+  }
+  if (route != 0 || (m + kBM - 1) / kBM > kMaxGridY) return (int)cudaErrorInvalidValue;
   const Args p = make_args(a, a_s, b, b_s, n, k, sbk, sbn, 0);
-  dispatch<DenseLaunch>(sbk == 1, out_f32, p, m, c, static_cast<cudaStream_t>(stream));
+  dispatch<DenseLaunch>(sbk == 1, out_f32, p, m, c, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,31 +1,38 @@
-// Hopper (sm_90a) 16-bit GEMM main loop shared by the dense GEMM (gemm.cu,
-// K10) and the folded-scale FP8 GEMM (fp8_gemm.cu, K12).
+// Hopper (sm_90a) GEMM main loop shared by the dense GEMM and split-K GEMM
+// (gemm.cu, K10 and K11), the folded-scale FP8 GEMM (fp8_gemm.cu, K12) and
+// the dense W8A8 int8 GEMM (int8_gemm.cu, K7).
 //
-// The pieces, each written once:
+// The pieces, each written once and generic in the element size:
 //   * TMA tensor maps (cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint, so that nothing links libcuda): 3-D maps
 //     (inner, outer, batch) of row-major operands, passed to the kernels by
 //     value as __grid_constant__ parameters; out-of-bounds boxes are
-//     zero-filled, which is how the K tail and the M/N edges are masked.
+//     zero-filled, which is how the K tail and the M/N edges are masked
+//     (for int8 the zeros also keep the integer sum exact);
 //   * mbarrier helpers for a ring of shared-memory stages with full/empty
 //     barriers (full: the stage's bytes or its writers have arrived; empty:
-//     its readers are done).
+//     its readers are done), and the producer that fills the ring by TMA;
 //   * wgmma.mma_async m64nNk16 (N = 64, 128, 256) for bf16 and f16 with f32
 //     accumulators, from 128-byte-swizzled shared memory, with descriptors
-//     for K-major and MN-major operands (the trans bits).
+//     for K-major and MN-major operands (the trans bits); and m64nNk32 for
+//     s8 x s8 with s32 accumulators, K-major only (the trans bits exist for
+//     16-bit types alone);
 //   * the consumer loop: one warpgroup per 64 output rows runs the stages of
 //     the ring through wgmma, keeping one stage's products in flight while
 //     it waits for the next, and releases each stage once its products are
 //     done;
-//   * the epilogue: the f32 accumulators rounded once (RN) to the output
-//     type and stored straight from the fragments, masked at the M and N
-//     edges.
+//   * the epilogues: the f32 accumulators rounded once (RN) to the output
+//     type, or the s32 accumulators scaled as (acc * a_s) * b_s in f32,
+//     and stored straight from the fragments, masked at the M and N edges.
 //
-// Stage layout (bf16/f16, kBK = 64 deep: one 128-byte swizzle span): a
-// K-major operand tile of R rows is R rows of 128 bytes; an MN-major tile
-// of R columns is R/64 panels of 64 K-rows x 128 bytes (8 KB each), since a
-// 128-byte swizzle box is at most 64 16-bit elements wide. Every stage
-// starts on a 1024-byte boundary (the swizzle repeats every 8 rows).
+// Stage layout: a stage holds kRowBytes = 128 bytes of K a row (one
+// 128-byte swizzle span): 64 bf16/f16 elements (kBK) or 128 int8. A
+// K-major operand tile of R rows is R rows of 128 bytes, and each of the
+// four wgmma steps of a stage reads the next 32 bytes of K (k16 of 16-bit
+// types, k32 of int8); an MN-major tile (16-bit only) of R columns is R/64
+// panels of 64 K-rows x 128 bytes (8 KB each), since a 128-byte swizzle
+// box is at most 64 16-bit elements wide. Every stage starts on a
+// 1024-byte boundary (the swizzle repeats every 8 rows).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums only: no libcuda at link time
@@ -38,7 +45,11 @@
 namespace dga {
 namespace sm90 {
 
-constexpr int kBK = 64;             // K depth of one stage (16-bit elements)
+constexpr int kRowBytes = 128;      // K bytes of one stage row: one swizzle span
+constexpr int kBK = 64;             // K depth of one stage, 16-bit elements
+// K depth of one stage in elements of T: 64 for 16-bit types, 128 for int8.
+template <typename T>
+constexpr int kStageK = kRowBytes / (int)sizeof(T);
 constexpr int kPanel = 64 * 128;    // one 64-row x 128-byte swizzle panel, bytes
 constexpr int kBand = 16;           // output tiles per raster band (L2 reuse)
 
@@ -190,9 +201,10 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
          ((uint64_t)(1024u >> 4) << 32) | (1ull << 62);
 }
 
-// Operand tile of a stage at shared address `base`, K step kk (16 deep):
-// K-major rows of 128 bytes (row0: first row), or MN-major 8 KB panels
-// (panel0: first panel).
+// Operand tile of a stage at shared address `base`, K step kk (32 bytes
+// of K: 16 deep for 16-bit types, 32 for int8): K-major rows of 128 bytes
+// (first64: first 64-row group), or MN-major 8 KB panels (first64: first
+// panel).
 template <bool MN>
 __device__ __forceinline__ uint64_t operand_desc(uint32_t base, int first64, int kk) {
   return MN ? desc(base + first64 * kPanel + kk * 16 * 128, kPanel)
@@ -217,29 +229,36 @@ __device__ __forceinline__ void fence_acc(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int kN>
+__device__ __forceinline__ void fence_acc(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
-// m64nNk16: N/2 f32 accumulators a thread.
+// m64nNk16 (16-bit) and m64nNk32 (s8): N/2 accumulators a thread, bound
+// with constraint C ("f" for f32, "r" for s32).
 #define DGA_WGMMA_REGS_N64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define DGA_WGMMA_OUTS_N64                                                                       \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define DGA_WGMMA_OUTS_N64(C)                                                                      \
+  "+" C(d[0]), "+" C(d[1]), "+" C(d[2]), "+" C(d[3]), "+" C(d[4]), "+" C(d[5]),                    \
+      "+" C(d[6]), "+" C(d[7]), "+" C(d[8]), "+" C(d[9]), "+" C(d[10]), "+" C(d[11]),              \
+      "+" C(d[12]), "+" C(d[13]), "+" C(d[14]), "+" C(d[15]), "+" C(d[16]), "+" C(d[17]),          \
+      "+" C(d[18]), "+" C(d[19]), "+" C(d[20]), "+" C(d[21]), "+" C(d[22]), "+" C(d[23]),          \
+      "+" C(d[24]), "+" C(d[25]), "+" C(d[26]), "+" C(d[27]), "+" C(d[28]), "+" C(d[29]),          \
+      "+" C(d[30]), "+" C(d[31])
 #define DGA_WGMMA_REGS_N128 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define DGA_WGMMA_OUTS_N128                                                                      \
-  DGA_WGMMA_OUTS_N64, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),            \
-      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),            \
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),            \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),            \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define DGA_WGMMA_OUTS_N128(C)                                                                     \
+  DGA_WGMMA_OUTS_N64(C), "+" C(d[32]), "+" C(d[33]), "+" C(d[34]), "+" C(d[35]),                   \
+      "+" C(d[36]), "+" C(d[37]), "+" C(d[38]), "+" C(d[39]), "+" C(d[40]), "+" C(d[41]),          \
+      "+" C(d[42]), "+" C(d[43]), "+" C(d[44]), "+" C(d[45]), "+" C(d[46]), "+" C(d[47]),          \
+      "+" C(d[48]), "+" C(d[49]), "+" C(d[50]), "+" C(d[51]), "+" C(d[52]), "+" C(d[53]),          \
+      "+" C(d[54]), "+" C(d[55]), "+" C(d[56]), "+" C(d[57]), "+" C(d[58]), "+" C(d[59]),          \
+      "+" C(d[60]), "+" C(d[61]), "+" C(d[62]), "+" C(d[63])
 #define DGA_WGMMA_REGS_N256 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
@@ -249,26 +268,34 @@ __device__ __forceinline__ void fence_acc(float (&d)[kN]) {
   "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
-#define DGA_WGMMA_OUTS_N256                                                                      \
-  DGA_WGMMA_OUTS_N128, "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]),        \
-      "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),            \
-      "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),            \
-      "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]),            \
-      "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]),            \
-      "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]),            \
-      "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),       \
-      "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),      \
-      "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),      \
-      "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]),      \
-      "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define DGA_WGMMA_OUTS_N256(C)                                                                     \
+  DGA_WGMMA_OUTS_N128(C), "+" C(d[64]), "+" C(d[65]), "+" C(d[66]), "+" C(d[67]),                  \
+      "+" C(d[68]), "+" C(d[69]), "+" C(d[70]), "+" C(d[71]), "+" C(d[72]), "+" C(d[73]),          \
+      "+" C(d[74]), "+" C(d[75]), "+" C(d[76]), "+" C(d[77]), "+" C(d[78]), "+" C(d[79]),          \
+      "+" C(d[80]), "+" C(d[81]), "+" C(d[82]), "+" C(d[83]), "+" C(d[84]), "+" C(d[85]),          \
+      "+" C(d[86]), "+" C(d[87]), "+" C(d[88]), "+" C(d[89]), "+" C(d[90]), "+" C(d[91]),          \
+      "+" C(d[92]), "+" C(d[93]), "+" C(d[94]), "+" C(d[95]), "+" C(d[96]), "+" C(d[97]),          \
+      "+" C(d[98]), "+" C(d[99]), "+" C(d[100]), "+" C(d[101]), "+" C(d[102]),                     \
+      "+" C(d[103]), "+" C(d[104]), "+" C(d[105]), "+" C(d[106]), "+" C(d[107]),                   \
+      "+" C(d[108]), "+" C(d[109]), "+" C(d[110]), "+" C(d[111]), "+" C(d[112]),                   \
+      "+" C(d[113]), "+" C(d[114]), "+" C(d[115]), "+" C(d[116]), "+" C(d[117]),                   \
+      "+" C(d[118]), "+" C(d[119]), "+" C(d[120]), "+" C(d[121]), "+" C(d[122]),                   \
+      "+" C(d[123]), "+" C(d[124]), "+" C(d[125]), "+" C(d[126]), "+" C(d[127])
 // Operand numbers after the N/2 accumulators: desc a, desc b, scale-d (1:
 // accumulate), trans-a, trans-b.
 #define DGA_WGMMA(N, TY, IA, IB, IS, ITA, ITB)                                                  \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"                                \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "                  \
                DGA_WGMMA_REGS_N##N ", %" #IA ", %" #IB ", p, 1, 1, %" #ITA ", %" #ITB ";\n}\n" \
-               : DGA_WGMMA_OUTS_N##N                                                            \
+               : DGA_WGMMA_OUTS_N##N("f")                                                          \
                : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB))
+// s8 x s8 -> s32: no scale or transpose operands (K-major only).
+#define DGA_WGMMA_S8(N, IA, IB, IS)                                                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"                                \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 "                          \
+               DGA_WGMMA_REGS_N##N ", %" #IA ", %" #IB ", p;\n}\n"                              \
+               : DGA_WGMMA_OUTS_N##N("r")                                                          \
+               : "l"(da), "l"(db), "r"(1))
 
 // d (64 x N per warpgroup) += A (64 x 16) . B (16 x N); TA / TB: the
 // operand is MN-major.
@@ -288,12 +315,24 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
   }
 }
 
-// The stage ring of a BM x BN tile: STAGES stages of A (BM x kBK) then B
-// (BN x kBK), 16-bit, and after them the full and empty barriers.
+// d (64 x N per warpgroup, s32) += A (64 x 32) . B (32 x N), s8, both
+// operands K-major; exact (|d| stays far below 2^31 for k < 2^17).
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma width");
+  if constexpr (N == 64) DGA_WGMMA_S8(64, 32, 33, 34);
+  else if constexpr (N == 128) DGA_WGMMA_S8(128, 64, 65, 66);
+  else DGA_WGMMA_S8(256, 128, 129, 130);
+}
+
+// The stage ring of a BM x BN tile: STAGES stages of A (BM rows of
+// kRowBytes) then B (BN rows, or for MN-major B its 64-row panels, of
+// kRowBytes), and after them the full and empty barriers. The bytes do not
+// depend on the element type.
 template <int BM, int BN, int STAGES>
 struct Ring {
-  static constexpr int kA = BM * kBK * 2;
-  static constexpr int kB = BN * kBK * 2;
+  static constexpr int kA = BM * kRowBytes;
+  static constexpr int kB = BN * kRowBytes;
   static constexpr int kStage = kA + kB;
   static constexpr int kBytes = STAGES * kStage;
   // The barriers, and the slack to round the base up to 1024 bytes.
@@ -317,20 +356,79 @@ __device__ __forceinline__ void tile_of(int tiles_m, int tiles_n, int n_major, i
   tn = n_major ? s : f;
 }
 
+// Thread 0 initialises the ring's barriers: `full` completes on the
+// producer's one arrival plus its bytes, `empty` on one arrival per
+// consumer warpgroup. The caller then syncs the block.
+template <int STAGES>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int consumers) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], consumers);
+    }
+    fence_barrier_init();
+  }
+}
+
+// The producer (one thread): stages kb_begin .. kb_begin + kb_count - 1 of
+// K (kStageK<T> elements each) of the tile at (m0, n0) of batch element
+// `batch`, by TMA into the ring, each once its slot is empty. An operand
+// stored K-major is one box (K inner); an MN-major one (16-bit only) is
+// 64-column panels (MN inner).
+template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN>
+__device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                        const CUtensorMap* ta, const CUtensorMap* tb, int m0,
+                                        int n0, int batch, int kb_begin, int kb_count) {
+  using R = Ring<BM, BN, STAGES>;
+  static_assert(sizeof(T) == 2 || !(A_MN || B_MN), "8-bit operands are K-major only");
+  int s = 0;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < kb_count; ++kb) {
+    const int k0 = (kb_begin + kb) * kStageK<T>;
+    mbar_wait(&empty[s], phase ^ 1);
+    mbar_expect_tx(&full[s], R::kStage);
+    uint8_t* a = ring + s * R::kStage;
+    uint8_t* b = a + R::kA;
+    if (A_MN) {
+#pragma unroll
+      for (int i = 0; i < BM / 64; ++i)
+        tma_load(a + i * kPanel, ta, &full[s], m0 + 64 * i, k0, batch);
+    } else {
+      tma_load(a, ta, &full[s], k0, m0, batch);
+    }
+    if (B_MN) {
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        tma_load(b + j * kPanel, tb, &full[s], n0 + 64 * j, k0, batch);
+    } else {
+      tma_load(b, tb, &full[s], k0, n0, batch);
+    }
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+}
+
 // The consumer loop of warpgroup `wg` (its 64 rows of the tile) over
-// `nk` stages: wait for each stage, issue its four K steps, keep them in
-// flight while the next stage is awaited, release a stage once its
-// products are done (one arrival per warpgroup on `empty`). issued(kb)
-// runs once stage kb's products are issued, while they run (K12 folds the
-// next stage's A there).
-template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename Issued>
-__device__ __forceinline__ void mma_loop(float (&acc)[BN / 2], const uint8_t* ring, uint64_t* full,
+// `nk` stages: wait for each stage, issue its four K steps (32 bytes of K
+// each), keep them in flight while the next stage is awaited, release a
+// stage once its products are done (one arrival per warpgroup on
+// `empty`). issued(kb) runs once stage kb's products are issued, while
+// they run (K12 folds the next stage's A there). Acc is float for 16-bit
+// T, int for int8; acc is zero when nk is 0.
+template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename Acc,
+          typename Issued>
+__device__ __forceinline__ void mma_loop(Acc (&acc)[BN / 2], const uint8_t* ring, uint64_t* full,
                                          uint64_t* empty, int nk, int wg, Issued issued) {
   using R = Ring<BM, BN, STAGES>;
+  constexpr bool kS8 = std::is_same<T, int8_t>::value;
+  static_assert(kS8 == std::is_same<Acc, int>::value, "s32 accumulators for int8 only");
+  static_assert(!kS8 || !(A_MN || B_MN), "8-bit operands are K-major only");
   const uint32_t base = smem_u32(ring);
   const bool leader = (threadIdx.x & 127) == 0;
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
   int s = 0, prev = 0;
   uint32_t phase = 0;
   for (int kb = 0; kb < nk; ++kb) {
@@ -339,9 +437,13 @@ __device__ __forceinline__ void mma_loop(float (&acc)[BN / 2], const uint8_t* ri
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma<T, BN, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, operand_desc<A_MN>(a, wg, kk),
-                                               operand_desc<B_MN>(b, 0, kk));
+    for (int kk = 0; kk < kRowBytes / 32; ++kk) {
+      if constexpr (kS8)
+        wgmma_s8<BN>(acc, operand_desc<false>(a, wg, kk), operand_desc<false>(b, 0, kk));
+      else
+        wgmma<T, BN, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, operand_desc<A_MN>(a, wg, kk),
+                                                 operand_desc<B_MN>(b, 0, kk));
+    }
     wgmma_commit();
     fence_acc(acc);
     issued(kb);
@@ -400,6 +502,41 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], OutT* c, 
   for (int j = 0; j < BN / 8; ++j) {
     if (r < m) store_cols(lo, cb + 8 * j, n, acc[4 * j], acc[4 * j + 1]);
     if (r + 8 < m) store_cols(hi, cb + 8 * j, n, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The W8A8 epilogue of one exact int32 sum: converted with cvt.rn.f32.s32,
+// then (acc * a_s) * b_s with __fmul_rn (never folding a_s * b_s, never
+// contracted), the order of the JAX kernels and the plain version.
+__device__ __forceinline__ float dequant(int acc, float a_s, float b_s) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), a_s), b_s);
+}
+
+// store_tile for the s32 accumulators of a W8A8 product: each thread's two
+// rows take their per-row scales a_s[r], a_s[r + 8] and each column pair
+// its per-column scales from b_s (m and n entries), then dequant, rounded
+// once to OutT.
+template <int BN, typename OutT>
+__device__ __forceinline__ void store_tile_scaled(const int (&acc)[BN / 2], OutT* c,
+                                                  const float* a_s, const float* b_s, int m,
+                                                  int n, int row0, int col0) {
+  const int t = threadIdx.x & 127;
+  const int r = row0 + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int cb = col0 + (t & 3) * 2;
+  const float s_lo = r < m ? a_s[r] : 0.f;
+  const float s_hi = r + 8 < m ? a_s[r + 8] : 0.f;
+  OutT* lo = c + (size_t)r * n;
+  OutT* hi = lo + (size_t)8 * n;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = cb + 8 * j;
+    const float b0 = col < n ? b_s[col] : 0.f;
+    const float b1 = col + 1 < n ? b_s[col + 1] : 0.f;
+    if (r < m)
+      store_cols(lo, col, n, dequant(acc[4 * j], s_lo, b0), dequant(acc[4 * j + 1], s_lo, b1));
+    if (r + 8 < m)
+      store_cols(hi, col, n, dequant(acc[4 * j + 2], s_hi, b0),
+                 dequant(acc[4 * j + 3], s_hi, b1));
   }
 }
 

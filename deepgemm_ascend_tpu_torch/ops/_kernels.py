@@ -68,7 +68,7 @@ KERNELS = {
                                 [_P] * 6 + [_I] * 4 + [_L] * 6
                                 + [_I, _I, _P]),
     "gemm": ("gemm", "dga_gemm", [_P, _P, _P] + [_I] * 10 + [_P]),
-    "gemm_ksplit": ("gemm", "dga_gemm_ksplit", [_P, _P, _P] + [_I] * 7 + [_P]),
+    "gemm_ksplit": ("gemm", "dga_gemm_ksplit", [_P, _P, _P] + [_I] * 8 + [_P]),
     "flash_decode": ("flash_decode", "dga_flash_decode_inplace",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _I, _I, _F, _P]),
@@ -82,7 +82,7 @@ KERNELS = {
     "flash_decode_state": ("flash_decode", "dga_flash_decode_state",
                            [_P] * 10 + [_I] * 6 + [_F, _P]),
     "int8_gemm": ("int8_gemm", "dga_int8_gemm",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]),
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P]),
     "int8_grouped_contiguous": ("int8_gemm", "dga_int8_grouped_contiguous",
                                 _INT8_GROUPED),
     "int8_grouped_masked": ("int8_gemm", "dga_int8_grouped_masked",

@@ -9,14 +9,15 @@ logical operand ((m, k) / (k, n)), "t" transposed ((k, m) / (n, k)).
 On a CUDA tensor the wrappers launch ``csrc/gemm.cu``: K10, or K11 when
 the config is ``KernelType.KSPLIT`` with ``k_split > 1``, at least
 ``k_split`` K blocks and the nn layout (JAX :171-173); K11's f32 partials
-are summed and cast here, as ``jnp.sum`` does outside the TPU kernel. K10
-takes one of two routes, decided here by :func:`route` and passed to the
+are summed and cast here, as ``jnp.sum`` does outside the TPU kernel. Both
+take one of two routes, decided here by :func:`route` and passed to the
 kernel, which refuses a route it cannot take: ``"wgmma"`` (bf16/fp16
 operands that TMA can describe: the Hopper main loop of
 ``csrc/sm90_gemm.cuh``, 128 × 256 tiles, or 64 × 64 for m ≤ 64 and where
-128 × 256 tiles would leave most SMs idle) or
-``"mma_tile"`` (everything else, and K11: fixed 64 × 64 output tiles with
-64-deep K blocks, :data:`TILE_M`, ...). Of a ``GemmConfig`` the kernels
+128 × 256 tiles would leave most SMs idle, K11's splits counted) or
+``"mma_tile"`` (everything else: fixed 64 × 64 output tiles with 64-deep K
+blocks, :data:`TILE_M`, ...). Either way K11 splits K in whole 64-deep
+blocks (:func:`_split_depth`). Of a ``GemmConfig`` the kernels
 read ``kernel_type``, ``k_split``, ``swizzle`` (the raster order of the
 output tiles) and ``pad_k`` (nn: K padded with zeros to a multiple of the
 64-deep block); the block sizes are fixed.
@@ -42,11 +43,12 @@ from ..utils.common import ceil_div
 from . import _kernels
 
 __all__ = ["gemm", "bgemm", "gemm_with_config", "gemm_plain",
-           "gemm_ksplit_plain", "route"]
+           "gemm_ksplit_plain", "ksplit_partials_plain", "split_ranges",
+           "route"]
 
 K10 = _kernels.COUNTERS["gemm"]
 K11 = _kernels.COUNTERS["gemm_ksplit"]
-# The C interface's type codes, and K10's route codes.
+# The C interface's type codes, and K10's and K11's route codes.
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTES = ("mma_tile", "wgmma")
 
@@ -78,24 +80,39 @@ def _split_depth(k: int, k_split: int) -> int:
     return ceil_div(ceil_div(k, TILE_K), k_split) * TILE_K
 
 
-def gemm_ksplit_plain(a, b, k_split: int, *, out_dtype=torch.float32):
-    """Plain PyTorch version of K11 (nn): the f32 product of each split's
-    K range (zeros for a range past K), summed over the splits, then cast."""
-    K11.plain_calls += 1
-    per = _split_depth(a.shape[-1], k_split)
+def split_ranges(k: int, k_split: int):
+    """K11's K range of each split, as the wrapper passes them to the
+    kernel (``k_per`` = :func:`_split_depth`): split s sums
+    [s·k_per, (s+1)·k_per) cut at K; a split that starts at or past K is
+    empty, (k, k), and adds zeros (JAX's clamped, zeroed overrun,
+    gemm.py:240-242, :260-262)."""
+    per = _split_depth(k, k_split)
+    return [(min(s * per, k), min((s + 1) * per, k)) for s in range(k_split)]
+
+
+def ksplit_partials_plain(a, b, k_split: int):
+    """Plain PyTorch version of K11's output (nn): the f32 partials
+    (…, k_split, m, n), one f32 product per split's K range."""
     a, b = a.to(torch.float32), b.to(torch.float32)
-    parts = [torch.matmul(a[..., s * per:(s + 1) * per],
-                          b[..., s * per:(s + 1) * per, :])
-             for s in range(k_split)]
-    return torch.stack(parts, dim=-3).sum(dim=-3).to(out_dtype)
+    return torch.stack([torch.matmul(a[..., lo:hi], b[..., lo:hi, :])
+                        for lo, hi in split_ranges(a.shape[-1], k_split)],
+                       dim=-3)
+
+
+def gemm_ksplit_plain(a, b, k_split: int, *, out_dtype=torch.float32):
+    """Plain PyTorch version of K11 with the wrapper's sum (nn): the
+    partials summed over the splits, then cast."""
+    K11.plain_calls += 1
+    return ksplit_partials_plain(a, b, k_split).sum(dim=-3).to(out_dtype)
 
 
 def route(a, b, layout: str = "nn") -> str:
-    """K10's route for the stored operands ``a``, ``b`` (contiguous, any
-    leading dims the batch) in ``layout``: ``"wgmma"`` where TMA can
-    describe both — bf16/fp16, k > 0, 16-byte aligned ``data_ptr``s and row
-    pitches (the stored last dims) that are multiples of 8 elements (16
-    bytes; a batch's matrix pitch then is too) — else ``"mma_tile"``."""
+    """K10's and K11's route for the stored operands ``a``, ``b``
+    (contiguous, any leading dims the batch) in ``layout``: ``"wgmma"``
+    where TMA can describe both — bf16/fp16, k > 0, 16-byte aligned
+    ``data_ptr``s and row pitches (the stored last dims) that are multiples
+    of 8 elements (16 bytes; a batch's matrix pitch then is too) — else
+    ``"mma_tile"``."""
     a_t, _ = _check_layout(layout)
     k = a.shape[-2] if a_t else a.shape[-1]
     if (a.dtype not in (torch.bfloat16, torch.float16) or b.dtype != a.dtype
@@ -142,12 +159,13 @@ def _run(a, b, config: GemmConfig, layout: str, out_dtype):
     a, b = a.contiguous(), b.contiguous()
     batch = math.prod(lead)
     stream = _kernels.stream_ptr(dev)
+    rt = ROUTES.index(route(a, b, layout))
     if ksplit:
         parts = torch.empty((*lead, s, m, n), dtype=torch.float32, device=dev)
         if parts.numel():
             rc = _kernels.entry("gemm_ksplit")(
                 a.data_ptr(), b.data_ptr(), parts.data_ptr(), batch, m, n, k,
-                s, _split_depth(k, s), _CODES[a.dtype], stream)
+                s, _split_depth(k, s), _CODES[a.dtype], rt, stream)
             _kernels.check(rc, "gemm_ksplit")
             K11.launches += 1
         return parts.sum(dim=-3).to(out_dtype)
@@ -157,8 +175,7 @@ def _run(a, b, config: GemmConfig, layout: str, out_dtype):
     rc = _kernels.entry("gemm")(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, m, n, k, int(a_t),
         int(b_t), _CODES[a.dtype], _CODES[out_dtype],
-        int(config.swizzle == SwizzleDir.N_MAJOR),
-        ROUTES.index(route(a, b, layout)), stream)
+        int(config.swizzle == SwizzleDir.N_MAJOR), rt, stream)
     _kernels.check(rc, "gemm")
     K10.launches += 1
     return out

@@ -7,11 +7,18 @@ scales (m, 1) and per-channel weight scales (1, n) factor out of the K sum:
 
 one exact integer sum, then one f32 epilogue ``(acc·a_s)·b_s``. On a CUDA
 tensor the wrappers launch the kernels of ``csrc/int8_gemm.cu`` (fixed
-64×64 tiles: of a ``GemmConfig`` only ``kernel_type`` is read, and
-``block_m`` on the contiguous path, where it fixes the layout); on a CPU
-tensor they run the plain versions, the same arithmetic in PyTorch. The
-integer sum is exact in any order, so kernel, plain version and the JAX
-package's kernels agree bit for bit.
+tiles: of a ``GemmConfig`` only ``kernel_type`` is read, and ``block_m``
+on the contiguous path, where it fixes the layout); on a CPU tensor they
+run the plain versions, the same arithmetic in PyTorch. The integer sum is
+exact in any order, so kernel, plain version and the JAX package's kernels
+agree bit for bit.
+
+K7 takes one of two routes, decided here by :func:`route` and passed to
+the kernel, which refuses a route it cannot take: ``"wgmma"`` (the Hopper
+main loop of ``csrc/sm90_gemm.cuh`` with 8-bit stages: TMA and
+``wgmma`` s8, 128 × 256 or 64 × 64 tiles; B stored K-major only) or
+``"int8_tile"`` (``mma.sync`` on fixed 64 × 64 tiles: every layout and
+shape, and always K9 and K6).
 
 ``b_layout='t'`` takes B stored K-major, (n, k) / (E, n, k): the layout of
 the port's int8 weights, which the tensor cores' B operand wants. The
@@ -29,7 +36,7 @@ from . import _kernels
 from .fp8_gemm import _check_cuda_operands, check_config, exact_enabled
 from .grouped_gemm import contiguous_tiles
 
-__all__ = ["int8_gemm", "int8_gemm_with_config",
+__all__ = ["int8_gemm", "int8_gemm_with_config", "route",
            "m_grouped_int8_gemm_contiguous", "m_grouped_int8_gemm_masked",
            "int8_gemm_plain", "grouped_contiguous_plain",
            "grouped_masked_plain"]
@@ -37,6 +44,8 @@ __all__ = ["int8_gemm", "int8_gemm_with_config",
 K7 = _kernels.COUNTERS["int8_gemm"]
 K9 = _kernels.COUNTERS["int8_grouped_contiguous"]
 K6 = _kernels.COUNTERS["int8_grouped_masked"]
+# K7's route codes.
+ROUTES = ("int8_tile", "wgmma")
 
 
 def _layout(b_layout: str) -> bool:
@@ -117,6 +126,19 @@ def grouped_masked_plain(a_q, a_scales, b_q, b_scales, masked_m, *,
     return out
 
 
+def route(a_q, b_q, b_layout: str = "n") -> str:
+    """K7's route for the stored operands ``a_q`` (m, k) and ``b_q``:
+    ``"wgmma"`` where ``wgmma`` and TMA can take both — B stored K-major
+    (``b_layout='t'``: ``wgmma`` reads 8-bit operands K-major only), k a
+    positive multiple of 16 (a 16-byte row pitch) and 16-byte aligned
+    ``data_ptr``s — else ``"int8_tile"``."""
+    k = a_q.shape[-1]
+    if (not _layout(b_layout) or k == 0 or k % 16 or a_q.data_ptr() % 16
+            or b_q.data_ptr() % 16):
+        return "int8_tile"
+    return "wgmma"
+
+
 def _cuda_operands(name, a_q, a_scales, b_q, b_scales, out_dtype):
     """Checks the kernel's operands; returns the f32 scales."""
     dev = a_q.device
@@ -157,10 +179,12 @@ def _launch_dense(a_q, a_scales, b_q, b_scales, b_t, out_dtype):
     out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
     if out.numel() == 0:
         return out
+    rt = route(a_q, b_q, "t" if b_t else "n")
     rc = _kernels.entry("int8_gemm")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
         out.data_ptr(), m, n, k, *_strides(b_t, n, k),
-        int(out_dtype == torch.float32), _kernels.stream_ptr(a_q.device))
+        int(out_dtype == torch.float32), ROUTES.index(rt),
+        _kernels.stream_ptr(a_q.device))
     _kernels.check(rc, "int8_gemm")
     K7.launches += 1
     return out

@@ -2,8 +2,9 @@
 
 Port of ``deepgemm_ascend_tpu/tiling/selector.py``, override-only: a
 caller's config wins (as at JAX ``selector.py:108-109``); otherwise the
-answer is K10's fixed tile with the family that ``select_kernel_type``
-picks for the device. The JAX front door's persistent cache, learned
+answer is the 64 × 64 × 64 config with the family that
+``select_kernel_type`` picks for the device (its model of K10 and K11 on
+the card). The JAX front door's persistent cache, learned
 predictor and TPU data files belong to the port's tiling slice; this
 module reads no data file.
 """
@@ -17,10 +18,10 @@ import torch
 from ..config import GemmConfig, KernelType
 from . import analytic, platform
 
-# The tile the selector reasons with: the mma_tile route's fixed 64 × 64
-# output tile and 64-deep K block (csrc/gemm.cu: kBM, kBN, kBK), which K11
-# splits over. K10's wgmma route picks its own tiles (128 × 256, or 64 × 64
-# where those leave most SMs idle); the selector does not model them yet.
+# The small tile and the K block the selector reasons with: 64 × 64 output
+# tiles and 64-deep K blocks, the tile K10 and K11 run on either route
+# wherever K10 does not take 128 × 256 (analytic.large_tile), and the K
+# block K11 splits in (csrc/gemm.cu: s9::kBK, kBK; ops/gemm.py:_split_depth).
 TILE_M = TILE_N = TILE_K = 64
 # The ops whose K11 path exists: split-K is nn only (ops/gemm.py).
 _KSPLIT_OPS = ("gemm", "bgemm")
@@ -37,10 +38,11 @@ def select_config(
 ) -> GemmConfig:
     """The tile config of an (m, n, k) GEMM of ``op`` on ``device``.
 
-    The fixed tile serves every input and output type, so ``in_dtype`` and
-    ``out_dtype`` do not change the answer; they stay in the signature of
-    the JAX front door, whose cache keys on them. KSPLIT is chosen only
-    for the nn ops (``gemm``, ``bgemm``), the only layout K11 runs."""
+    The family model is fitted to 16-bit operands on the wgmma route and
+    serves every input and output type, so ``in_dtype`` and ``out_dtype``
+    do not change the answer; they stay in the signature of the JAX front
+    door, whose cache keys on them. KSPLIT is chosen only for the nn ops
+    (``gemm``, ``bgemm``), the only layout K11 runs."""
     if override is not None:
         return override
     kt, s = analytic.select_kernel_type(m, n, k, TILE_M, TILE_N, TILE_K,

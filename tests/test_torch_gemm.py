@@ -272,32 +272,43 @@ def test_select_config_on_cpu_is_common(m, n, k):
 
 
 @pytest.mark.parametrize("m,n,k,want", [
-    (16, 2048, 11008, (KernelType.KSPLIT, 4)),   # 32 tiles on 132 SMs
-    (16, 2816, 2048, (KernelType.KSPLIT, 3)),    # 44 tiles
-    (16, 512, 2048, (KernelType.KSPLIT, 8)),     # 8 tiles
+    # 32 tiles, 172 K blocks: K11/8 0.0319 ms, K10 0.0460 on the card
+    (16, 2048, 11008, (KernelType.KSPLIT, 8)),
+    # 44 tiles, 32 K blocks: K10 0.0144, K11 at best 0.0157 (3 splits)
+    (16, 2816, 2048, (KernelType.COMMON, 1)),
+    # 8 tiles, 32 K blocks: K11/8 0.0119 against K10's 0.0129, below the
+    # model's margin
+    (16, 512, 2048, (KernelType.COMMON, 1)),
     (16, 22016, 2048, (KernelType.COMMON, 1)),   # 344 tiles fill the card
-    (2048, 2048, 2048, (KernelType.COMMON, 1)),
+    (2048, 2048, 2048, (KernelType.COMMON, 1)),  # 128 x 256 tiles
     (16, 2048, 192, (KernelType.COMMON, 1)),     # 3 K blocks: too shallow
     (64, 64, 64, (KernelType.SMALL, 1)),
 ])
 def test_select_kernel_type_on_an_h100(m, n, k, want):
+    """The split gate at V2_LITE's decode shapes; the times are
+    scripts/ksplit_sweep.py's on an H100 (analytic's docstring)."""
     got = analytic.select_kernel_type(m, n, k, 64, 64, 64, H100)
     assert got == want
 
 
 def test_select_kernel_type_minimises_the_makespan():
-    """JAX's objective over the allowed split counts: ceil(s·tiles/cores)
-    · ceil(nk/s), ties to fewer splits."""
+    """The modelled time over the allowed split counts (SPLITS, each split
+    at least MIN_BLOCKS_PER_SPLIT blocks deep), ties to fewer splits; KSPLIT
+    only below MARGIN of K10's modelled time, and never where K10 runs
+    128 x 256 tiles."""
     for m, n, k in [(16, 2048, 11008), (16, 2816, 2048), (32, 1024, 4096),
-                    (16, 2048, 1408)]:
+                    (16, 2048, 1408), (256, 512, 11008), (2048, 512, 2048)]:
         kt, s = analytic.select_kernel_type(m, n, k, 64, 64, 64, H100)
-        tiles, nk = -(-m // 64) * -(-n // 64), -(-k // 64)
-        allowed = range(1, min(nk // analytic.MIN_BLOCKS_PER_SPLIT, 132) + 1)
-        cost = {c: -(-c * tiles // 132) * -(-nk // c) for c in allowed}
-        best = min(cost.values())
-        assert cost[s] == best and s == min(c for c in cost
-                                            if cost[c] == best)
-        assert kt == (KernelType.KSPLIT if s > 1 else KernelType.COMMON)
+        nk = -(-k // 64)
+        cost = {c: analytic.model_seconds(m, n, k, c, 64, 64, 64, H100)
+                for c in analytic.SPLITS
+                if nk // c >= analytic.MIN_BLOCKS_PER_SPLIT}
+        best = min(cost, key=lambda c: (cost[c], c))
+        k10 = analytic.model_seconds(m, n, k, 1, 64, 64, 64, H100)
+        split = (cost[best] <= analytic.MARGIN * k10
+                 and not analytic.large_tile(m, n))
+        assert (kt, s) == ((KernelType.KSPLIT, best) if split
+                           else (KernelType.COMMON, 1))
 
 
 def test_select_config_override_wins_and_ksplit_is_nn_only(monkeypatch):
@@ -305,7 +316,7 @@ def test_select_config_override_wins_and_ksplit_is_nn_only(monkeypatch):
     assert tdga.select_config(16, 2048, 11008, override=cfg,
                               device="cpu") is cfg
     monkeypatch.setattr(platform, "detect", lambda device: H100)
-    assert tdga.select_config(16, 2048, 11008, op="gemm").k_split == 4
+    assert tdga.select_config(16, 2048, 11008, op="gemm").k_split == 8
     assert tdga.select_config(16, 2048, 11008, op="gemm_nt").kernel_type == \
         KernelType.COMMON
 

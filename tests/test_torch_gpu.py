@@ -40,9 +40,12 @@ from deepgemm_ascend_tpu_torch.ops.flash_decode import (
     flash_decode_gqa_inplace, flash_decode_inplace_plain, merge_current_token)
 from deepgemm_ascend_tpu_torch.ops.flash_prefill import (
     flash_prefill_gqa, flash_prefill_plain)
-from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm_ksplit_plain,
+from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm,
+                                                gemm_ksplit_plain,
                                                 gemm_plain, gemm_with_config,
-                                                route)
+                                                ksplit_partials_plain, route,
+                                                split_ranges)
+from deepgemm_ascend_tpu_torch.tiling.selector import select_config
 from torch_bridge import bf16_within_one_ulp, f32_close, to_numpy
 
 pytestmark = pytest.mark.gpu
@@ -202,6 +205,75 @@ def test_int8_masked_kernel_matches_plain_bit_for_bit(dev, b_layout,
     # A 64-row tile that starts at or past masked_m is written as zeros.
     assert bool((got[0] == 0).all()) and bool((got[1, 64:] == 0).all())
     assert bool((got[2, 64:] == 0).all())
+
+
+# ---- K7 on the wgmma route (TMA + wgmma s8, csrc/sm90_gemm.cuh)
+
+
+@pytest.mark.parametrize("n", [328, 4000])
+@pytest.mark.parametrize("k", [16, 144, 2048])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_gemm_wgmma_route_matches_plain_bit_for_bit(dev, n, k,
+                                                         out_dtype):
+    """B stored (n, k) with k a multiple of 16 takes the wgmma route. Every
+    m the two tiles meet: 1 and 16 (decode), 33, 64 and 65 (the 64-row
+    tile's edge), 2048 (16 row tiles: 128 x 256 tiles at n = 4000); n not a
+    multiple of 256 (an N edge inside the last tile); k one stage's first
+    16 bytes, a K tail inside the second 128-deep stage, and 16 stages. The
+    s32 sums are exact, so the result equals the plain version bit for
+    bit."""
+    for m in (1, 16, 33, 64, 65, 2048):
+        a_q, a_s, b_q, b_s = _int8_operands((m, k), (n, k), True, dev,
+                                            seed=m + k)
+        assert i8mod.route(a_q, b_q, "t") == "wgmma"
+        k7 = _kernels.COUNTERS["int8_gemm"]
+        before = k7.launches
+        got = i8mod.int8_gemm(a_q, a_s, b_q, b_s, b_layout="t",
+                              out_dtype=out_dtype)
+        ref = i8mod.int8_gemm_plain(a_q, a_s, b_q, b_s, b_t=True,
+                                    out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert k7.launches == before + 1
+        assert got.dtype == out_dtype and torch.equal(got, ref), m
+
+
+@pytest.mark.parametrize("m", [16, 2048])
+def test_int8_gemm_n_layout_stays_on_int8_tile(dev, m):
+    """B stored (k, n) cannot take wgmma (8-bit operands K-major only): the
+    route is int8_tile, bit-equal to the plain version."""
+    n, k = 2048, 2048
+    a_q, a_s, b_q, b_s = _int8_operands((m, k), (k, n), False, dev, seed=9)
+    assert i8mod.route(a_q, b_q, "n") == "int8_tile"
+    got = i8mod.int8_gemm(a_q, a_s, b_q, b_s, b_layout="n")
+    ref = i8mod.int8_gemm_plain(a_q, a_s, b_q, b_s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_int8_gemm_refuses_a_route_it_cannot_take(dev):
+    """The C entry refuses the wgmma route for B stored (k, n) and for an
+    operand TMA cannot describe (a pointer off 16 bytes); int8_tile takes
+    both."""
+    m, n, k = 16, 256, 512
+    a_q, a_s, b_q, b_s = _int8_operands((m, k), (n, k), True, dev, seed=10)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    entry = _kernels.entry("int8_gemm")
+    stream = _kernels.stream_ptr(dev)
+    flat = torch.zeros(m * k + 1, dtype=torch.int8, device=dev)
+    shifted = flat[1:].view(m, k)
+    shifted.copy_(a_q)
+    assert i8mod.route(shifted, b_q, "t") == "int8_tile"
+    cases = {"b (k, n)": (a_q, b_q.t().contiguous(), (n, 1)),
+             "a off 16 bytes": (shifted, b_q, (1, k))}
+    for label, (a, b, strides) in cases.items():
+        args = (a.data_ptr(), a_s.data_ptr(), b.data_ptr(), b_s.data_ptr(),
+                out.data_ptr(), m, n, k, *strides, 0)
+        assert entry(*args, 1, stream) != 0, label
+        assert entry(*args, 0, stream) == 0, label
+        torch.cuda.synchronize()
+        b_t = label != "b (k, n)"
+        want = i8mod.int8_gemm_plain(a, a_s, b, b_s, b_t=b_t)
+        assert torch.equal(out, want), label
 
 
 def _cache(b, kvh, s_max, hd, dev, seed):
@@ -444,7 +516,8 @@ def test_gemm_ksplit_kernel_matches_plain(dev, k_split, k, dtype):
 
 def test_gemm_ksplit_kernel_writes_every_partial(dev):
     """The partials buffer comes from torch.empty: every split, an empty
-    one included, must overwrite all of its (m, n) slice."""
+    one included, must overwrite all of its (m, n) slice (route 0: n = 130
+    is no multiple of 8)."""
     m, n, k, splits, per = 20, 130, 320, 4, 128
     g = _gen(4, dev)
     a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
@@ -452,7 +525,7 @@ def test_gemm_ksplit_kernel_writes_every_partial(dev):
     parts = torch.full((splits, m, n), float("nan"), device=dev)
     rc = _kernels.entry("gemm_ksplit")(
         a.data_ptr(), b.data_ptr(), parts.data_ptr(), 1, m, n, k, splits, per,
-        1, _kernels.stream_ptr(dev))
+        1, 0, _kernels.stream_ptr(dev))
     _kernels.check(rc, "gemm_ksplit")
     torch.cuda.synchronize()
     assert bool(torch.isfinite(parts).all())
@@ -461,6 +534,106 @@ def test_gemm_ksplit_kernel_writes_every_partial(dev):
         sl = slice(s * per, (s + 1) * per)
         assert_gemm_close(parts[s], gemm_plain(a[:, sl], b[sl]), a[:, sl],
                           b[sl])
+
+
+# ---- K11 on the wgmma route (csrc/sm90_gemm.cuh)
+
+
+def test_gemm_ksplit_wgmma_route_writes_every_partial(dev):
+    """As above on the wgmma route (n = 136: TMA can describe B): the
+    empty last split issues no load and stores the zero tile of its
+    cleared accumulators; the others equal ksplit_partials_plain's slices
+    within tolerance. The route refuses f32 operands."""
+    m, n, k, splits = 20, 136, 320, 4
+    ranges = split_ranges(k, splits)
+    assert ranges[3] == (k, k)
+    g = _gen(4, dev)
+    a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=g, device=dev).to(torch.bfloat16)
+    assert route(a, b) == "wgmma"
+    parts = torch.full((splits, m, n), float("nan"), device=dev)
+    entry = _kernels.entry("gemm_ksplit")
+    args = (parts.data_ptr(), 1, m, n, k, splits, ranges[0][1])
+    stream = _kernels.stream_ptr(dev)
+    _kernels.check(entry(a.data_ptr(), b.data_ptr(), *args, 1, 1, stream),
+                   "gemm_ksplit")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(parts).all())
+    assert bool((parts[3] == 0).all())
+    want = ksplit_partials_plain(a, b, splits)
+    for s, (lo, hi) in enumerate(ranges[:3]):
+        assert_gemm_close(parts[s], want[s], a[:, lo:hi], b[lo:hi])
+    a32, b32 = a.float(), b.float()
+    assert entry(a32.data_ptr(), b32.data_ptr(), *args, 0, 1, stream) != 0
+
+
+@pytest.mark.parametrize("k_split,k", [(4, 2048), (3, 1000), (4, 320),
+                                       (4, 576)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gemm_ksplit_wgmma_route_matches_plain(dev, k_split, k, dtype):
+    """K11 on the Hopper main loop: even splits, an uneven one over a
+    ragged K tail (k = 1000: TMA zero-fills the last block), and two with
+    an empty last split (k = 320: 5 blocks in 4 splits of 2; k = 576: 9
+    blocks in 4 splits of 3), at decode m = 16 and at m = 200 (ragged
+    rows), f32 and 16-bit output."""
+    for m, n in ((16, 2048), (200, 136)):
+        a, b, _, _ = _dense(m, n, k, dtype, "nn", dev, seed=k + m)
+        assert route(a, b) == "wgmma"
+        cfg = GemmConfig(kernel_type=KernelType.KSPLIT, k_split=k_split)
+        k11 = _kernels.COUNTERS["gemm_ksplit"]
+        before = k11.launches
+        got = gemm_with_config(a, b, config=cfg)
+        got16 = gemm_with_config(a, b, config=cfg, out_dtype=dtype)
+        ref = gemm_ksplit_plain(a, b, k_split)
+        ref16 = gemm_ksplit_plain(a, b, k_split, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert k11.launches == before + 2
+        assert_gemm_close(got, ref, a, b)
+        assert_gemm_close(got16, ref16, a, b)
+
+
+def test_bgemm_ksplit_wgmma_route_matches_plain(dev):
+    """bgemm with KSPLIT over a batch of 3 on the wgmma route: one launch,
+    grid z batch x splits, each batch element's partials in its own
+    slices."""
+    g = _gen(11, dev)
+    a = torch.randn(3, 16, 1088, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(3, 1088, 200, generator=g, device=dev).to(torch.bfloat16)
+    assert route(a, b) == "wgmma"
+    k11 = _kernels.COUNTERS["gemm_ksplit"]
+    before = k11.launches
+    got = bgemm(a, b, config=GemmConfig(kernel_type=KernelType.KSPLIT,
+                                        k_split=4))
+    torch.cuda.synchronize()
+    assert k11.launches == before + 1
+    for i in range(3):
+        assert_gemm_close(got[i], gemm_ksplit_plain(a[i], b[i], 4), a[i],
+                          b[i])
+
+
+# V2_LITE's dense projections (n, k), as chip_smoke.py's LITE_GEMMS.
+DENSE_NK = [(2048, 2048), (512, 2048), (22016, 2048), (2048, 11008),
+            (2816, 2048), (2048, 1408)]
+
+
+@pytest.mark.parametrize("m", [1, 16, 64, 2048])
+def test_gemm_ksplit_where_the_selector_splits(dev, m):
+    """gemm() with no config at V2_LITE's projection shapes: wherever
+    select_config picks KSPLIT on this card, K11 runs and agrees with its
+    plain version; elsewhere K10 runs."""
+    for n, k in DENSE_NK:
+        a, b, _, _ = _dense(m, n, k, torch.bfloat16, "nn", dev, seed=n + k)
+        cfg = select_config(m, n, k, torch.bfloat16, torch.float32,
+                            device=dev)
+        split = cfg.kernel_type == KernelType.KSPLIT
+        counter = _kernels.COUNTERS["gemm_ksplit" if split else "gemm"]
+        before = counter.launches
+        got = gemm(a, b)
+        ref = (gemm_ksplit_plain(a, b, cfg.k_split) if split
+               else gemm_plain(a, b))
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, (n, k)
+        assert_gemm_close(got, ref, a, b)
 
 
 @pytest.mark.parametrize("ksplit", [False, True])

@@ -16,8 +16,9 @@ import torch
 
 from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.scripts import (headline, k12_fold_ablation,
-                                               layer_bench, profile_kernel,
-                                               serve_bench, straggler_probe)
+                                               ksplit_sweep, layer_bench,
+                                               profile_kernel, serve_bench,
+                                               straggler_probe)
 
 CPU = ["--device", "cpu"]
 T_KW = dict(iters=2, repeats=1, min_chain_seconds=0.0)
@@ -154,6 +155,8 @@ def test_entry_points_default_to_cuda():
         layer_bench.main(["--configs", "tiny:1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         k12_fold_ablation.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ksplit_sweep.main(["--m", "16", "--nk", "512x2048"])
 
 
 def test_k12_ablation_swaps_only_k12_entry():
