@@ -22,10 +22,18 @@ Phases, each of which raises on failure (exit code ≠ 0):
    row shows its route (``ops.gemm.route``: wgmma where TMA can describe
    the operands, else mma_tile), every K7 row its own
    (``ops.int8_gemm.route``: wgmma for B stored K-major with k a multiple
-   of 16, else int8_tile); each of them, and every K12 row (always the
+   of 16, else int8_tile), every K1 and K3 row the plan its wrapper
+   counted for the launch (``Counter.plans``: route ring for B stored
+   K-major, else tile; the ring's tile; K1's group splits, ``ring_plan``;
+   K3's tile from the MoE layer's ``expected_m``); K1 and K3 also on the
+   same weights stored (k, n), the tile route, at a decode and a prefill
+   shape, held bit for bit against the unsplit ring
+   (``ring_equals_tile``); each of them, and every K12 row (always the
    new kernel), its time before the Hopper redesign (``prev_ms``: quoted
    from ``PREV_MS``, not measured in the run; in the log and the report
-   only); K10 rows with 16-bit inputs their time with bf16 output beside
+   only), and a line sums K1's and K3's rows over one V2_LITE decode
+   step (``K1_PER_STEP``, ``K3_PER_STEP``); K10 rows with 16-bit inputs
+   their time with bf16 output beside
    cuBLAS's 16-bit one (``bf16_out_ms``, also checked). The int8 kernels
    (K7, K9, K6) must equal their plain versions bit for bit. The dense
    GEMM's shapes that ``select_config`` sends to split-K (K11) are listed,
@@ -62,7 +70,9 @@ Phases, each of which raises on failure (exit code ≠ 0):
    and 32 new tokens each — first with fp8 experts, then with int8 experts.
    The kernel counters are zeroed just before each run and read just after:
    each run must have launched exactly its own kernel set (fp8: K1, K2,
-   K3, K4; int8: K1, K2, K4, K6), and no plain version may have run.
+   K3, K4; int8: K1, K2, K4, K6), and no plain version may have run;
+   K1 and K3 must have launched on ring plans only (their wrappers'
+   ``Counter.plans``, printed by plan here and in phases 5-7).
    Then one more decode step of that state, five times unprofiled (host
    clock) and once under ``torch.profiler`` (device time, launches);
 5. the reference-compatible API (``compat``) at V2_LITE's widths, as a
@@ -281,6 +291,15 @@ ENGINE_SLOTS = 16
 SERVE_STEPS = 64
 LAYER_CONFIGS = ("v2_lite_full:1", "v3_style:32")
 
+# One V2_LITE decode step (16 slots, 8 layers): K1's launches at each
+# (n, k) — every layer's wq, wo and wk, wv; layer 0's dense FFN; layers
+# 1-7's shared expert — and K3's (E=32, cap=96: layers 1-7's routed
+# experts, gate∥up and down). Phase 2 sums their m=16 rows with these
+# weights.
+K1_PER_STEP = {(2048, 2048): 16, (512, 2048): 16, (22016, 2048): 1,
+               (2048, 11008): 1, (2816, 2048): 7, (2048, 1408): 7}
+K3_PER_STEP = {(2816, 2048): 7, (2048, 1408): 7}
+
 # Times before the Hopper redesign of K10, K12, K7 and K11. K10's and
 # K12's are from the report of the last run of this script's phase 2 on
 # the kernels of that time (the run that added the probe's and the 4096³
@@ -334,6 +353,51 @@ PREV_MS = {
     "gemm_ksplit": {
         "m=16 n=2048 k=11008 bf16 k_split=4": 0.0737,
         "m=16 n=2048 k=11008 bf16 k_split=3": 0.0915,
+    },
+    # K1's and K3's before their ring route: the mean of two runs of
+    # this script's phase 2 (scripts/phase2_ab.py) on the tree before the
+    # redesign, all on the tile route (cold ms, the reps queued behind
+    # timing.cold_ms's spin; NVIDIA H100 80GB HBM3, 700.00 W).
+    "fp8_gemm": {
+        "m=16 n=2048 k=2048": 0.0274,
+        "m=2048 n=2048 k=2048": 0.0787,
+        "m=16 n=512 k=2048": 0.0269,
+        "m=2048 n=512 k=2048": 0.0312,
+        "m=16 n=22016 k=2048": 0.0412,
+        "m=2048 n=22016 k=2048": 0.7399,
+        "m=16 n=2048 k=11008": 0.1312,
+        "m=2048 n=2048 k=11008": 0.3827,
+        "m=16 n=2816 k=2048": 0.0275,
+        "m=2048 n=2816 k=2048": 0.1053,
+        "m=16 n=2048 k=1408": 0.0211,
+        "m=2048 n=2048 k=1408": 0.0576,
+        "m=64 n=512 k=2048": 0.0281,
+        "m=4096 n=4096 k=4096": 0.5569,
+        "m=64 n=2048 k=2048": 0.0289,
+        "m=64 n=22016 k=2048": 0.043,
+        "m=64 n=2048 k=11008": 0.1431,
+        "m=64 n=2816 k=2048": 0.0293,
+        "m=64 n=2048 k=1408": 0.0222,
+        "m=64 n=16384 k=7168": 0.1047,
+        "m=64 n=2048 k=7168": 0.0903,
+        "m=64 n=7168 k=16384": 0.1908,
+    },
+    "grouped_gemm": {
+        "E=32 cap=96 valid_rows=96 n=2816 k=2048": 0.1188,
+        "E=32 cap=96 valid_rows=96 n=2048 k=1408": 0.0686,
+        "E=32 cap=12288 valid_rows=12288 n=2816 k=2048": 1.3181,
+        "E=32 cap=12288 valid_rows=12288 n=2048 k=1408": 0.8447,
+        "E=64 cap=96 valid_rows=96 n=2816 k=2048": 0.1954,
+        "E=64 cap=96 valid_rows=96 n=2048 k=1408": 0.1029,
+        "E=64 cap=12288 valid_rows=12288 n=2816 k=2048": 2.1355,
+        "E=64 cap=12288 valid_rows=12288 n=2048 k=1408": 1.4152,
+        "E=8 cap=128 valid_rows=1024 n=2048 k=512": 0.0179,
+        "E=32 cap=384 valid_rows=384 n=2816 k=2048": 0.1457,
+        "E=32 cap=384 valid_rows=384 n=2048 k=1408": 0.0883,
+        "E=64 cap=384 valid_rows=384 n=2816 k=2048": 0.2671,
+        "E=64 cap=384 valid_rows=384 n=2048 k=1408": 0.1552,
+        "E=8 cap=512 valid_rows=19 n=4096 k=7168": 0.1579,
+        "E=8 cap=512 valid_rows=19 n=7168 k=2048": 0.1055,
     },
     "fp8_gemm_folded": {
         "m=64 n=512 k=2048 b_layout=t": 0.0377,
@@ -426,7 +490,7 @@ def sm90_instances(logs: dict) -> list:
         for i, ln in enumerate(lines):
             if "Compiling entry function" in ln and any(
                     kern in ln for kern in ("gemm_sm90", "folded_sm90",
-                                            "int8_sm90")):
+                                            "int8_sm90", "ring_kernel")):
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 name = ln.split("'")[1]
                 out.append(f"{name}: {props}")
@@ -439,24 +503,66 @@ def _gen(seed: int) -> torch.Generator:
     return torch.Generator(device=DEV).manual_seed(seed)
 
 
-def check_fp8_gemm(m: int, n: int, k: int, seed: int) -> dict:
+def launch_plans() -> dict:
+    """Each kernel's launches since the counters were zeroed, by the plan
+    its wrapper counted (K1 and K3: route, ring tile, splits)."""
+    return {n: dict(c.plans) for n, c in _kernels.COUNTERS.items()
+            if c.plans}
+
+
+def launched_plan(counter, run):
+    """Runs ``run`` once: its output, and the route, ring tile and splits
+    of the plan its wrapper counted for the launch (``Counter.plans``:
+    "tile", "ring 16x64", "ring 16x64/4")."""
+    counter.plans.clear()
+    out = run()
+    plans = list(counter.plans)
+    if len(plans) != 1:
+        raise RuntimeError(f"{counter.name}: one launch counted {plans}")
+    if plans[0] == "tile":
+        return out, {"route": "tile"}
+    tile, _, splits = plans[0].split()[1].partition("/")
+    return out, {"route": "ring", "ring_tile": tile,
+                 "splits": int(splits or 1)}
+
+
+def check_fp8_gemm(m: int, n: int, k: int, seed: int,
+                   b_layout: str = "t") -> dict:
+    """K1 on weights stored as the port stores them ('t': the ring route),
+    or on the same weights stored (k, n) ('n': the tile route), which is
+    then also held bit for bit against the unsplit ring on the 't'
+    weights."""
     g = _gen(seed)
     a_q, a_s = quant.quantize_fp8_act(
         torch.randn(m, k, generator=g, device=DEV))
-    b_q, b_s = quant.quantize_fp8_weight(
+    b_nk, bs_nk = quant.quantize_fp8_weight(
         torch.randn(n, k, generator=g, device=DEV) / math.sqrt(k))
-    run = lambda: fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout="t")
-    plain = lambda: fp8mod.fp8_gemm_plain(a_q, a_s, b_q, b_s.t(), b_t=True)
-    got, ref = run(), plain()
+    b_q, b_s = ((b_nk, bs_nk) if b_layout == "t"
+                else (b_nk.t().contiguous(), bs_nk.t().contiguous()))
+    run = lambda: fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout=b_layout)
+    plain = lambda: fp8mod.fp8_gemm_plain(a_q, a_s, b_nk, bs_nk.t(),
+                                          b_t=True)
+    got, plan = launched_plan(fp8mod.COUNTER, run)
+    ref = plain()
     torch.cuda.synchronize()
     ok = within_one_bf16_ulp(got, ref) and bool(torch.isfinite(got).all())
+    extra = {}
+    if b_layout == "n":
+        ring = fp8mod._launch(a_q, a_s, b_nk, bs_nk.t(), fp8mod._SHIFT, True,
+                              torch.bfloat16,
+                              plan=("ring", fp8mod.ring_tile(m), 1))
+        torch.cuda.synchronize()
+        extra["ring_equals_tile"] = bool(torch.equal(ring, got))
+        ok &= extra["ring_equals_tile"]
     kb = k // 128
     nbytes = m * k + m * kb * 4 + n * k + (n // 128) * kb * 4 + m * n * 2
     b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, FP8_OPS_PER_S)
-    return {"shape": f"m={m} n={n} k={k}", "ok": ok,
+    shape = f"m={m} n={n} k={k}" + ("" if b_layout == "t" else " b=(k, n)")
+    return {"shape": shape, "ok": ok,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
             "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, **plan, **extra,
+            "prev_ms": PREV_MS["fp8_gemm"].get(shape)}
 
 
 def _masked_m(e: int, tokens: int, top_k: int, seed: int) -> torch.Tensor:
@@ -469,22 +575,37 @@ def _masked_m(e: int, tokens: int, top_k: int, seed: int) -> torch.Tensor:
 
 
 def check_grouped(e: int, tokens: int, n: int, k: int, seed: int,
-                  top_k: int = 6, loads=None) -> dict:
+                  top_k: int = 6, loads=None, expected_m="mean",
+                  b_layout: str = "t") -> dict:
     """K3 at capacity tokens·top_k; the loads are ``loads`` (one per local
-    expert) or those of routing the tokens over ``e`` experts."""
+    expert) or those of routing the tokens over ``e`` experts. The tile's
+    hint ``expected_m`` is the MoE layer's (ceil(tokens·top_k / e)) unless
+    given. 'n': the same weights stored (E, k, n), the tile route, held
+    bit for bit against the ring on the 't' weights on the valid rows."""
     cap = tokens * top_k
+    if expected_m == "mean":
+        expected_m = -(-cap // e)
     masked_m = _masked_m(e, tokens, top_k, seed) if loads is None else loads
     e = masked_m.numel()
     g = _gen(seed + 1)
     a_q, a_s = quant.quantize_fp8_act(
         torch.randn(e, cap, k, generator=g, device=DEV))
-    b_q, b_s = quant.quantize_fp8_weight(
+    b_nk, bs_nk = quant.quantize_fp8_weight(
         torch.randn(e, n, k, generator=g, device=DEV) / math.sqrt(k))
+    b_q, b_s = ((b_nk, bs_nk) if b_layout == "t"
+                else (b_nk.transpose(1, 2).contiguous(),
+                      bs_nk.transpose(1, 2).contiguous()))
     run = lambda: ggmod.m_grouped_gemm_masked(a_q, a_s, b_q, b_s, masked_m,
-                                              b_layout="t")
+                                              b_layout=b_layout,
+                                              expected_m=expected_m)
     plain = lambda: ggmod.grouped_gemm_masked_plain(
-        a_q, a_s, b_q, b_s.transpose(1, 2), masked_m, b_t=True)
-    got, ref = run(), plain()
+        a_q, a_s, b_nk, bs_nk.transpose(1, 2), masked_m, b_t=True)
+    got, plan = launched_plan(ggmod.COUNTER, run)
+    ref = plain()
+    ring = (ggmod._launch(a_q, a_s, b_nk, bs_nk.transpose(1, 2),
+                          fp8mod._SHIFT, masked_m, True, torch.bfloat16,
+                          expected_m=expected_m)
+            if b_layout == "n" else None)
     torch.cuda.synchronize()
     rows = masked_m.tolist()
     ok, err = True, 0.0
@@ -493,16 +614,24 @@ def check_grouped(e: int, tokens: int, n: int, k: int, seed: int,
             ok &= within_one_bf16_ulp(got[ei, :r], ref[ei, :r])
             err = max(err, float((got[ei, :r].float()
                                   - ref[ei, :r].float()).abs().max()))
+    extra = {}
+    if ring is not None:
+        extra["ring_equals_tile"] = all(
+            torch.equal(ring[ei, :r], got[ei, :r]) for ei, r in
+            enumerate(rows))
+        ok &= extra["ring_equals_tile"]
     valid = sum(rows)
     active = sum(1 for r in rows if r)
     kb = k // 128
     nbytes = (valid * (k + kb * 4) + active * (n * k + (n // 128) * kb * 4)
               + valid * n * 2 + e * 4)
     b_ms, b_by = bound_ms(nbytes, 2.0 * valid * n * k, FP8_OPS_PER_S)
-    return {"shape": f"E={e} cap={cap} valid_rows={valid} n={n} k={k}",
-            "ok": ok, "max_abs_err": err, "ms": cold_ms(run),
+    shape = (f"E={e} cap={cap} valid_rows={valid} n={n} k={k}"
+             + ("" if b_layout == "t" else " b=(E, k, n)"))
+    return {"shape": shape, "ok": ok, "max_abs_err": err, "ms": cold_ms(run),
             "plain_ms": cold_ms(plain, reps=3), "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, **plan, "expected_m": expected_m,
+            **extra, "prev_ms": PREV_MS["grouped_gemm"].get(shape)}
 
 
 def scaled_mm_blockwise(m: int, n: int, k: int, seed: int) -> dict:
@@ -1083,7 +1212,8 @@ def check_script_shapes(results: dict) -> None:
     e, rows, n, k = sp.MASKED
     full = torch.full((e,), rows, dtype=torch.int32, device=DEV)
     results["grouped_gemm"].append(
-        check_grouped(e, rows, n, k, seed=102, top_k=1, loads=full))
+        check_grouped(e, rows, n, k, seed=102, top_k=1, loads=full,
+                      expected_m=None))
     results["grouped_gemm_contiguous"].append(
         check_contiguous(e, rows, n, k, seed=103, counts=[rows] * e))
     for m, n, k in sp.PRIMES:
@@ -1132,7 +1262,7 @@ def check_script_shapes(results: dict) -> None:
         for n, k in ((2 * inter, h), (h, inter)):
             results["grouped_gemm"].append(check_grouped(
                 cfg.num_experts, b, n, k, seed=122, top_k=cfg.top_k,
-                loads=loads))
+                loads=loads, expected_m=-(-b * cfg.top_k // cfg.num_experts)))
             results["int8_grouped_masked"].append(check_int8_masked(
                 cfg.num_experts, b, n, k, seed=123, top_k=cfg.top_k,
                 loads=loads))
@@ -1146,6 +1276,10 @@ def phase_kernels() -> dict:
     for i, (n, k) in enumerate(LITE_GEMMS):
         for m in (16, 2048):
             results["fp8_gemm"].append(check_fp8_gemm(m, n, k, seed=i))
+    # The tile route (weights stored (k, n)), against the unsplit ring.
+    for m, n, k in ((16, 2048, 2048), (2048, 22016, 2048)):
+        results["fp8_gemm"].append(check_fp8_gemm(m, n, k, seed=8,
+                                                  b_layout="n"))
     # Decode (16 slots) and one prefill chunk (2048 tokens) for V2_LITE's
     # 32 experts and V2_LITE_FULL's 64; then both kv-head geometries.
     for e in (V2_LITE.num_experts, V2_LITE_FULL.num_experts):
@@ -1153,6 +1287,9 @@ def phase_kernels() -> dict:
             for n, k in ((2816, 2048), (2048, 1408)):
                 results["grouped_gemm"].append(
                     check_grouped(e, tokens, n, k, seed=e + tokens + n))
+    for n, k in ((2816, 2048), (2048, 1408)):
+        results["grouped_gemm"].append(check_grouped(
+            V2_LITE.num_experts, 16, n, k, seed=9 + n, b_layout="n"))
     # V2_LITE's GQA group 4, V2_LITE_FULL's 1, V3_STYLE's 8 (layer_bench).
     for i, cfg in enumerate((V2_LITE, V2_LITE_FULL, V3_STYLE)):
         results["flash_decode"].append(check_flash_decode(
@@ -1236,6 +1373,12 @@ def phase_kernels() -> dict:
                    else "")
                 + (f" select_config={r['picked']}" if "picked" in r else "")
                 + (f" route={r['route']}" if "route" in r else "")
+                + (f" tile={r['ring_tile']}" if "ring_tile" in r else "")
+                + (f" splits={r['splits']}" if "splits" in r else "")
+                + (f" expected_m={r['expected_m']}" if "expected_m" in r
+                   else "")
+                + (f" ring_equals_tile={r['ring_equals_tile']}"
+                   if "ring_equals_tile" in r else "")
                 + (f" prev_ms(before the redesign, quoted)={r['prev_ms']}"
                    if r.get("prev_ms") else "")
                 + (f" bf16_out_ms={r['bf16_out_ms']:.4f}"
@@ -1255,12 +1398,39 @@ def phase_kernels() -> dict:
             f"ms={r['ms']} refused={r['refused']}"
             + (f" rel-L2 vs K1 {r['rel_l2_vs_k1']:.3g}" if r["accepted"]
                else ""))
+    step = decode_step_sums(results)
+    for name, sums in step.items():
+        log(f"  decode step (V2_LITE, 16 slots), {name}: {sums['launches']} "
+            f"launches, Σ ms={sums['ms']:.4f} bound_ms={sums['bound_ms']:.4f}"
+            f" prev_ms(before the ring, quoted)={sums['prev_ms']:.4f}")
     bad = [(n, r["shape"]) for n, rows in results.items() for r in rows
            if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
-    return {"checks": results, "k1_library": k1_library}
+    return {"checks": results, "k1_library": k1_library,
+            "decode_step": step}
+
+
+def decode_step_sums(results: dict) -> dict:
+    """K1's and K3's time in one V2_LITE decode step: their phase-2 rows
+    at the step's shapes (K1 at m = 16, K3 at E=32 cap=96), weighted by
+    the step's launches (K1_PER_STEP, K3_PER_STEP); the bound and the
+    quoted time before the ring the same way."""
+    out = {}
+    for name, per_step, fmt in (
+            ("fp8_gemm", K1_PER_STEP, "m=16 n={} k={}"),
+            ("grouped_gemm", K3_PER_STEP, "E=32 cap=96 valid_rows=96 n={} "
+                                          "k={}")):
+        sums = {"launches": 0, "ms": 0.0, "bound_ms": 0.0, "prev_ms": 0.0}
+        for (n, k), count in per_step.items():
+            row = next(r for r in results[name]
+                       if r["shape"] == fmt.format(n, k))
+            sums["launches"] += count
+            for key in ("ms", "bound_ms", "prev_ms"):
+                sums[key] += count * (row[key] or 0.0)
+        out[name] = sums
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1505,6 +1675,7 @@ def phase_serving(device: dict, experts: str) -> dict:
     wall = time.perf_counter() - t0
     counts = {n: (c.launches, c.plain_calls)
               for n, c in _kernels.COUNTERS.items()}
+    plans = launch_plans()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     st = eng.stats
     prefill_tps = st["prefill_tokens"] / st["prefill_time_s"]
@@ -1517,6 +1688,7 @@ def phase_serving(device: dict, experts: str) -> dict:
         f"{st['decode_steps']} steps, peak memory {peak_gb:.2f} GiB; "
         f"{device['smi']}")
     log(f"  counters (launches, plain calls): {counts}")
+    log(f"  launches by plan: {plans}")
     if len(outs) != 24 or any(len(o) != 32 for o in outs):
         raise RuntimeError(f"serving: lengths {[len(o) for o in outs]}")
     if any(not 0 <= t < cfg.vocab_size for o in outs for t in o):
@@ -1528,13 +1700,18 @@ def phase_serving(device: dict, experts: str) -> dict:
                            f"expected exactly {sorted(expected)}")
     if any(calls for _, calls in counts.values()):
         raise RuntimeError(f"serving: a plain version ran: {counts}")
+    off_ring = {n: p for n, p in plans.items()
+                if any(not label.startswith("ring") for label in p)}
+    if off_ring:
+        raise RuntimeError(f"serving ({experts}): K1/K3 left the ring: "
+                           f"{off_ring}")
     profile = _profile_decode_step(eng)
     return {"run": experts, "wall_s": wall, "setup_s": setup_s,
             "prefill_tok_s": prefill_tps, "profile": profile,
             "decode_tok_s": eng.tokens_per_second,
             "decode_steps": st["decode_steps"],
             "prefill_tokens": st["prefill_tokens"], "peak_gib": peak_gb,
-            "counts": counts}
+            "counts": counts, "plans": plans}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1721,6 +1898,7 @@ def phase_compat(device: dict) -> dict:
         f"{moe_ms['contiguous_K8']:.3f} ms, K3 path "
         f"{moe_ms['masked_K3']:.3f} ms")
     log(f"  counters (launches, plain calls): {counts}")
+    log(f"  launches by plan: {launch_plans()}")
     if failures:
         raise RuntimeError(f"compat API disagrees with the plain path: "
                            f"{failures}")
@@ -2030,6 +2208,7 @@ def phase_cp(device: dict) -> dict:
         f"{k} {v:.3g}" for k, v in used.items()))
     log(f"  times (CUDA events, median of 3): {timed}")
     log(f"  counters (launches, plain calls): {counts}")
+    log(f"  launches by plan: {launch_plans()}")
     if failures:
         raise RuntimeError(f"context-parallel prefill: {failures}")
     if any(bool(launches) != (n in CP_PATH)
@@ -2109,7 +2288,8 @@ def phase_scripts(device: dict) -> list:
             log(f"  {ln[:600]}")
         log(f"  counters (launches, plain calls): "
             f"{ {n: c for n, c in counts.items() if any(c)} }"
-            + (f"; bare-entry launches {bare}" if bare else ""))
+            + (f"; bare-entry launches {bare}" if bare else "")
+            + f"; by plan {launch_plans()}")
         if rc != 0:
             raise RuntimeError(f"{name}: rc {rc}")
         if any(bool(launches) != (n in expected)

@@ -10,7 +10,8 @@ convention — ``(tensor, scales)`` tuples, an explicit ``out`` buffer, NT
   ``m_grouped_gemm_contiguous`` (kernel K8), after converting DeepGEMM's
   per-row ``m_indices`` into per-tile expert ids at the 128-row alignment;
 * ``m_grouped_gemm_fp8_fp8_bf16_nt_masked`` → ``m_grouped_gemm_masked``
-  (kernel K3); its ``expected_m`` hint is accepted and ignored.
+  (kernel K3); its ``expected_m`` hint picks the kernel's tile and
+  changes no result.
 
 Inputs are torch tensors or numpy arrays, placed as in
 ``compat.run_mmad_*``; a torch ``out`` gets the result copied in and is
@@ -122,10 +123,11 @@ def m_grouped_gemm_fp8_fp8_bf16_nt_masked(lhs: Tuple, rhs: Tuple, out,
 
     lhs: (a_q (num_groups, m_max, k), a_scales (num_groups, m_max, k/128));
     rhs as in the contiguous call; masked_m: (num_groups,) int. Rows ≥
-    masked_m[g] are unspecified, as in DeepGEMM."""
-    del expected_m
+    masked_m[g] are unspecified, as in DeepGEMM. ``expected_m``: the rows
+    a group is expected to hold (picks K3's tile)."""
     a_q, a_s, b_q, b_s, mm = _tensors(lhs, rhs, masked_m, out=out)
     _check_out_shape((*a_q.shape[:2], b_q.shape[1]), out)
     res = m_grouped_gemm_masked(a_q, a_s, b_q, b_s, mm, b_layout="t",
-                                out_dtype=torch.bfloat16)
+                                out_dtype=torch.bfloat16,
+                                expected_m=expected_m)
     return _deliver(res, out)

@@ -1,9 +1,21 @@
 // K1 and K12: blockwise-scaled FP8 GEMMs for Hopper (sm_90a).
 //
-// K1 replaces deepgemm_ascend_tpu/ops/fp8_gemm.py:_fp8_gemm_kernel_static and
-// :_fp8_gemm_kernel_blocked (one function: the TPU kernel splits it only
-// because Mosaic needs static scale slices). Its tile routine, numerics,
-// bound and what it leaves for later are described in fp8_gemm.cuh.
+// K1 replaces deepgemm_ascend_tpu/ops/fp8_gemm.py:_fp8_gemm_kernel_static
+// (:152) and :_fp8_gemm_kernel_blocked (:182), called at :379 and :415 (one
+// function: the TPU kernel splits it only because Mosaic needs static scale
+// slices). Two routes, chosen by the wrapper (ops/fp8_gemm.py: route,
+// ring_plan) and refused here where they cannot run:
+//   * "ring" (B stored K-major, b_layout='t', the layout of the port's
+//     weights; TMA-describable pointers and pitches): fp8_gemm.cuh's
+//     ring_kernel, a TMA ring of 128-deep scale groups fed by a producer
+//     warp, with tiles by m (16 x 64 at decode, 64 x 64 beyond) and,
+//     where the tiles are too few to fill the card, the groups split over
+//     the CTAs of a cluster (`splits`);
+//   * "tile" (b_layout='n', unaligned operands): gemm_tile's 64 x 64 grid.
+// Both keep one element's arithmetic (fp8_gemm.cuh), so they agree bit for
+// bit where K is not split. Bound on the card: the weight bytes at decode,
+// which the ring streams with several groups in flight on every SM; the
+// tensor cores at prefill (f16 mma.sync, at most half the fp8 rate).
 //
 // K12 replaces :_fp8_gemm_kernel_folded (scale_mode='folded', call :435):
 // the scales are folded into the operands and one bf16 product follows,
@@ -39,7 +51,6 @@
 #include <type_traits>
 
 #include "fp8_gemm.cuh"
-#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -375,11 +386,12 @@ void launch(const dga::GemmArgs& p, void* c, cudaStream_t stream) {
 
 bool bad_shape(int m, int n, int k) { return m <= 0 || n % dga::kBN || k % dga::kGroup; }
 
-// Layouts and output types of K1 (FOLDED false) and K12.
+// Layouts and output types of K1 (FOLDED false; its route, ring tile and
+// splits) and K12.
 template <bool FOLDED>
 int run(const void* a, const void* a_s, const void* b, const void* b_s, void* c, int m, int n,
         int k, long long sbk, long long sbn, long long bs_g, long long bs_n, int bs_shift,
-        int out_f32, void* stream) {
+        int out_f32, int route, int tile, int splits, void* stream) {
   if (bad_shape(m, n, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool kmajor = sbk == 1;
@@ -393,7 +405,14 @@ int run(const void* a, const void* a_s, const void* b, const void* b_s, void* c,
     if (out_f32)
       return tile_folded<false, float>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
     return tile_folded<false, __nv_bfloat16>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
+  } else if (route == dga::kRouteRing) {
+    // TMA reads B as (n, k) rows of k bytes: K-major and dense only.
+    if (sbk != 1 || sbn != k) return (int)cudaErrorInvalidValue;
+    const dga::ring::RingArgs p{static_cast<const float*>(a_s), static_cast<const float*>(b_s),
+                                nullptr, c, m, n, k, 0, bs_g, bs_n, bs_shift, splits};
+    return dga::ring::launch(tile, out_f32, a, b, 0, 1, p, s);
   } else {
+    if (route != dga::kRouteTile || splits != 1) return (int)cudaErrorInvalidValue;
     dga::GemmArgs p{static_cast<const uint8_t*>(a), static_cast<const float*>(a_s),
                     static_cast<const uint8_t*>(b), static_cast<const float*>(b_s),
                     m, n, k, sbk, sbn, bs_g, bs_n, bs_shift};
@@ -409,12 +428,16 @@ int run(const void* a, const void* a_s, const void* b, const void* b_s, void* c,
 
 // K1: element (kk, col) of B at b[kk * sbk + col * sbn]; scale (g, col) at
 // b_s[g * bs_g + (col >> bs_shift) * bs_n].
+// route: 0 tile, 1 ring (dga::Route); tile: the ring's tile index
+// (dga::ring::launch); splits: CTAs per cluster splitting the groups (ring
+// only; 1 on the tile route).
 extern "C" int dga_fp8_gemm(const void* a, const void* a_s, const void* b,
                             const void* b_s, void* c, int m, int n, int k,
                             long long sbk, long long sbn, long long bs_g,
                             long long bs_n, int bs_shift, int out_f32,
-                            void* stream) {
-  return run<false>(a, a_s, b, b_s, c, m, n, k, sbk, sbn, bs_g, bs_n, bs_shift, out_f32, stream);
+                            int route, int tile, int splits, void* stream) {
+  return run<false>(a, a_s, b, b_s, c, m, n, k, sbk, sbn, bs_g, bs_n, bs_shift, out_f32, route,
+                    tile, splits, stream);
 }
 
 // K12: the same operands and addressing, folded scales.
@@ -423,5 +446,6 @@ extern "C" int dga_fp8_gemm_folded(const void* a, const void* a_s, const void* b
                                    long long sbk, long long sbn, long long bs_g,
                                    long long bs_n, int bs_shift, int out_f32,
                                    void* stream) {
-  return run<true>(a, a_s, b, b_s, c, m, n, k, sbk, sbn, bs_g, bs_n, bs_shift, out_f32, stream);
+  return run<true>(a, a_s, b, b_s, c, m, n, k, sbk, sbn, bs_g, bs_n, bs_shift, out_f32, 0, 0, 1,
+                   stream);
 }

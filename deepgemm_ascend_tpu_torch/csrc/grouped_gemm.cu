@@ -3,25 +3,34 @@
 // Replaces two kernels of deepgemm_ascend_tpu/ops/grouped_gemm.py:
 //   K3 _masked_kernel (:282, call :407)  -> dga_grouped_gemm_masked
 //   K8 _grouped_kernel (:70, call :183)  -> dga_grouped_gemm_contiguous
-// Both run K1's tile routine unchanged (fp8_gemm.cuh: gemm_tile), so a
-// valid row gets K1's arithmetic whichever kernel computes it: e4m3 -> f16
-// exact, m16n8k16 group partials, acc += (p * a_s) * b_s in group order.
+// Both keep K1's arithmetic for one element (fp8_gemm.cuh): e4m3 -> f16
+// exact, m16n8k16 group partials, acc += (p * a_s) * b_s in group order,
+// so a valid row gets the same bits whichever kernel or route computes it.
 // B's block scales stay compact and are addressed through strides; B is
 // stored (E, K, N) or K-major (E, N, K).
 //
 // K3: per expert e, C_e = A_e (M_max, K) x B_e; grid dimension z walks the
-// experts.
+// experts. Two routes, chosen by the wrapper (ops/grouped_gemm.py: route,
+// ring_tile) and refused here where they cannot run:
+//   * "ring" (B K-major, b_layout='t', the layout of the port's expert
+//     weights; TMA-describable pointers and pitches): fp8_gemm.cuh's
+//     ring_kernel over 3-D maps whose batch is the expert, so that no box
+//     reads the next expert's rows; 16-row tiles where an expert is
+//     expected to hold a few rows (decode), and m16 fragments past
+//     masked_m[e] skipped inside the larger tiles. K3 never splits its
+//     groups: it stays bit-equal to K8;
+//   * "tile" (b_layout='n', unaligned operands): gemm_tile's 64 x 64 grid.
+// Either way a tile whose first row is at or past masked_m[e] loads
+// nothing and writes zeros, as the TPU kernel's inactive tiles do; rows
+// past masked_m[e] inside an active tile are unspecified (as in the TPU
+// kernel). The MoE block sizes every expert for T*top_k rows, so at
+// prefill almost every tile is idle, and those zero stores are the floor
+// of the kernel while zeros stay in the contract (at 12288 rows, 32
+// experts, n = 2816: 2.2 GB, ~0.66 ms at 3.35 TB/s).
 //
-// A tile whose first row is at or past masked_m[e] returns before any load
-// and writes zeros, as the TPU kernel's inactive tiles do. The MoE block
-// sizes every expert for T*top_k rows, so at prefill almost every tile is
-// idle: skipping them is what keeps this kernel near the work the routed
-// tokens need. Rows past masked_m[e] inside an active tile are computed
-// from whatever the buffer holds (unspecified, as in the TPU kernel).
-//
-// Bound on the card: the expert weight bytes at decode, tensor-core work
-// at prefill; what the simple tile routine leaves for later is listed in
-// fp8_gemm.cuh. Idle tiles still cost a launch slot and a zero store each.
+// Bound on the card: the expert weight bytes at decode, which the ring
+// streams with several groups in flight per SM; tensor-core work (f16
+// mma.sync) and the zero stores at prefill.
 //
 // K8: one flat (M_total, K) activation matrix whose rows are grouped by
 // expert in spans of block_m rows (the layout's m-tiles); tile_gids[t] is
@@ -97,13 +106,25 @@ void launch_contiguous(const dga::GemmArgs& p, const int* gids, int n_tiles, int
 
 }  // namespace
 
+// route: 0 tile, 1 ring (dga::Route); tile: the ring's tile index
+// (dga::ring::launch), not read on the tile route.
 extern "C" int dga_grouped_gemm_masked(
     const void* a, const void* a_s, const void* b, const void* b_s,
     const void* masked_m, void* c, int e, int m_max, int n, int k,
     long long b_e, long long sbk, long long sbn, long long bs_e,
-    long long bs_g, long long bs_n, int bs_shift, int out_f32, void* stream) {
+    long long bs_g, long long bs_n, int bs_shift, int out_f32, int route,
+    int tile, void* stream) {
   if (e <= 0 || m_max <= 0 || n % dga::kBN || k % dga::kGroup)
     return (int)cudaErrorInvalidValue;
+  if (route == dga::kRouteRing) {
+    // TMA reads B as (E, n, k) rows of k bytes: K-major and dense rows.
+    if (sbk != 1 || sbn != k) return (int)cudaErrorInvalidValue;
+    const dga::ring::RingArgs p{static_cast<const float*>(a_s), static_cast<const float*>(b_s),
+                                static_cast<const int*>(masked_m), c, m_max, n, k, bs_e, bs_g,
+                                bs_n, bs_shift, 1};
+    return dga::ring::launch(tile, out_f32, a, b, b_e, e, p, static_cast<cudaStream_t>(stream));
+  }
+  if (route != dga::kRouteTile) return (int)cudaErrorInvalidValue;
   dga::GemmArgs p{static_cast<const uint8_t*>(a), static_cast<const float*>(a_s),
                   static_cast<const uint8_t*>(b), static_cast<const float*>(b_s),
                   m_max, n, k, sbk, sbn, bs_g, bs_n, bs_shift};

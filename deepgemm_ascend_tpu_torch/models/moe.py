@@ -22,6 +22,7 @@ f32 and casts to bf16.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Tuple, Union
 
@@ -272,7 +273,10 @@ def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
         quantize = lambda t: quant.quantize_int8(t, axis=-1)  # (E, cap, 1)
         gemm = i8.m_grouped_int8_gemm_masked
     else:
-        quantize, gemm = quant.quantize_fp8_act, gg.m_grouped_gemm_masked
+        # The rows an expert holds on average picks K3's tile.
+        quantize = quant.quantize_fp8_act
+        gemm = functools.partial(gg.m_grouped_gemm_masked,
+                                 expected_m=-(-t * cfg.top_k // e_total))
     a_q, a_s = quantize(buf)
     del buf
     h = gemm(a_q, a_s, exp.w1_q, exp.w1_s, masked_m, b_layout="t")

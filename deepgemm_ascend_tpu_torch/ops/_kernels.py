@@ -53,17 +53,18 @@ _F = ctypes.c_float
 # three B strides, out_f32 and the stream.
 _INT8_GROUPED = [_P] * 6 + [_I] * 4 + [_L] * 3 + [_I, _P]
 # K1 and K12: a, a_s, b, b_s, c, m, n, k, four strides, the scale shift,
-# out_f32 and the stream.
+# out_f32 and the stream (K1: its route, ring tile and splits before it).
 _FP8 = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P]
 # Every kernel: its name (the key of its counter), the source that holds it
 # (csrc/<source>.cu), its C entry point and that entry's signature. Every
 # entry returns an int: the cudaError_t of the launch.
 KERNELS = {
-    "fp8_gemm": ("fp8_gemm", "dga_fp8_gemm", _FP8),
+    # K1 also takes its route, ring tile and splits.
+    "fp8_gemm": ("fp8_gemm", "dga_fp8_gemm", _FP8[:-1] + [_I, _I, _I, _P]),
     "fp8_gemm_folded": ("fp8_gemm", "dga_fp8_gemm_folded", _FP8),
     "grouped_gemm": ("grouped_gemm", "dga_grouped_gemm_masked",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                      _L, _L, _I, _I, _P]),
+                      _L, _L, _I, _I, _I, _I, _P]),
     "grouped_gemm_contiguous": ("grouped_gemm", "dga_grouped_gemm_contiguous",
                                 [_P] * 6 + [_I] * 4 + [_L] * 6
                                 + [_I, _I, _P]),
@@ -95,17 +96,23 @@ SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))
 @dataclasses.dataclass
 class Counter:
     """Launch count of one kernel (through its wrapper, and bare), and call
-    count of its plain version."""
+    count of its plain version. ``plans``: a wrapper that picks among
+    routes or tiles counts each launch under its plan's label too."""
 
     name: str
     launches: int = 0
     plain_calls: int = 0
     bare_launches: int = 0
+    plans: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def count_plan(self, label: str) -> None:
+        self.plans[label] = self.plans.get(label, 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
         self.bare_launches = 0
+        self.plans.clear()
 
 
 COUNTERS: Dict[str, Counter] = {n: Counter(n) for n in KERNELS}

@@ -18,12 +18,17 @@ Port of ``deepgemm_ascend_tpu/ops/fp8_gemm.py``. A carries per-(token,
   rel-L2 of K1 but outside the strict outlier gate, hence the opt-in.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
-``csrc/fp8_gemm.cu``: K1 on fixed 64×64 tiles, K12 on the Hopper main
-loop of ``csrc/sm90_gemm.cuh`` (TMA loads of the e4m3 bytes, a fold
-into bf16 overlapped with wgmma; its tiles follow the shape). The tiling
-knobs of a ``GemmConfig`` are not read. On a CPU tensor they run
-:func:`fp8_gemm_plain` or :func:`fp8_gemm_folded_plain`, the same
-arithmetic in PyTorch. ``mxu_dtype`` (a TPU MXU knob) is not ported.
+``csrc/fp8_gemm.cu``. K1 takes one of two routes (:func:`route`): "ring"
+— a TMA ring of 128-deep scale groups fed by a producer warp, its tile
+and group splits from :func:`ring_plan` — where TMA can read the operands
+(B stored K-major, ``b_layout='t'``, the port's weights), else "tile"
+(fixed 64×64 tiles, synchronous loads); both keep one output element's
+arithmetic, so they agree bit for bit unless the ring splits K. K12 runs
+on the Hopper main loop of ``csrc/sm90_gemm.cuh`` (TMA loads of the e4m3
+bytes, a fold into bf16 overlapped with wgmma; its tiles follow the
+shape). The tiling knobs of a ``GemmConfig`` are not read. On a CPU
+tensor they run :func:`fp8_gemm_plain` or :func:`fp8_gemm_folded_plain`,
+the same arithmetic in PyTorch. ``mxu_dtype`` (a TPU MXU knob) is not ported.
 
 The TPU package lane-expands B's block scales to a (k/128, n) panel for its
 kernel; the port keeps them compact and addresses them through strides.
@@ -39,18 +44,30 @@ from typing import Optional
 import torch
 
 from ..config import GemmConfig, KernelType
+from ..tiling import platform
 from ..tiling.padding import pad_fp8_operands, pad_fp8_operands_nt
+from ..utils.common import ceil_div
 from . import _kernels
 from .quant import BLOCK, FP8
 
 __all__ = ["fp8_gemm", "fp8_gemm_with_config", "fp8_gemm_plain",
            "fp8_gemm_folded_plain", "fold_operands", "expand_weight_scales",
-           "exact_mode"]
+           "exact_mode", "route", "ring_plan", "plan_label"]
 
 COUNTER = _kernels.COUNTERS["fp8_gemm"]
 FOLDED_COUNTER = _kernels.COUNTERS["fp8_gemm_folded"]
 SCALE_MODES = ("accum", "folded")
 _SHIFT = BLOCK.bit_length() - 1        # column → scale-block index: col >> 7
+
+# K1's (and K3's) routes, numbered as the C entries number them.
+ROUTES = ("tile", "ring")
+# The ring's tiles (rows, columns), in the order of the C entries' index
+# (csrc/fp8_gemm.cuh: Tile16, Tile64).
+RING_TILES = ((16, 64), (64, 64))
+H100_SMS = 132
+MAX_SPLITS = 8            # CTAs of a portable cluster
+MIN_SPLIT_GROUPS = 2      # 128-deep scale groups a split runs at least
+MAX_SPLIT_GROUPS = 12     # ... and at most, where more splits can share K
 
 # Route fp8 GEMMs (dense + grouped) through an exact emulated-dequant f32
 # matmul instead of the kernels: the golden model at model scale. Read at
@@ -187,11 +204,82 @@ def _check_cuda_operands(name, tensors, device):
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
+def ring_route_ok(a_q, b_q, b_t: bool) -> bool:
+    """Whether TMA can read K1's or K3's operands (``a_q`` (…, m, k),
+    ``b_q`` (…, n, k) if ``b_t``): B stored K-major, k a positive multiple
+    of 128 (each 128-byte box one scale group; the row pitches are then
+    multiples of 16 bytes) and 16-byte-aligned data pointers."""
+    k = a_q.shape[-1]
+    return (b_t and k > 0 and k % BLOCK == 0 and a_q.data_ptr() % 16 == 0
+            and b_q.data_ptr() % 16 == 0)
+
+
+def check_tile_alignment(name, a_q, b_q, b_t: bool) -> None:
+    """The tile route reads A, and B stored K-major, in 16-byte words (B
+    stored (k, n) byte by byte): raise for a ``data_ptr`` off 16 bytes
+    there, which the card would fault on."""
+    for label, t in (("a_q", a_q), ("b_q", b_q))[:2 if b_t else 1]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must start on a 16-byte "
+                             f"boundary (the kernel reads it in 16-byte "
+                             f"words)")
+
+
+def route(a_q, b_q, b_layout: str = "n") -> str:
+    """K1's route for the stored operands ``a_q`` (m, k) and ``b_q``:
+    ``"ring"`` where TMA can read them (:func:`ring_route_ok`: B stored
+    K-major, ``b_layout='t'``; k a multiple of 128; 16-byte-aligned
+    pointers), else ``"tile"`` (``b_layout='n'``, an offset view)."""
+    return "ring" if ring_route_ok(a_q, b_q, _check_layout(b_layout)) \
+        else "tile"
+
+
+def ring_tile(m: int) -> int:
+    """Index into :data:`RING_TILES` for m rows: 16 rows at decode (m ≤ 16:
+    mma's own M, no padded rows), else 64 × 64 (measured faster than a
+    128 × 128 tile at prefill, ``scripts/ring_sweep.py``)."""
+    return 0 if m <= 16 else 1
+
+
+def ring_splits(m: int, n: int, k: int, tile: int,
+                sms: int = H100_SMS) -> int:
+    """CTAs that split K1's 128-deep groups on the ring: 1 where the tiles
+    fill at least half the card's SMs; else as many as put one CTA on
+    about every SM, or as keep each split to MAX_SPLIT_GROUPS groups if
+    that is more (deep K), at most MAX_SPLITS (a cluster) and with at
+    least MIN_SPLIT_GROUPS groups each."""
+    bm, bn = RING_TILES[tile]
+    tiles = ceil_div(m, bm) * (n // bn)
+    groups = k // BLOCK
+    if 2 * tiles > sms:
+        return 1
+    return max(1, min(MAX_SPLITS, groups // MIN_SPLIT_GROUPS,
+                      max(sms // tiles, ceil_div(groups, MAX_SPLIT_GROUPS))))
+
+
+def plan_label(rt: str, tile: int, splits: int = 1) -> str:
+    """A launch's plan as its wrapper counts it (``Counter.plans``):
+    ``"tile"``, or ``"ring RxC"`` with ``"/S"`` for S > 1 splits."""
+    if rt != "ring":
+        return rt
+    label = "ring {}x{}".format(*RING_TILES[tile])
+    return label if splits == 1 else f"{label}/{splits}"
+
+
+def ring_plan(m: int, n: int, k: int, sms: int = H100_SMS):
+    """(tile index, splits) of K1's ring route for an (m, k) × (k, n)
+    product on a card of ``sms`` SMs."""
+    tile = ring_tile(m)
+    return tile, ring_splits(m, n, k, tile, sms)
+
+
 def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
-            folded=False):
+            folded=False, plan=None):
     """Run K1 (or K12 if ``folded``) on ``a_q``'s device: the kernel for
     CUDA, the plain version for the CPU. Shapes are validated by the
-    callers."""
+    callers. ``plan``: K1's (route, tile, splits) in place of
+    :func:`route` and :func:`ring_plan`'s (for tests and sweeps; the C
+    entry refuses what it cannot run)."""
     dev = a_q.device
     if dev.type == "cpu":
         plain = fp8_gemm_folded_plain if folded else fp8_gemm_plain
@@ -217,13 +305,28 @@ def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
     if m == 0:
         return out
     sbk, sbn = (1, k) if b_t else (n, 1)
-    name = "fp8_gemm_folded" if folded else "fp8_gemm"
-    rc = _kernels.entry(name)(
-        a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), bs.data_ptr(),
-        out.data_ptr(), m, n, k, sbk, sbn, bs.stride(0), bs.stride(1), shift,
-        int(out_dtype == torch.float32), _kernels.stream_ptr(dev))
-    _kernels.check(rc, name)
-    (FOLDED_COUNTER if folded else COUNTER).launches += 1
+    args = (a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), bs.data_ptr(),
+            out.data_ptr(), m, n, k, sbk, sbn, bs.stride(0), bs.stride(1),
+            shift, int(out_dtype == torch.float32))
+    if folded:
+        rc = _kernels.entry("fp8_gemm_folded")(*args,
+                                               _kernels.stream_ptr(dev))
+        _kernels.check(rc, "fp8_gemm_folded")
+        FOLDED_COUNTER.launches += 1
+        return out
+    if plan is None:
+        rt = route(a_q, b_q, "t" if b_t else "n")
+        tile, splits = (ring_plan(m, n, k, platform.detect(dev).num_cores)
+                        if rt == "ring" else (0, 1))
+        plan = rt, tile, splits
+    rt, tile, splits = plan
+    if rt == "tile":
+        check_tile_alignment("fp8_gemm", a_q, b_q, b_t)
+    rc = _kernels.entry("fp8_gemm")(*args, ROUTES.index(rt), tile, splits,
+                                    _kernels.stream_ptr(dev))
+    _kernels.check(rc, "fp8_gemm")
+    COUNTER.launches += 1
+    COUNTER.count_plan(plan_label(rt, tile, splits))
     return out
 
 

@@ -3,9 +3,9 @@ K8), and the contiguous layout planner.
 
 Port of ``deepgemm_ascend_tpu/ops/grouped_gemm.py``: ``m_grouped_gemm_masked``,
 ``m_grouped_gemm_contiguous`` and ``make_contiguous_layout`` (which also
-plans the layout of the int8 contiguous GEMM, K9). Both GEMMs use K1's
-blockwise scale math, and their kernels (``csrc/grouped_gemm.cu``) share
-K1's tile routine:
+plans the layout of the int8 contiguous GEMM, K9). Both GEMMs keep K1's
+blockwise scale math for each output element (``csrc/grouped_gemm.cu``,
+``csrc/fp8_gemm.cuh``), so a row gets the same bits through either:
 
 * masked: per expert e, the first ``masked_m[e]`` rows of a fixed-shape
   (E, M_max, K) activation buffer; the kernel skips every tile at or past
@@ -16,6 +16,10 @@ K1's tile routine:
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 :func:`grouped_gemm_masked_plain` and :func:`grouped_gemm_contiguous_plain`.
+The masked kernel takes K1's routes (:func:`route`): "ring" (a TMA ring of
+scale groups, its tile from :func:`ring_tile`; never split, so that it
+stays bit-equal to the contiguous kernel) for B stored K-major, else
+"tile"; the contiguous kernel runs K1's 64×64 tile routine.
 """
 
 from __future__ import annotations
@@ -28,17 +32,45 @@ import torch
 from ..config import GemmConfig, KernelType
 from ..utils.common import round_up
 from . import _kernels
-from .fp8_gemm import (_SHIFT, _check_cuda_operands, _exact_gemm,
+from .fp8_gemm import (ROUTES, _SHIFT, _check_cuda_operands, _exact_gemm,
                        _plain_gemm, _scale_panel, check_config,
-                       exact_enabled)
+                       check_tile_alignment, exact_enabled, plan_label,
+                       ring_route_ok)
 from .quant import BLOCK, FP8
 
 __all__ = ["m_grouped_gemm_masked", "grouped_gemm_masked_plain",
            "m_grouped_gemm_contiguous", "grouped_gemm_contiguous_plain",
-           "make_contiguous_layout", "contiguous_tiles"]
+           "make_contiguous_layout", "contiguous_tiles", "route",
+           "ring_tile"]
 
 COUNTER = _kernels.COUNTERS["grouped_gemm"]
 K8 = _kernels.COUNTERS["grouped_gemm_contiguous"]
+# K3's ring tile follows the rows an expert is expected to hold: 16-row
+# tiles where they fit one (at decode: no padded fragments, and a CTA
+# walks its (expert, n-tile)'s few valid tiles and zeros the rest), 64-row
+# tiles beyond (fragments past masked_m[e] skipped). scripts/ring_sweep.py
+# on routed loads over 32 experts: 16 rows ahead up to a mean of 12 rows
+# an expert, 64 rows from 24 on.
+SMALL_ROWS = 16
+
+
+def route(a_q, b_q, b_layout: str = "n") -> str:
+    """K3's route for the stored operands ``a_q`` (E, M_max, k) and
+    ``b_q``: ``"ring"`` where TMA can read them (B stored K-major,
+    ``b_layout='t'``; k a multiple of 128; 16-byte-aligned pointers; the
+    expert pitch of B then is too), else ``"tile"``."""
+    if b_layout not in ("n", "t"):
+        raise ValueError(f"b_layout must be 'n' or 't', got {b_layout!r}")
+    return "ring" if ring_route_ok(a_q, b_q, b_layout == "t") else "tile"
+
+
+def ring_tile(m_max: int, expected_m: Optional[int] = None) -> int:
+    """Index into ``fp8_gemm.RING_TILES`` of K3's ring tile: 16 rows where
+    an expert is expected to hold at most SMALL_ROWS rows — ``expected_m``
+    (the caller's hint, DeepGEMM's name for it) or, without one, M_max —
+    else 64."""
+    rows = m_max if expected_m is None else min(m_max, expected_m)
+    return 0 if rows <= SMALL_ROWS else 1
 
 
 def make_contiguous_layout(
@@ -115,7 +147,11 @@ def grouped_gemm_masked_plain(a_q, a_scales, b_q, bs_view, masked_m, *,
     return out
 
 
-def _launch(a_q, a_scales, b_q, bs_view, shift, masked_m, b_t, out_dtype):
+def _launch(a_q, a_scales, b_q, bs_view, shift, masked_m, b_t, out_dtype,
+            plan=None, expected_m=None):
+    """Run K3 on ``a_q``'s device: the kernel for CUDA, the plain version
+    for the CPU. ``plan``: (route, ring tile) in place of :func:`route`
+    and :func:`ring_tile`'s (for tests and sweeps)."""
     dev = a_q.device
     if dev.type == "cpu":
         return grouped_gemm_masked_plain(a_q, a_scales, b_q, bs_view,
@@ -139,13 +175,20 @@ def _launch(a_q, a_scales, b_q, bs_view, shift, masked_m, b_t, out_dtype):
     n = b_q.shape[1] if b_t else b_q.shape[2]
     out = torch.empty((e, m_max, n), dtype=out_dtype, device=dev)
     sbk, sbn = (1, k) if b_t else (n, 1)
+    if plan is None:
+        rt = route(a_q, b_q, "t" if b_t else "n")
+        plan = rt, ring_tile(m_max, expected_m) if rt == "ring" else 0
+    if plan[0] == "tile":
+        check_tile_alignment("m_grouped_gemm_masked", a_q, b_q, b_t)
     rc = _kernels.entry("grouped_gemm")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), bs.data_ptr(),
         mm.data_ptr(), out.data_ptr(), e, m_max, n, k, b_q.stride(0), sbk,
         sbn, bs.stride(0), bs.stride(1), bs.stride(2), shift,
-        int(out_dtype == torch.float32), _kernels.stream_ptr(dev))
+        int(out_dtype == torch.float32), ROUTES.index(plan[0]), plan[1],
+        _kernels.stream_ptr(dev))
     _kernels.check(rc, "grouped_gemm")
     COUNTER.launches += 1
+    COUNTER.count_plan(plan_label(plan[0], plan[1]))
     return out
 
 
@@ -160,6 +203,7 @@ def m_grouped_gemm_masked(
     config: Optional[GemmConfig] = None,
     b_scales_expanded: bool = False,
     b_layout: str = "n",
+    expected_m: Optional[int] = None,
 ) -> torch.Tensor:
     """Masked grouped FP8 GEMM (MoE decode and prefill, fixed shapes).
 
@@ -172,6 +216,9 @@ def m_grouped_gemm_masked(
     ``b_layout='t'``: b_q (E, N, K) with b_scales (E, N/128, K/128) —
     DeepGEMM's ``m_grouped_gemm_fp8_fp8_bf16_nt_masked`` convention and the
     layout of the port's expert weights.
+
+    ``expected_m``: the rows an expert is expected to hold, a hint that
+    picks the kernel's tile (:func:`ring_tile`) and changes no result.
     """
     if b_layout not in ("n", "t"):
         raise ValueError(f"b_layout must be 'n' or 't', got {b_layout!r}")
@@ -210,7 +257,7 @@ def m_grouped_gemm_masked(
         y = torch.where(rows < masked_m.to(a_q.device)[:, None, None], y, 0.0)
         return y.to(out_dtype)
     return _launch(a_q, a_scales, b_q, bs_view, shift, masked_m, b_t,
-                   out_dtype)
+                   out_dtype, expected_m=expected_m)
 
 
 def grouped_gemm_contiguous_plain(a_q, a_scales, b_q, bs_view, tile_group_ids,
@@ -262,6 +309,7 @@ def _launch_contiguous(a_q, a_scales, b_q, bs_view, shift, ids, block_m, b_t,
     gids = ids.to(device=dev, dtype=torch.int32)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     sbk, sbn = (1, k) if b_t else (n, 1)
+    check_tile_alignment("m_grouped_gemm_contiguous", a_q, b_q, b_t)
     rc = _kernels.entry("grouped_gemm_contiguous")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), bs.data_ptr(),
         gids.data_ptr(), out.data_ptr(), m, n, k, block_m, b_q.stride(0), sbk,

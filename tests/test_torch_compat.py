@@ -271,7 +271,8 @@ def test_grouped_contiguous_rejects_bad_m_indices_as_jax(case):
 
 
 def test_grouped_masked_alias_matches_jax():
-    """expected_m is accepted and ignored; valid rows compared."""
+    """expected_m picks the tile and changes no result; valid rows
+    compared."""
     e, m_max, k, n = 2, 32, 256, 128
     masked = np.asarray([20, 7], np.int32)
     a = golden.gen_heavy_tail((e, m_max, k), seed=10)

@@ -133,6 +133,177 @@ def test_grouped_masked_kernel_matches_plain(dev, b_layout):
     assert bool((got[0] == 0).all()) and bool((got[1, 64:] == 0).all())
 
 
+# ---- K1 and K3 on the ring route (TMA ring of scale groups) and the tile
+# route: one element's arithmetic, so without splits the same bits.
+
+RING_MS = [1, 16, 33, 64, 100, 256, 2048]
+
+
+@pytest.mark.parametrize("m", RING_MS)
+@pytest.mark.parametrize("tile", range(len(fp8mod.RING_TILES)))
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_fp8_gemm_ring_equals_tile_bit_for_bit(dev, m, tile, out_dtype):
+    """Every ring tile at every m, unsplit, against the tile route on the
+    same weights stored (k, n): equal bit for bit (rows past m, and m16
+    fragments past them inside a tile, are skipped)."""
+    n, k = 256, 512
+    a_q, a_s, b_q, b_s = _operands(m, n, k, True, dev, seed=m)
+    b_kn = b_q.t().contiguous()
+    assert fp8mod.route(a_q, b_q, "t") == "ring"
+    assert fp8mod.route(a_q, b_kn, "n") == "tile"
+    want = fp8mod.fp8_gemm(a_q, a_s, b_kn, b_s.t().contiguous(),
+                           b_layout="n", out_dtype=out_dtype)
+    got = fp8mod._launch(a_q, a_s, b_q, b_s.t(), fp8mod._SHIFT, True,
+                         out_dtype, plan=("ring", tile, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 16, 64])
+@pytest.mark.parametrize("nk", [(2048, 2048), (512, 2048), (22016, 2048),
+                                (2048, 11008), (2816, 2048), (2048, 1408)])
+def test_fp8_gemm_ring_plan_at_model_shapes(dev, m, nk):
+    """The wrapper's own plan (splits where the tiles are few) at V2_LITE's
+    projection shapes: within one bf16 ulp of the plain version, and
+    within the f32 gate with f32 output."""
+    n, k = nk
+    a_q, a_s, b_q, b_s = _operands(m, n, k, True, dev, seed=n + k)
+    for out_dtype, close in ((torch.bfloat16, assert_bf16_close),
+                             (torch.float32, assert_f32_close)):
+        got = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout="t",
+                              out_dtype=out_dtype)
+        ref = fp8mod.fp8_gemm_plain(a_q, a_s, b_q, b_s.t(), b_t=True,
+                                    out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        close(got, ref)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("tile,m", [(0, 16), (1, 64), (1, 256)])
+def test_fp8_gemm_ring_splits_within_tolerance(dev, splits, tile, m):
+    """Each split count on each tile, k = 9 groups (4 splits leave the last
+    one empty): the f32 sum changes order only, so the outputs stay within
+    the checks of the unsplit kernel."""
+    n, k = 256, 9 * 128
+    a_q, a_s, b_q, b_s = _operands(m, n, k, True, dev, seed=splits)
+    for out_dtype, close in ((torch.bfloat16, assert_bf16_close),
+                             (torch.float32, assert_f32_close)):
+        got = fp8mod._launch(a_q, a_s, b_q, b_s.t(), fp8mod._SHIFT, True,
+                             out_dtype, plan=("ring", tile, splits))
+        ref = fp8mod.fp8_gemm_plain(a_q, a_s, b_q, b_s.t(), b_t=True,
+                                    out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        close(got, ref)
+
+
+def _masked_operands(m_max, loads, dev, seed):
+    e, n, k = len(loads), 256, 384
+    g = _gen(seed, dev)
+    a_q, a_s = quant.quantize_fp8_act(
+        torch.randn(e, m_max, k, generator=g, device=dev))
+    b_q, b_s = quant.quantize_fp8_weight(
+        torch.randn(e, n, k, generator=g, device=dev) / k ** 0.5)
+    masked_m = torch.tensor(loads, dtype=torch.int32, device=dev)
+    return a_q, a_s, b_q, b_s, masked_m
+
+
+@pytest.mark.parametrize("m_max", [96, 400, 1100])
+@pytest.mark.parametrize("tile", [None, 0, 1])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_masked_ring_equals_tile_bit_for_bit(dev, m_max, tile,
+                                                     out_dtype):
+    """K3 on every ring tile (None: the wrapper's own) against the tile
+    route on the same weights stored (E, k, n), with masked_m of 0, 1, 15,
+    16, 64 and every row: the valid rows equal bit for bit, and every tile
+    at or past masked_m[e] zero on both routes."""
+    loads = [0, 1, 15, 16, 64, m_max]
+    a_q, a_s, b_q, b_s, masked_m = _masked_operands(m_max, loads, dev,
+                                                    seed=m_max)
+    b_kn = b_q.transpose(1, 2).contiguous()
+    assert ggmod.route(a_q, b_q, "t") == "ring"
+    assert ggmod.route(a_q, b_kn, "n") == "tile"
+    want = ggmod.m_grouped_gemm_masked(a_q, a_s, b_kn,
+                                       b_s.transpose(1, 2).contiguous(),
+                                       masked_m, b_layout="n",
+                                       out_dtype=out_dtype)
+    plan = None if tile is None else ("ring", tile)
+    got = ggmod._launch(a_q, a_s, b_q, b_s.transpose(1, 2), fp8mod._SHIFT,
+                        masked_m, True, out_dtype, plan=plan)
+    torch.cuda.synchronize()
+    bm = fp8mod.RING_TILES[ggmod.ring_tile(m_max) if tile is None
+                           else tile][0]
+    for e, rows in enumerate(loads):
+        assert torch.equal(got[e, :rows], want[e, :rows]), e
+        assert bool((got[e, -(-rows // bm) * bm:] == 0).all()), e
+        assert bool((want[e, -(-rows // 64) * 64:] == 0).all()), e
+
+
+def test_fp8_entries_refuse_what_they_cannot_run(dev):
+    """K1's and K3's C entries refuse the ring for B stored (k, n) and for
+    an operand TMA cannot describe (a pointer off 16 bytes), an unknown
+    route, tile or split count, and a split on the tile route; the tile
+    route takes B stored (k, n). K8's wrapper refuses an offset A."""
+    m, n, k = 16, 256, 512
+    a_q, a_s, b_q, b_s = _operands(m, n, k, True, dev, seed=11)
+    bs = b_s.t()
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    entry = _kernels.entry("fp8_gemm")
+    stream = _kernels.stream_ptr(dev)
+    flat = torch.zeros(m * k + 1, dtype=torch.uint8, device=dev)
+    shifted = flat[1:].view(m, k).view(a_q.dtype)
+    shifted.copy_(a_q)
+    assert fp8mod.route(shifted, b_q, "t") == "tile"
+    b_kn = b_q.t().contiguous()
+    bs_kn = bs.contiguous()
+
+    def args(a, b, strides, scales):
+        return (a.data_ptr(), a_s.data_ptr(), b.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), m, n, k, *strides, scales.stride(0),
+                scales.stride(1), fp8mod._SHIFT, 0)
+
+    assert entry(*args(a_q, b_kn, (n, 1), bs_kn), 1, 0, 1, stream) != 0
+    assert entry(*args(a_q, b_kn, (n, 1), bs_kn), 0, 0, 1, stream) == 0
+    torch.cuda.synchronize()
+    assert_bf16_close(out, fp8mod.fp8_gemm_plain(a_q, a_s, b_kn, bs_kn))
+    # The offset A: the ring refuses it before any launch, and the wrapper
+    # raises (the tile route reads A in 16-byte words too).
+    assert entry(*args(shifted, b_q, (1, k), bs), 1, 0, 1, stream) != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        fp8mod.fp8_gemm(shifted, a_s, b_q, b_s, b_layout="t")
+    ok = args(a_q, b_q, (1, k), bs)
+    assert entry(*ok, 1, 0, 1, stream) == 0
+    for bad in ((2, 0, 1), (1, 2, 1), (1, -1, 1), (1, 0, 0), (1, 0, 9),
+                (0, 0, 2)):
+        assert entry(*ok, *bad, stream) != 0, bad
+    torch.cuda.synchronize()
+    # K3: the ring refuses B stored (E, k, n); the tile route takes it.
+    a3, as3, b3, bs3, mm = _masked_operands(32, [5, 32], dev, seed=12)
+    b3_kn = b3.transpose(1, 2).contiguous()
+    bs3_kn = bs3.transpose(1, 2).contiguous()
+    out3 = torch.empty(2, 32, n, dtype=torch.bfloat16, device=dev)
+    k3 = _kernels.entry("grouped_gemm")
+    kk = a3.shape[-1]
+    args3 = (a3.data_ptr(), as3.data_ptr(), b3_kn.data_ptr(),
+             bs3_kn.data_ptr(), mm.data_ptr(), out3.data_ptr(), 2, 32, n, kk,
+             b3_kn.stride(0), n, 1, bs3_kn.stride(0), bs3_kn.stride(1),
+             bs3_kn.stride(2), fp8mod._SHIFT, 0)
+    assert k3(*args3, 1, 0, stream) != 0
+    assert k3(*args3, 2, 0, stream) != 0
+    assert k3(*args3, 0, 0, stream) == 0
+    torch.cuda.synchronize()
+    # K8 reads A in 16-byte words as the tile route does: an offset A
+    # raises before any launch, and the aligned one still runs.
+    a8, as8, b8, bs8, gids = _contiguous_operands(128, True, dev, 13)
+    flat8 = torch.zeros(a8.numel() + 1, dtype=torch.uint8, device=dev)
+    a8_off = flat8[1:].view(a8.shape).view(a8.dtype)
+    a8_off.copy_(a8)
+    with pytest.raises(ValueError, match="16-byte"):
+        ggmod.m_grouped_gemm_contiguous(a8_off, as8, b8, bs8, gids,
+                                        b_layout="t")
+    ggmod.m_grouped_gemm_contiguous(a8, as8, b8, bs8, gids, b_layout="t")
+    torch.cuda.synchronize()
+
+
 def _int8_operands(a_shape, b_shape, b_t, dev, seed):
     """Per-token int8 activations and per-channel int8 weights; B given as
     (…, k, n), or (…, n, k) for b_t."""

@@ -17,8 +17,8 @@ import torch
 from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.scripts import (headline, k12_fold_ablation,
                                                ksplit_sweep, layer_bench,
-                                               profile_kernel, serve_bench,
-                                               straggler_probe)
+                                               profile_kernel, ring_sweep,
+                                               serve_bench, straggler_probe)
 
 CPU = ["--device", "cpu"]
 T_KW = dict(iters=2, repeats=1, min_chain_seconds=0.0)
@@ -157,6 +157,8 @@ def test_entry_points_default_to_cuda():
         k12_fold_ablation.main([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ksplit_sweep.main(["--m", "16", "--nk", "512x2048"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ring_sweep.main(["--k1", "16x512x2048", "--k3"])
 
 
 def test_k12_ablation_swaps_only_k12_entry():
