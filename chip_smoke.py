@@ -48,7 +48,17 @@ Phases, each of which raises on failure (exit code ≠ 0):
    shapes plus a start before 0 and one past the cache, held the same way,
    whose acc / l must equal K4's output and whose empty rows must be
    exactly (0, -1e30, 0). K2 also at V3_STYLE's GQA group 8 (16 kv heads),
-   which layer_bench runs. The dispatch probe P0 bit for bit against its
+   which layer_bench runs, and at phase 4's lengths (16..1056 keys in a
+   4096-key cache). Every K2 row shows its route (``route=live/<blocks>``:
+   the grid of ``flash_decode.live_blocks``), its time on route "span"
+   (the design before, same inputs, ``span_ms``), and ``prev_ms``; every
+   K6 row its route and tile (``ops.int8_gemm.masked_plan`` from the MoE
+   layer's ``expected_m``: ring 16x64 at decode, wgmma 64x64 at a
+   128-token prefill forward, wgmma 128x256 at a 2048-token chunk) and
+   ``prev_ms``; K6 also on the same weights stored (E, k, n), route
+   int8_tile, at V2_LITE's decode shape, held bit for bit against the
+   route the hint picks for the K-major weights (``ring_equals_tile``).
+   The dispatch probe P0 bit for bit against its
    plain version (a copy), beside ``Tensor.clone``, and the launch floor it
    measures (device and host µs per launch, through the wrapper and through
    the bare ctypes entry). Then every kernel of phase 7 at the shapes its
@@ -71,7 +81,8 @@ Phases, each of which raises on failure (exit code ≠ 0):
    The kernel counters are zeroed just before each run and read just after:
    each run must have launched exactly its own kernel set (fp8: K1, K2,
    K3, K4; int8: K1, K2, K4, K6), and no plain version may have run;
-   K1 and K3 must have launched on ring plans only (their wrappers'
+   K1 and K3 must have launched on ring plans only, K2 on route "live"
+   only and K6 on its "ring" or "wgmma" routes only (their wrappers'
    ``Counter.plans``, printed by plan here and in phases 5-7).
    Then one more decode step of that state, five times unprofiled (host
    clock) and once under ``torch.profiler`` (device time, launches);
@@ -251,6 +262,11 @@ KERNELS = {
 FP8_PATH = {"fp8_gemm", "grouped_gemm", "flash_decode", "flash_prefill"}
 INT8_PATH = {"fp8_gemm", "int8_grouped_masked", "flash_decode",
              "flash_prefill"}
+# The routes serving must launch them on, by their wrappers' plan labels:
+# K1 and K3 on the TMA ring, K2 on "live", K6 on "ring" or "wgmma".
+SERVING_ROUTES = {"fp8_gemm": ("ring",), "grouped_gemm": ("ring",),
+                  "flash_decode": ("live/",),
+                  "int8_grouped_masked": ("ring", "wgmma")}
 # ... and the kernels of the compat API's run (phase 5).
 COMPAT_PATH = {"gemm", "gemm_ksplit", "grouped_gemm_contiguous", "fp8_gemm",
                "grouped_gemm"}
@@ -399,6 +415,35 @@ PREV_MS = {
         "E=8 cap=512 valid_rows=19 n=4096 k=7168": 0.1579,
         "E=8 cap=512 valid_rows=19 n=7168 k=2048": 0.1055,
     },
+    # K2's (route span) and K6's (int8_tile) before their redesign: the
+    # mean of the two runs of this script's phase 2 on the tree before it
+    # in one scripts/phase2_ab.py call beside two on the redesign (cold
+    # ms; NVIDIA H100 80GB HBM3, 700.00 W); the serving-length K2 row,
+    # which that tree lacks, from its span_ms in the redesign's two runs
+    # (the same kernel on the same inputs).
+    "flash_decode": {
+        "b=16 kvh=4 g=4 S=4096 sum_len=34911": 0.0878,
+        "b=16 kvh=16 g=1 S=4096 sum_len=35489": 0.1262,
+        "b=16 kvh=16 g=8 S=4096 sum_len=29067": 0.1751,
+        "b=16 kvh=4 g=4 S=4096 sum_len=8848 lengths=serving": 0.0706,
+        "b=64 kvh=4 g=4 S=4096 sum_len=118269": 0.1251,
+        "b=16 kvh=4 g=4 S=80 sum_len=663": 0.0233,
+        "b=16 kvh=4 g=4 S=104 sum_len=859": 0.0252,
+        "b=64 kvh=16 g=1 S=2048 sum_len=73752": 0.2128,
+        "b=64 kvh=16 g=8 S=2048 sum_len=73752": 0.3754,
+    },
+    "int8_grouped_masked": {
+        "E=32 cap=96 valid_rows=96 n=2816 k=2048": 0.1115,
+        "E=32 cap=96 valid_rows=96 n=2048 k=1408": 0.0685,
+        "E=32 cap=12288 valid_rows=12288 n=2816 k=2048": 1.3914,
+        "E=32 cap=12288 valid_rows=12288 n=2048 k=1408": 0.9461,
+        "E=64 cap=96 valid_rows=96 n=2816 k=2048": 0.1767,
+        "E=64 cap=96 valid_rows=96 n=2048 k=1408": 0.0977,
+        "E=64 cap=384 valid_rows=384 n=2816 k=2048": 0.2532,
+        "E=64 cap=384 valid_rows=384 n=2048 k=1408": 0.1528,
+        "E=8 cap=512 valid_rows=19 n=4096 k=7168": 0.1717,
+        "E=8 cap=512 valid_rows=19 n=7168 k=2048": 0.0989,
+    },
     "fp8_gemm_folded": {
         "m=64 n=512 k=2048 b_layout=t": 0.0377,
         "m=16 n=2048 k=2048 b_layout=t": 0.0376,
@@ -479,9 +524,10 @@ def phase_device() -> dict:
 
 
 def sm90_instances(logs: dict) -> list:
-    """Stack, spills and registers of every instance of the Hopper main
-    loop's kernels (K10's and K11's wgmma route, K12, K7's wgmma route),
-    from nvcc's -Xptxas -v, under
+    """Stack, spills and registers of every instance of the Hopper kernels
+    (K10's and K11's wgmma route, K12, K7's wgmma route, K1's and K3's
+    ring, K6's ring and wgmma routes, K2's live route), from nvcc's
+    -Xptxas -v, under
     their mangled names (the template arguments: tile, stages, layout
     flags, types)."""
     out = []
@@ -490,7 +536,8 @@ def sm90_instances(logs: dict) -> list:
         for i, ln in enumerate(lines):
             if "Compiling entry function" in ln and any(
                     kern in ln for kern in ("gemm_sm90", "folded_sm90",
-                                            "int8_sm90", "ring_kernel")):
+                                            "int8_sm90", "ring_kernel",
+                                            "masked_sm90", "live_kernel")):
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 name = ln.split("'")[1]
                 out.append(f"{name}: {props}")
@@ -524,6 +571,18 @@ def launched_plan(counter, run):
     tile, _, splits = plans[0].split()[1].partition("/")
     return out, {"route": "ring", "ring_tile": tile,
                  "splits": int(splits or 1)}
+
+
+def launched_route(counter, run):
+    """Runs ``run`` once: its output and the plan its wrapper counted for
+    the launch, as ``route`` (K2: "live/<blocks>" or "span/<keys>"; K6:
+    "ring 16x64", "wgmma 128x256", "int8_tile")."""
+    counter.plans.clear()
+    out = run()
+    plans = list(counter.plans)
+    if len(plans) != 1:
+        raise RuntimeError(f"{counter.name}: one launch counted {plans}")
+    return out, {"route": plans[0]}
 
 
 def check_fp8_gemm(m: int, n: int, k: int, seed: int,
@@ -726,17 +785,32 @@ def check_int8_gemm(m: int, n: int, k: int, seed: int) -> dict:
 
 
 def check_int8_masked(e: int, tokens: int, n: int, k: int, seed: int,
-                      top_k: int = 6, loads=None) -> dict:
-    """K6, with the capacity and loads of :func:`check_grouped`."""
+                      top_k: int = 6, loads=None, expected_m="mean",
+                      b_layout: str = "t") -> dict:
+    """K6, with the capacity, loads and route hint (the MoE layer's
+    ``expected_m``) of :func:`check_grouped`; its route and tile as its
+    wrapper counted them, and its time before the redesign (``PREV_MS``,
+    quoted). 'n': the same weights stored (E, k, n), route int8_tile,
+    also held bit for bit against the route the hint picks for the 't'
+    weights on the valid rows."""
     cap = tokens * top_k
+    if expected_m == "mean":
+        expected_m = -(-cap // e)
     masked_m = _masked_m(e, tokens, top_k, seed) if loads is None else loads
     e = masked_m.numel()
-    a_q, a_s, b_q, b_s = _int8_operands((e, cap, k), (e, n, k), seed + 1)
+    a_q, a_s, b_nk, b_s = _int8_operands((e, cap, k), (e, n, k), seed + 1)
+    b_q = b_nk if b_layout == "t" else b_nk.transpose(1, 2).contiguous()
     run = lambda: i8mod.m_grouped_int8_gemm_masked(a_q, a_s, b_q, b_s,
-                                                   masked_m, b_layout="t")
-    plain = lambda: i8mod.grouped_masked_plain(a_q, a_s, b_q, b_s, masked_m,
+                                                   masked_m,
+                                                   b_layout=b_layout,
+                                                   expected_m=expected_m)
+    plain = lambda: i8mod.grouped_masked_plain(a_q, a_s, b_nk, b_s, masked_m,
                                                b_t=True)
-    got, ref = run(), plain()
+    got, plan = launched_route(i8mod.K6, run)
+    ref = plain()
+    hinted = (i8mod._launch_masked(a_q, a_s, b_nk, b_s, masked_m, True,
+                                   torch.bfloat16, expected_m=expected_m)
+              if b_layout == "n" else None)
     torch.cuda.synchronize()
     rows = masked_m.tolist()
     ok, err = True, 0.0
@@ -745,15 +819,24 @@ def check_int8_masked(e: int, tokens: int, n: int, k: int, seed: int,
             ok &= torch.equal(got[ei, :r], ref[ei, :r])
             err = max(err, float((got[ei, :r].float()
                                   - ref[ei, :r].float()).abs().max()))
+    extra = {}
+    if hinted is not None:
+        extra["ring_equals_tile"] = all(
+            torch.equal(hinted[ei, :r], got[ei, :r])
+            for ei, r in enumerate(rows))
+        ok &= extra["ring_equals_tile"]
     valid = sum(rows)
     active = sum(1 for r in rows if r)
     nbytes = (valid * (k + 4) + active * (n * k + n * 4) + valid * n * 2
               + e * 4)
     b_ms, b_by = bound_ms(nbytes, 2.0 * valid * n * k, INT8_OPS_PER_S)
-    return {"shape": f"E={e} cap={cap} valid_rows={valid} n={n} k={k}",
-            "ok": ok, "max_abs_err": err, "ms": cold_ms(run),
+    shape = (f"E={e} cap={cap} valid_rows={valid} n={n} k={k}"
+             + ("" if b_layout == "t" else " b=(E, k, n)"))
+    return {"shape": shape, "ok": ok, "max_abs_err": err, "ms": cold_ms(run),
             "plain_ms": cold_ms(plain, reps=3), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, **plan, "expected_m": expected_m, **extra,
+            "prev_ms": PREV_MS["int8_grouped_masked"].get(shape),
+            "library_ms": None,
             "library_note": "none: no PyTorch call runs a masked grouped "
                             "int8 product"}
 
@@ -795,8 +878,18 @@ def _int8_cache(b, kvh, s_max, seed):
     return kq, ks, vq, vs
 
 
+# Phase 4's decode lengths: prompts of 16..1024 tokens and up to 32 new
+# ones (the serving-length K2 row).
+SERVING_LENGTHS = (16, 1024 + 32)
+
+
 def check_flash_decode(kvh: int, g: int, seed: int, b: int = 16,
-                       s_max: int = 4096) -> dict:
+                       s_max: int = 4096, lengths=None) -> dict:
+    """K2 on its own route (``flash_decode.route``: "live" on a grid of
+    ``live_blocks``), against its plain version (output within ATTN_TOL,
+    caches bit for bit), beside route "span" (the design before, timed on
+    the same inputs). Lengths: from 1..S with a fresh, a full and a freed
+    slot, or ``lengths="serving"``: phase 4's."""
     hd = 128
     cache = _int8_cache(b, kvh, s_max, seed)
     gen = _gen(seed + 1)
@@ -808,36 +901,40 @@ def check_flash_decode(kvh: int, g: int, seed: int, b: int = 16,
                           dtype=torch.int8)
     ks_new = torch.rand(b, kvh, generator=gen, device=DEV) * 0.02
     vs_new = torch.rand(b, kvh, generator=gen, device=DEV) * 0.02
-    lens_np = np.random.default_rng(seed).integers(1, s_max + 1, size=b)
-    lens_np[:3] = [1, s_max, s_max]      # a fresh slot, a full and a freed one
+    rng = np.random.default_rng(seed)
+    if lengths == "serving":
+        lens_np = rng.integers(*SERVING_LENGTHS, endpoint=True, size=b)
+    else:
+        lens_np = rng.integers(1, s_max + 1, size=b)
+        lens_np[:3] = [1, s_max, s_max]  # a fresh slot, a full and a freed one
     lens = torch.from_numpy(lens_np.astype(np.int32)).to(DEV)
     kc = [t.clone() for t in cache]
     pc = [t.clone() for t in cache]
-    run = lambda: fdmod.flash_decode_gqa_inplace(q, *kc, k_new, v_new,
-                                                 ks_new, vs_new, lens)[0]
+    sc = [t.clone() for t in cache]
+    new = (k_new, v_new, ks_new, vs_new)
+    run = lambda: fdmod.flash_decode_gqa_inplace(q, *kc, *new, lens)[0]
+    span = lambda: fdmod._launch_inplace(
+        q, *sc, *new, lens, plan=("span", fdmod.SPLIT_KEYS))[0]
     plain = lambda: fdmod.flash_decode_inplace_plain(
-        q, *pc, k_new, v_new, ks_new, vs_new, lens).reshape(b, kvh * g, hd)
-    got, ref = run(), plain()
+        q, *pc, *new, lens).reshape(b, kvh * g, hd)
+    got, plan = launched_route(fdmod.COUNTER, run)
+    ref, by_span = plain(), span()
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    caches_equal = all(torch.equal(x, y) for x, y in zip(kc, pc))
-    # The design question of this kernel: one block per (batch, kv head),
-    # or spans of SPLIT_KEYS keys merged after. Time the former too (a
-    # span stays a multiple of SPLIT_KEYS).
-    split_keys = fdmod.SPLIT_KEYS
-    fdmod.SPLIT_KEYS = round_up(s_max, split_keys)
-    try:
-        one_block_ms = cold_ms(run)
-    finally:
-        fdmod.SPLIT_KEYS = split_keys
+    caches_equal = all(torch.equal(x, y) and torch.equal(z, y)
+                       for x, y, z in zip(kc, pc, sc))
+    span_err = float((by_span - ref).abs().max())
     total = int(np.minimum(lens_np, s_max).sum())
     nbytes = (q.numel() * 2 + kvh * total * (2 * hd + 8)
               + b * kvh * 2 * (2 * hd + 8) + got.numel() * 4 + b * 4)
     b_ms, b_by = bound_ms(nbytes, 4.0 * kvh * g * hd * total, BF16_OPS_PER_S)
-    return {"shape": f"b={b} kvh={kvh} g={g} S={s_max} sum_len={total}",
-            "ok": err < ATTN_TOL and caches_equal, "max_abs_err": err,
-            "caches_equal": caches_equal, "ms": cold_ms(run),
-            "one_block_per_head_ms": one_block_ms,
+    shape = (f"b={b} kvh={kvh} g={g} S={s_max} sum_len={total}"
+             + (" lengths=serving" if lengths == "serving" else ""))
+    return {"shape": shape,
+            "ok": err < ATTN_TOL and span_err < ATTN_TOL and caches_equal,
+            "max_abs_err": err, "caches_equal": caches_equal, **plan,
+            "ms": cold_ms(run), "span_ms": cold_ms(span),
+            "prev_ms": PREV_MS["flash_decode"].get(shape),
             "plain_ms": cold_ms(plain, reps=3), "bound_ms": b_ms,
             "bound_by": b_by}
 
@@ -1265,7 +1362,7 @@ def check_script_shapes(results: dict) -> None:
                 loads=loads, expected_m=-(-b * cfg.top_k // cfg.num_experts)))
             results["int8_grouped_masked"].append(check_int8_masked(
                 cfg.num_experts, b, n, k, seed=123, top_k=cfg.top_k,
-                loads=loads))
+                loads=loads, expected_m=-(-b * cfg.top_k // cfg.num_experts)))
         results["flash_decode"].append(check_flash_decode(
             cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, seed=124,
             b=b, s_max=LAYER_CACHE))
@@ -1294,6 +1391,9 @@ def phase_kernels() -> dict:
     for i, cfg in enumerate((V2_LITE, V2_LITE_FULL, V3_STYLE)):
         results["flash_decode"].append(check_flash_decode(
             cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, seed=i + 1))
+    results["flash_decode"].append(check_flash_decode(
+        V2_LITE.num_kv_heads, V2_LITE.num_heads // V2_LITE.num_kv_heads,
+        seed=1, lengths="serving"))
     for start in (0, 1000):
         results["flash_prefill"].append(check_flash_prefill(start, seed=3))
     for i, (n, k) in enumerate([(2048, 2048), (22016, 2048), (2048, 11008)]):
@@ -1304,11 +1404,18 @@ def phase_kernels() -> dict:
         results["int8_grouped_contiguous"].append(
             check_int8_contiguous(V2_LITE.num_experts, 2048, n, k,
                                   seed=30 + n))
-    for e, tokens in ((V2_LITE.num_experts, 16), (V2_LITE.num_experts, 2048),
+    # Decode (16 slots), a 128-token prefill forward of phase 4 (24 rows an
+    # expert: the 64 x 64 wgmma tile) and one prefill chunk (2048 tokens)
+    # for V2_LITE's 32 experts, and decode for V2_LITE_FULL's 64.
+    for e, tokens in ((V2_LITE.num_experts, 16), (V2_LITE.num_experts, 128),
+                      (V2_LITE.num_experts, 2048),
                       (V2_LITE_FULL.num_experts, 16)):
         for n, k in ((2816, 2048), (2048, 1408)):
             results["int8_grouped_masked"].append(
                 check_int8_masked(e, tokens, n, k, seed=e + tokens + n))
+    # The int8_tile route (weights stored (E, k, n)), against the ring.
+    results["int8_grouped_masked"].append(check_int8_masked(
+        V2_LITE.num_experts, 16, 2816, 2048, seed=10, b_layout="n"))
     # The dense GEMM: V2_LITE's projections at decode and prefill, then the
     # other input types, layouts, a ragged shape and a batch.
     for i, (n, k) in enumerate(LITE_GEMMS):
@@ -1367,8 +1474,8 @@ def phase_kernels() -> dict:
                 f"err={r['max_abs_err']:.3g} ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                 f"({r['bound_by']})"
-                + (f" one-block-per-head ms={r['one_block_per_head_ms']:.4f}"
-                   if "one_block_per_head_ms" in r else "")
+                + (f" span_ms={r['span_ms']:.4f}" if "span_ms" in r
+                   else "")
                 + (f" library_ms={r['library_ms']}" if "library_ms" in r
                    else "")
                 + (f" select_config={r['picked']}" if "picked" in r else "")
@@ -1700,11 +1807,13 @@ def phase_serving(device: dict, experts: str) -> dict:
                            f"expected exactly {sorted(expected)}")
     if any(calls for _, calls in counts.values()):
         raise RuntimeError(f"serving: a plain version ran: {counts}")
-    off_ring = {n: p for n, p in plans.items()
-                if any(not label.startswith("ring") for label in p)}
-    if off_ring:
-        raise RuntimeError(f"serving ({experts}): K1/K3 left the ring: "
-                           f"{off_ring}")
+    off_route = {n: p for n, p in plans.items()
+                 if any(not label.startswith(SERVING_ROUTES[n])
+                        for label in p)}
+    if off_route:
+        raise RuntimeError(f"serving ({experts}): a kernel left its route "
+                           f"{ {n: SERVING_ROUTES[n] for n in off_route} }: "
+                           f"{off_route}")
     profile = _profile_decode_step(eng)
     return {"run": experts, "wall_s": wall, "setup_s": setup_s,
             "prefill_tok_s": prefill_tps, "profile": profile,

@@ -3,38 +3,41 @@
 // Replace three kernels of deepgemm_ascend_tpu/ops/flash_decode.py. For one
 // query token per sequence each attends cache rows [0, seq_len) of its kv
 // head:
-//   K2  _kernel_inplace -> dga_flash_decode_inplace: row seq_len-1 is the
-//       new token's K/V row and scale (spliced in from k_new/v_new/k_snew/
-//       v_snew, never read back from the cache), and that row and its kv
-//       head's scale are written into the four cache arrays in place. Only
-//       one block per (batch, kv head) writes, and no block reads what it
-//       writes (the reads of that row take the spliced inputs), so the
-//       writes cannot race; the TPU kernel's idempotent whole-slab scale
-//       write is not needed here.
+//   K2  _kernel_inplace (:251) -> dga_flash_decode_inplace: row seq_len-1
+//       is the new token's K/V row and scale (taken from k_new/v_new/
+//       k_snew/v_snew, never read back from the cache), and that row and
+//       its kv head's scale are written into the four cache arrays in
+//       place, by one block per (batch, kv head) once no block reads that
+//       cache any more; the TPU kernel's idempotent whole-slab scale write
+//       is not needed here.
 //   K5a _kernel -> dga_flash_decode_read: the same attention, read only,
 //       normalized output.
 //   K5b _kernel_state -> dga_flash_decode_state: read only; the merge
 //       writes the raw state (acc, m, l) instead of acc / l. An empty
 //       sequence gives (0, -1e30, 0).
-// One span kernel, templated on WRITE (splice and write, or read only),
-// and one merge kernel, templated on STATE.
 //
-// Design: the keys of each (batch, kv head) are split into spans of
-// split_len keys, one block of 128 threads per span (16 slots x 4 kv heads
-// alone would leave most of the 132 SMs idle); a span past seq_len leaves
-// the empty state at once. The G query rows of the GQA group share every K/V byte a block
-// reads. Per chunk of 128 keys: thread j scores key j against all G rows
-// (CUDA-core f32 FMAs of exact bf16 x int8 values), one warp per row runs
-// the online softmax (flash_common.cuh), then thread d accumulates output
-// column d. Each block leaves its unnormalized (acc, m, l) in scratch; a
-// second kernel merges the spans: M = max m_i, l = sum l_i e^(m_i-M),
-// acc = sum acc_i e^(m_i-M), and out = acc / l (K2, K5a) or (acc, M, l) (K5b).
-// With split_len >= S this is the one-block-per-(batch, kv head) design.
+// Bound on the card: the cache bytes of the live keys (seq_len x (2 hd + 8)
+// bytes per kv head), at decode a few to tens of MB: at the phase-2 V2_LITE
+// shape 0.0111 ms at 3.35 TB/s.
 //
-// Bound on the card: cache bytes (seq_len x hd x 2 int8 per kv head). Left
-// for later: V is read one byte per thread, and nothing overlaps loads with
-// math.
+// Two routes (ops/flash_decode.py: ROUTES):
+//   "span" (K5a, K5b; K2 only where the caches are off 16 bytes): the keys
+//     of each (batch, kv head) split into spans of split_len keys, one
+//     block of 128 threads per span, however many keys are live; per chunk
+//     of 128 keys thread j scores key j against the G rows on the CUDA
+//     cores, one warp per row runs the online softmax (flash_common.cuh),
+//     then thread d accumulates column d reading V a byte a thread, key
+//     after key; nothing overlaps loads with math. A second kernel merges
+//     the spans: M = max m_i, l = sum l_i e^(m_i-M), acc = sum acc_i
+//     e^(m_i-M), and out = acc / l (K5a) or (acc, M, l) (K5b). One span
+//     kernel, templated on WRITE, and one merge kernel, on STATE.
+//   "live" (K2's decode path): the live keys of all sequences dealt over a
+//     grid fixed by the shapes, a TMA ring, and both products on the
+//     tensor cores, with the merge done by the last block of each (batch,
+//     kv head) to finish. Its design note is at namespace live below.
+
 #include "flash_common.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -187,6 +190,563 @@ flash_decode_merge_kernel(const float* __restrict__ part,
   }
 }
 
+// ------------------------------------------------------------ route "live"
+//
+// K2's route for the decode path (ops/flash_decode.py: route, live_blocks,
+// live_plan). The grid is fixed by (b, kvh, S) alone, so the wrapper reads
+// nothing back: one block per (batch, kv head) and LIVE_BLOCKS_PER_SM per
+// SM more. Every block reads all the lengths on the card (plan_scan) and
+// finds its (batch, kv head) and its share of that head's live keys: the
+// ceil(len / kChunk) chunks of each head dealt to nb blocks, nb in
+// proportion to its chunks (a quota of ceil(C / spare blocks) chunks a
+// block, C all heads' live chunks), so that a 16-key sequence and a
+// 4096-key one each cost their own chunks, and a head's blocks differ by
+// at most one chunk (block_range). Blocks past the plan leave at once;
+// an empty sequence's one block writes zeros.
+//
+// A block: one producer warp keeps kStages chunks in flight (TMA boxes of
+// 64 K rows and 64 V rows, 128-byte swizzle, from 3-D maps with batch =
+// (batch, kv head); its lanes copy the chunk's k and v scales beside them
+// by cp.async); four consumer warps each take 16 keys of every chunk and
+// keep their own online softmax (m, l, acc), merged in shared memory when
+// the block is done into one partial state per block. The last block of a
+// (batch, kv head) to finish (an arrival count it resets) merges that
+// head's partial states in block order, writes out, and writes the new
+// token's row into the cache; a head with one block writes out directly. A warp runs both products on the tensor cores,
+// mma.sync m16n8k16 bf16 with f32 sums, the reference's arithmetic (JAX
+// casts the int8 K and V to bf16 and runs bf16 dots into f32): every int8
+// value is exact in bf16 (s8x2_to_bf16x2), so each product is exact and
+// only the order of the f32 sums differs from the plain version.
+//   scores  S (query rows x 16 keys) = Q (the G rows padded to 16) . K^T:
+//           Q's fragments are built once into shared memory (registers
+//           kept for three blocks an SM); K's come
+//           from the swizzled stage as 32 bytes of a key row a thread (the
+//           head dimension permuted alike in Q and K, which changes no
+//           product);
+//   softmax per query row over the warp's 16 keys, in the log2 domain
+//           (s * log2 e, so e^(s - m) is one ex2): the running max across
+//           the four threads of a row (two shuffles), p = e^(s - m), and
+//           w = bf16(p * v_scale) against that running max (the rounding
+//           point of flash_common.cuh); masked keys give w = 0;
+//   PV      acc (rows x hd) += W . V: S's accumulator fragments are W's A
+//           fragments as they stand; V's B fragments are 16 bytes of four
+//           key rows a thread, paired across rows with byte_perm.
+// The new token's row (seq_len - 1) is read from k_new / v_new / k_snew /
+// v_snew by the thread that would read it from the stage, and written into
+// the cache by the merging block, after every block of its (batch, kv
+// head) has read that cache: no TMA read can race with that store.
+// Registers cap the block at 136 (three blocks an SM, 3 x kStages x 16 KB
+// in flight); the score k steps run in two chains of four, and acc is
+// rescaled only where a row's max moved.
+namespace live {
+
+namespace s9 = dga::sm90;
+
+constexpr int kChunk = 64;                  // keys a stage
+constexpr int kWarps = 4;                   // consumer warps, 16 keys of each stage each
+constexpr int kStages = 4;
+constexpr int kThreads = (kWarps + 1) * 32;
+constexpr int kKV = kChunk * kHD;           // bytes of K (and of V) a stage
+constexpr int kStage = 2 * kKV;
+constexpr int kScales = 2 * kChunk;         // a stage's k scales, then its v scales
+constexpr int kQFrags = 8 * 32 * 16;        // Q's A fragments, every lane's
+constexpr int kSmem = kStages * kStage + kStages * kScales * 4 + 2 * kStages * 8 + kQFrags + 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kWarps * 16 * (kHD + 2) * 4 <= kStages * kStage, "the warps' states fit the ring");
+
+constexpr int kMaxSplits = 256;             // the fused merge's weights fit the ring
+static_assert((2 * kMaxSplits * 16 + 32) * 4 <= kStages * kStage, "");
+
+struct Args {
+  const __nv_bfloat16* q;
+  int8_t* kq;
+  float* ks;
+  int8_t* vq;
+  float* vs;
+  const int8_t* k_new;
+  const int8_t* v_new;
+  const float* ks_new;
+  const float* vs_new;
+  const int* seq_lens;
+  float* part;
+  float* out;
+  int* arrivals;     // per (batch, kv head), zero between launches
+  int b, kvh, S;
+  int blocks;        // the grid: at least b * kvh + 1
+  float scale;
+};
+
+__device__ __forceinline__ int clamp_len(const int* seq_lens, int b, int S) {
+  return min(max(seq_lens[b], 0), S);
+}
+
+__device__ __forceinline__ int chunks_of(int len) { return (len + kChunk - 1) / kChunk; }
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The plan (ops/flash_decode.py: live_plan), read from the lengths on the
+// card by every block: with C the live chunks of all (batch, kv head)s and
+// A = blocks - b * kvh, each head of sequence b takes
+// nb_b = min(kMaxSplits, max(1, ceil(chunks_b / ceil(C / A)))) blocks, in
+// the order (b, h, split); sum_b kvh * nb_b <= C / ceil(C / A) + b * kvh
+// <= blocks. Fills sh[kW..] with (sequence, first block, nb) of block
+// `want_block` (sequence -1 if it has none). sh: kW + 3 ints, kW the
+// block's warps.
+__device__ void plan_scan(const Args& p, int* sh, int want_block) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int threads = blockDim.x, kW = threads / 32;
+  int c = 0;
+  for (int i = tid; i < p.b; i += threads) c += chunks_of(clamp_len(p.seq_lens, i, p.S));
+  c = warp_sum_int(c);
+  if (lane == 0) sh[warp] = c;
+  if (tid == 0) sh[kW] = -1;
+  __syncthreads();
+  long long total = 0;
+  for (int w = 0; w < kW; ++w) total += sh[w];
+  total *= p.kvh;
+  const long long avail = p.blocks - (long long)p.b * p.kvh;
+  const int quota = (int)max(1ll, (total + avail - 1) / avail);
+  __syncthreads();
+  int carry = 0;
+  for (int base = 0; base < p.b; base += threads) {
+    const int i = base + tid;
+    const int nb = i < p.b ? min(kMaxSplits,
+                                 max(1, (chunks_of(clamp_len(p.seq_lens, i, p.S)) + quota - 1) /
+                                            quota))
+                           : 0;
+    const int v = nb * p.kvh;
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) sh[warp] = incl;
+    __syncthreads();
+    int start = carry + incl - v, tile = 0;
+    for (int w = 0; w < kW; ++w) {
+      if (w < warp) start += sh[w];
+      tile += sh[w];
+    }
+    if (i < p.b && want_block >= start && want_block < start + v) {
+      sh[kW] = i;
+      sh[kW + 1] = start;
+      sh[kW + 2] = nb;
+    }
+    carry += tile;
+    __syncthreads();
+  }
+}
+
+// Chunks [c0, c0 + nc) of block `split` of `splits` over `len` keys.
+__device__ __forceinline__ void block_range(int len, int split, int splits, int& c0, int& nc) {
+  const int chunks = (len + kChunk - 1) / kChunk;
+  const int base = chunks / splits, rem = chunks % splits;
+  c0 = split * base + min(split, rem);
+  nc = base + (split < rem ? 1 : 0);
+}
+
+// Bytes 0 and 2 of w, int8, as an exact bf16x2 (byte 0 in the low half):
+// 0x4300 | (x & 0x7f) is 128 + (x & 0x7f), 0x4300 | (x & 0x80) is 128 or
+// 256 by the sign, and their difference, x, is exact in one fma.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w) {
+  const uint32_t a = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t b = (w & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(b), "r"(0xBF80BF80u), "r"(a));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 16 bytes of logical chunk `ch` of row `r` of a 128-byte-swizzled
+// tile (eight rows x four threads of a warp's loads hit distinct banks).
+__device__ __forceinline__ uint4 ld_tile(const uint8_t* tile, int r, int ch) {
+  return *reinterpret_cast<const uint4*>(tile + r * kHD + ((ch ^ (r & 7)) << 4));
+}
+
+// 2^x (ex2.approx: 2 ulp); the kernel keeps its scores and maxima in the
+// log2 domain, s * log2(e), so that e^(s - m) is one instruction.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Writes the new token's row of (batch, kv head) bh into the cache: every
+// block that reads this cache has read it (the row itself came from
+// k_new / v_new), so nothing races with these stores.
+__device__ __forceinline__ void write_new_row(const Args& p, int bh, int len) {
+  const size_t row = (size_t)bh * p.S + len - 1;
+  for (int i = threadIdx.x; i < kHD; i += blockDim.x) {
+    p.kq[row * kHD + i] = p.k_new[(size_t)bh * kHD + i];
+    p.vq[row * kHD + i] = p.v_new[(size_t)bh * kHD + i];
+  }
+  if (threadIdx.x == 0) {
+    p.ks[row] = p.ks_new[bh];
+    p.vs[row] = p.vs_new[bh];
+  }
+}
+
+// Grid (blocks). Each block with keys leaves its unnormalized state, per
+// query row [acc (kHD), m, l], at part[blockIdx.x]; the last block of a
+// (batch, kv head) to finish (an arrival count that it resets) merges the
+// states into out and writes the new row.
+template <int G>
+__global__ void __launch_bounds__(kThreads, 3)
+    live_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                Args p) {
+  static_assert(G <= 16, "the query rows fill one m16 fragment");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = s9::aligned_smem(smem_raw);
+  float* scales = reinterpret_cast<float*>(ring + kStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scales + kStages * kScales);
+  uint64_t* empty = full + kStages;
+  uint4* qsm = reinterpret_cast<uint4*>(empty + kStages);   // [8 k steps][32 lanes]
+  __shared__ int sh[kThreads / 32 + 3];
+  plan_scan(p, sh, blockIdx.x);
+  constexpr int kW = kThreads / 32;
+  if (sh[kW] < 0) return;   // past the plan's blocks
+  const int b = sh[kW], first = sh[kW + 1], nb = sh[kW + 2];
+  const int h = (blockIdx.x - first) / nb, split = (blockIdx.x - first) % nb;
+  const int bh = b * p.kvh + h;
+  const int len = clamp_len(p.seq_lens, b, p.S);
+  int c0, nc;
+  block_range(len, split, nb, c0, nc);
+  if (nc == 0) {
+    // An empty sequence (its one block) attends nothing: zeros.
+    for (int i = threadIdx.x; i < G * kHD; i += kThreads) p.out[(size_t)bh * G * kHD + i] = 0.f;
+    return;
+  }
+  const int pos = len - 1;
+  const int t_end = min(len, (c0 + nc) * kChunk);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      s9::mbar_init(&full[i], 33);   // the producer's expect_tx, each lane's scale copies
+      s9::mbar_init(&empty[i], kWarps);
+    }
+    s9::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // acc of rows gid (v = 0, 1) and gid + 8 (v = 2, 3), head dim
+  // 16 * (2t + (v & 1)) + j; the running max and sum of both rows.
+  float o[16][4];
+  float m_run[2] = {dga::kNegInf, dga::kNegInf}, l_run[2] = {0.f, 0.f};
+  if (warp == kWarps) {
+    const float* ks = p.ks + (size_t)bh * p.S;
+    const float* vs = p.vs + (size_t)bh * p.S;
+    for (int j = 0; j < nc; ++j) {
+      const int s = j % kStages;
+      const int key0 = (c0 + j) * kChunk;
+      if (lane == 0) {
+        s9::mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        s9::mbar_expect_tx(&full[s], kStage);
+        uint8_t* st = ring + s * kStage;
+        s9::tma_load(st, &tk, &full[s], 0, key0, bh);
+        s9::tma_load(st + kKV, &tv, &full[s], 0, key0, bh);
+      }
+      __syncwarp();
+      float* ss = scales + s * kScales;
+#pragma unroll
+      for (int i = 0; i < kScales / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int key = key0 + (idx & (kChunk - 1));
+        const bool in = key < p.S;
+        s9::copy4_async(ss + idx, (idx < kChunk ? ks : vs) + (in ? key : 0), in);
+      }
+      s9::arrive_after_copies(&full[s]);
+    }
+  } else {
+    // Q's A fragments (k step ks: slots 2t, 2t+1 hold head dims
+    // 32t + 4ks + {0, 2}, slots 2t+8, 2t+9 hold 32t + 4ks + {1, 3}), built
+    // once by warp 0 into shared memory, where each lane reads its own.
+    if (warp == 0) {
+      uint32_t w[2][16];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = gid + 8 * half;
+        const uint4* src =
+            reinterpret_cast<const uint4*>(p.q + ((size_t)bh * G + r) * kHD + 32 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint4 v = r < G ? src[i] : make_uint4(0u, 0u, 0u, 0u);
+          w[half][4 * i] = v.x;
+          w[half][4 * i + 1] = v.y;
+          w[half][4 * i + 2] = v.z;
+          w[half][4 * i + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        qsm[ks * 32 + lane] = make_uint4(__byte_perm(w[0][2 * ks], w[0][2 * ks + 1], 0x5410),
+                                         __byte_perm(w[1][2 * ks], w[1][2 * ks + 1], 0x5410),
+                                         __byte_perm(w[0][2 * ks], w[0][2 * ks + 1], 0x7632),
+                                         __byte_perm(w[1][2 * ks], w[1][2 * ks + 1], 0x7632));
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWarps * 32) : "memory");
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) o[jj][v] = 0.f;
+    const int8_t* kn = p.k_new + (size_t)bh * kHD;
+    const int8_t* vn = p.v_new + (size_t)bh * kHD;
+    const float k_snew = p.ks_new[bh], v_snew = p.vs_new[bh];
+    const float scale2 = p.scale * kLog2e;
+
+    for (int j = 0; j < nc; ++j) {
+      const int s = j % kStages;
+      s9::mbar_wait(&full[s], (j / kStages) & 1);
+      const int kb = (c0 + j) * kChunk + 16 * warp;   // the warp's first key
+      if (kb >= t_end) {
+        __syncwarp();
+        if (lane == 0) s9::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint8_t* kt = ring + s * kStage;
+      const uint8_t* vt = kt + kKV;
+      const float* ss = scales + s * kScales + 16 * warp;
+      // The scales of keys kb + 8nt + 2t + e (row pos: the new token's).
+      float kscale[2][2], vscale[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rel = 8 * nt + 2 * t + e;
+          const bool cur = kb + rel == pos;
+          kscale[nt][e] = cur ? k_snew : ss[rel];
+          vscale[nt][e] = cur ? v_snew : ss[kChunk + rel];
+        }
+      // Scores of the warp's 16 keys (n-tile nt: keys 8nt .. 8nt + 7), in
+      // the log2 domain: s * log2(e).
+      float sc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int rel = 8 * nt + gid;
+        uint4 k0, k1;
+        if (kb + rel == pos) {
+          k0 = reinterpret_cast<const uint4*>(kn)[2 * t];
+          k1 = reinterpret_cast<const uint4*>(kn)[2 * t + 1];
+        } else {
+          k0 = ld_tile(kt, 16 * warp + rel, 2 * t);
+          k1 = ld_tile(kt, 16 * warp + rel, 2 * t + 1);
+        }
+        const uint32_t wk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+        // Two chains of four k steps, summed: half the dependent latency.
+        float odd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) sc[nt][v] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 8; ks += 2) {
+          const uint4 qe = qsm[ks * 32 + lane], qo = qsm[(ks + 1) * 32 + lane];
+          const uint32_t ae[4] = {qe.x, qe.y, qe.z, qe.w}, ao[4] = {qo.x, qo.y, qo.z, qo.w};
+          mma_bf16(sc[nt], ae, s8x2_to_bf16x2(wk[ks]), s8x2_to_bf16x2(wk[ks] >> 8));
+          mma_bf16(odd, ao, s8x2_to_bf16x2(wk[ks + 1]), s8x2_to_bf16x2(wk[ks + 1] >> 8));
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) sc[nt][v] += odd[v];
+      }
+      // V's words (rows 2t, 2t+1, 2t+8, 2t+9 of the warp's keys, head dims
+      // 16 gid .. 16 gid + 15), then the slot back to the producer.
+      uint4 vw[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rel = 2 * t + (i & 1) + 8 * (i >> 1);
+        vw[i] = kb + rel == pos ? reinterpret_cast<const uint4*>(vn)[gid]
+                                : ld_tile(vt, 16 * warp + rel, gid);
+      }
+      __syncwarp();
+      if (lane == 0) s9::mbar_arrive(&empty[s]);
+
+      // Online softmax: c[v] is row gid + 8 (v >> 1), key kb + 8nt + 2t + (v & 1).
+      float mx[2] = {dga::kNegInf, dga::kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int key = kb + 8 * nt + 2 * t + (v & 1);
+          sc[nt][v] = key < t_end ? sc[nt][v] * (kscale[nt][v & 1] * scale2) : dga::kNegInf;
+          mx[v >> 1] = fmaxf(mx[v >> 1], sc[nt][v]);
+        }
+      float alpha[2], sum[2] = {0.f, 0.f};
+      bool live[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float m_new = fmaxf(m_run[hh], quad_max(mx[hh]));
+        alpha[hh] = ex2(m_run[hh] - m_new);
+        live[hh] = m_new > dga::kNegInf * 0.5f;
+        m_run[hh] = m_new;
+      }
+      float wv[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int hh = v >> 1;
+          const float pv = live[hh] ? ex2(sc[nt][v] - m_run[hh]) : 0.f;
+          sum[hh] += pv;
+          const int key = kb + 8 * nt + 2 * t + (v & 1);
+          wv[nt][v] = key < t_end ? dga::round_bf16(pv * vscale[nt][v & 1]) : 0.f;
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + quad_sum(sum[hh]);
+      const uint32_t wa[4] = {pack_bf16x2(wv[0][0], wv[0][1]), pack_bf16x2(wv[0][2], wv[0][3]),
+                              pack_bf16x2(wv[1][0], wv[1][1]), pack_bf16x2(wv[1][2], wv[1][3])};
+      // acc *= alpha, skipped where no row's max moved (most chunks).
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          o[jj][0] *= alpha[0];
+          o[jj][1] *= alpha[0];
+          o[jj][2] *= alpha[1];
+          o[jj][3] *= alpha[1];
+        }
+      }
+      // PV: n-tile jj, column gid is head dim 16 gid + jj.
+      const uint32_t* x0 = reinterpret_cast<const uint32_t*>(&vw[0]);
+      const uint32_t* x1 = reinterpret_cast<const uint32_t*>(&vw[1]);
+      const uint32_t* x2 = reinterpret_cast<const uint32_t*>(&vw[2]);
+      const uint32_t* x3 = reinterpret_cast<const uint32_t*>(&vw[3]);
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const uint32_t sel = (jj & 3) | ((4 + (jj & 3)) << 8);
+        mma_bf16(o[jj], wa, s8x2_to_bf16x2(__byte_perm(x0[jj >> 2], x1[jj >> 2], sel)),
+                 s8x2_to_bf16x2(__byte_perm(x2[jj >> 2], x3[jj >> 2], sel)));
+      }
+    }
+  }
+
+  // Every stage has been read: the ring takes the warps' states
+  // [warp][16 rows][acc (kHD), m, l], which thread d then merges for
+  // column d of each query row.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+  if (warp < kWarps) {
+    float* mine = red + warp * 16 * (kHD + 2);
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        mine[(gid + 8 * (v >> 1)) * (kHD + 2) + 16 * (2 * t + (v & 1)) + jj] = o[jj][v];
+    if (t == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mine[(gid + 8 * hh) * (kHD + 2) + kHD] = m_run[hh];
+        mine[(gid + 8 * hh) * (kHD + 2) + kHD + 1] = l_run[hh];
+      }
+    }
+  }
+  __syncthreads();
+  // A (batch, kv head) with this one block: its state is the whole.
+  const bool alone = nb == 1;
+  if (threadIdx.x < kHD) {
+    const int d = threadIdx.x;
+    float* out = p.part + (size_t)blockIdx.x * G * (kHD + 2);
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      float mm = dga::kNegInf;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, red[(w * 16 + r) * (kHD + 2) + kHD]);
+      float a = 0.f, l = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* st = red + (w * 16 + r) * (kHD + 2);
+        const float e = ex2(st[kHD] - mm);
+        a += st[d] * e;
+        l += st[kHD + 1] * e;
+      }
+      if (alone) {
+        p.out[((size_t)bh * G + r) * kHD + d] = dga::finalize(a, l);
+        continue;
+      }
+      out[r * (kHD + 2) + d] = a;
+      if (d == 0) {
+        out[r * (kHD + 2) + kHD] = mm;
+        out[r * (kHD + 2) + kHD + 1] = l;
+      }
+    }
+  }
+  if (alone) {
+    write_new_row(p, bh, len);
+    return;
+  }
+
+  // Arrive; the last block of this (batch, kv head) goes on.
+  __shared__ int last;
+  const int n_live = nb;   // every block of a non-empty sequence holds keys
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(&p.arrivals[bh], 1) == n_live - 1;
+    if (last) p.arrivals[bh] = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The merge, all threads at once: the blocks' (m, l) into shared
+  // memory, each row's max M and sum L, each block's weight e^(m - M),
+  // then out[r][d] = sum_s acc_s[r][d] * w_s / L over the blocks in order.
+  const float* base = p.part + ((size_t)first + (size_t)h * nb) * G * (kHD + 2);
+  float* sm = red;                        // [n_live * G]
+  float* sl = sm + kMaxSplits * G;        // [n_live * G]
+  float* srow = sl + kMaxSplits * G;      // M then L, [G] each
+  for (int i = threadIdx.x; i < n_live * G; i += kThreads) {
+    sm[i] = __ldcg(base + i * (kHD + 2) + kHD);
+    sl[i] = __ldcg(base + i * (kHD + 2) + kHD + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < G) {
+    const int r = threadIdx.x;
+    float mm = dga::kNegInf;
+    for (int s = 0; s < n_live; ++s) mm = fmaxf(mm, sm[s * G + r]);
+    float l = 0.f;
+    for (int s = 0; s < n_live; ++s) l += sl[s * G + r] * ex2(sm[s * G + r] - mm);
+    srow[r] = mm;
+    srow[G + r] = l;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_live * G; i += kThreads) sm[i] = ex2(sm[i] - srow[i % G]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * kHD; i += kThreads) {
+    const int r = i / kHD, d = i % kHD;
+    float a = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_live; ++s) a += __ldcg(base + (s * G + r) * (kHD + 2) + d) * sm[s * G + r];
+    p.out[((size_t)bh * G + r) * kHD + d] = dga::finalize(a, srow[G + r]);
+  }
+  write_new_row(p, bh, len);
+}
+
+}  // namespace live
+
 struct Args {
   const void* q;
   void *kq, *ks, *vq, *vs;
@@ -211,6 +771,47 @@ void launch(const Args& a, cudaStream_t stream) {
       static_cast<float*>(a.m), static_cast<float*>(a.l), n_split);
 }
 
+// K2 on route "live": maps of the K and V caches ((b * kvh) x S rows of
+// kHD bytes, boxes of kChunk rows), then the launch.
+template <int G>
+int launch_live(const Args& a, int blocks, void* arrivals, cudaStream_t s) {
+  namespace s9 = dga::sm90;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint64_t heads = (uint64_t)a.b * a.kvh;
+  CUtensorMap tk, tv;
+  int rc = s9::make_map(&tk, u8, 1, a.kq, kHD, a.S, heads, kHD, (uint64_t)a.S * kHD, kHD,
+                        live::kChunk, sw);
+  if (rc) return rc;
+  rc = s9::make_map(&tv, u8, 1, a.vq, kHD, a.S, heads, kHD, (uint64_t)a.S * kHD, kHD,
+                    live::kChunk, sw);
+  if (rc) return rc;
+  const live::Args p{static_cast<const __nv_bfloat16*>(a.q), static_cast<int8_t*>(a.kq),
+                     static_cast<float*>(a.ks), static_cast<int8_t*>(a.vq),
+                     static_cast<float*>(a.vs), static_cast<const int8_t*>(a.k_new),
+                     static_cast<const int8_t*>(a.v_new), static_cast<const float*>(a.ks_new),
+                     static_cast<const float*>(a.vs_new), static_cast<const int*>(a.seq_lens),
+                     static_cast<float*>(a.part), static_cast<float*>(a.out),
+                     static_cast<int*>(arrivals), a.b, a.kvh, a.S, blocks, a.scale};
+  return s9::launch<live::live_kernel<G>>(dim3(blocks), live::kThreads, live::kSmem, s, tk, tv,
+                                          p);
+}
+
+int dispatch_live(const Args& a, int g, int hd, int blocks, void* arrivals, void* stream) {
+  if (hd != kHD || a.b <= 0 || a.b > 65535 || a.kvh <= 0 || a.kvh > 65535 || a.S <= 0 ||
+      blocks <= (long long)a.b * a.kvh || !arrivals)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (g) {
+    case 1: return launch_live<1>(a, blocks, arrivals, s);
+    case 2: return launch_live<2>(a, blocks, arrivals, s);
+    case 4: return launch_live<4>(a, blocks, arrivals, s);
+    case 8: return launch_live<8>(a, blocks, arrivals, s);
+    case 16: return launch_live<16>(a, blocks, arrivals, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool WRITE, bool STATE>
 int dispatch(const Args& a, int g, int hd, void* stream) {
   if (hd != kHD || a.b <= 0 || a.kvh <= 0 || a.S <= 0 || a.split_len <= 0 ||
@@ -230,16 +831,25 @@ int dispatch(const Args& a, int g, int hd, void* stream) {
 
 }  // namespace
 
-// part (all three): scratch of b * kvh * ceil(S / split_len) * g * (hd + 2)
-// floats.
-// K2: out (b, kvh, g, hd) f32; writes the new rows into the caches.
+// part (K5a, K5b, K2 on route 0): scratch of b * kvh * ceil(S / split_len)
+// * g * (hd + 2) floats.
+// K2: out (b, kvh, g, hd) f32; writes the new rows into the caches. Route
+// 0, "span": `split` is the span's keys, as K5a/K5b. Route 1, "live": a
+// grid of `split` blocks (more than b * kvh), part holds
+// split * g * (hd + 2) floats, `arrivals` b * kvh ints that are zero,
+// that the launch leaves zero and that no launch running beside it uses
+// (the wrapper keeps one buffer per stream), and the caches and k_new /
+// v_new must be 16-byte aligned (TMA and 16-byte loads; the map refuses a
+// cache that is not).
 extern "C" int dga_flash_decode_inplace(
     const void* q, void* kq, void* ks, void* vq, void* vs, const void* k_new,
     const void* v_new, const void* ks_new, const void* vs_new,
-    const void* seq_lens, void* part, void* out, int b, int kvh, int g, int S,
-    int hd, int split_len, float scale, void* stream) {
+    const void* seq_lens, void* part, void* out, void* arrivals, int b, int kvh,
+    int g, int S, int hd, int route, int split, float scale, void* stream) {
   const Args a{q, kq, ks, vq, vs, k_new, v_new, ks_new, vs_new, seq_lens,
-               part, out, nullptr, nullptr, b, kvh, S, split_len, scale};
+               part, out, nullptr, nullptr, b, kvh, S, split, scale};
+  if (route == 1) return dispatch_live(a, g, hd, split, arrivals, stream);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   return dispatch<true, false>(a, g, hd, stream);
 }
 

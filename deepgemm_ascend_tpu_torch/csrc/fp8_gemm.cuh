@@ -318,20 +318,6 @@ __device__ __forceinline__ float4 load_remote(const float4* local, uint32_t rank
   return v;
 }
 
-// 4 bytes from global src to shared dst, asynchronously (cp.async); zeros
-// when !valid (src is not read).
-__device__ __forceinline__ void copy4_async(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s9::smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// An arrival on bar once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void arrive_after_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(s9::smem_u32(bar))
-               : "memory");
-}
-
 // Zeros over rows [m0, min(m0 + BM, m)) x columns [n0, n0 + BN) of c, in
 // 16-byte stores by the `threads` threads numbered from 0 (n is a multiple
 // of BN, c 16-byte aligned).
@@ -520,14 +506,14 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
           if (idx < T::BM) {
             // 0 past m, as gemm_tile.
             const bool in = t0 + idx < p.m;
-            copy4_async(ss + idx, a_s + (size_t)(in ? t0 + idx : 0) * k_blocks + g, in);
+            s9::copy4_async(ss + idx, a_s + (size_t)(in ? t0 + idx : 0) * k_blocks + g, in);
           } else {
             const int col = n0 + idx - T::BM;
-            copy4_async(ss + idx,
+            s9::copy4_async(ss + idx,
                         b_s + (size_t)g * p.bs_g + (size_t)(col >> p.bs_shift) * p.bs_n, true);
           }
         }
-        arrive_after_copies(&full[s]);
+        s9::arrive_after_copies(&full[s]);
       }
     }
   } else {

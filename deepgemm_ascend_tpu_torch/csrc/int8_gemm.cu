@@ -13,8 +13,9 @@
 //       the 64-row kernel tiles inside each, so a kernel tile never spans two
 //       experts whatever block_m is; an expert id of -1 stores zeros and
 //       loads nothing;
-//   K6: grid z walks the experts; a tile whose first row is at or past
-//       masked_m[e] stores zeros and returns before any load, as K3 does.
+//   K6 (route int8_tile): grid z walks the experts; a tile whose first
+//       row is at or past masked_m[e] stores zeros and returns before any
+//       load, as K3 does.
 //
 // Numerics. mma.sync m16n8k32 s8 x s8 -> s32 sums exactly, in any order, so
 // the int32 accumulators are held across the whole K loop and a permutation
@@ -49,12 +50,33 @@
 //     128 x 256 where those fill the card, else 64 x 64, two blocks an SM
 //     (m <= 64: 344 tiles at n = 22016). wgmma reads 8-bit operands
 //     K-major only, so B stored (k, n) cannot take this route.
-//   route 0, "int8_tile" (every layout and shape; K9 and K6 always): the
-//     simple design below: 64 x 64 tiles, 4 warps of 32 x 32, 128-deep K
-//     steps staged in shared memory through registers (the next step's
-//     global loads are in flight during this step's math; no cp.async/TMA
-//     ring), mma.sync at a fraction of the wgmma s8 rate. Idle masked tiles
-//     still cost a block and a zero store each.
+//   route 0, "int8_tile" (every layout and shape; K9 always, K6 with B
+//     stored (k, n)): the simple design below: 64 x 64 tiles, 4 warps of
+//     32 x 32, 128-deep K steps staged in shared memory through registers
+//     (the next step's global loads are in flight during this step's math;
+//     no cp.async/TMA ring), mma.sync at a fraction of the wgmma s8 rate.
+//     Idle masked tiles cost a block and a zero store each.
+//
+// K6 (_int8_masked_kernel, :371) with B stored K-major takes one of two
+// routes by the rows an expert is expected to hold (ops/int8_gemm.py:
+// masked_plan, from the MoE layer's expected_m), both over 3-D TMA maps
+// with batch = expert, both with CTAs that walk the m-tiles of their
+// (expert, n-tile) (ceil(m-tiles / 8) CTAs of them) and zero the tiles
+// past masked_m[e], which load nothing:
+//   route 1, "ring" (decode: <= 16 rows an expert): 16 x 64 tiles, a ring
+//     of six 128-deep stages (16 A rows and 64 B rows of 128 bytes,
+//     128-byte swizzle) fed by a producer warp, four consumer warps of
+//     16 x 16 running mma.sync m16n8k32 s8 into int32 accumulators held
+//     over the whole K loop, then int8_tile's epilogue. Bound on the card:
+//     the weight bytes of the active experts (0.052 ms at V2_LITE's decode
+//     shape).
+//   route 2, "wgmma" (beyond): K7's main loop, 64 x 64 tiles up to 64
+//     rows an expert and 128 x 256 beyond (the crossovers that
+//     scripts/decode_sweep.py measures), the ring carried
+//     from tile to tile of a CTA (produce / mma_loop from stage `it`).
+//     At prefill (6T rows an expert, ~T/E valid) the zero stores of the
+//     buffer and the operand reads together bound it (DRAM).
+// The sums are exact, so every route equals the plain version bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -455,6 +477,252 @@ int tile_int8_sm90(const void* a, const void* a_s, const void* b, const void* b_
   return run_int8_sm90<64, 64, 6, OutT>(a, a_s, b, b_s, c, m, n, k, ldb, s);
 }
 
+// ------------------------------------------------------ K6's routes 1 and 2
+
+struct MaskedArgs {
+  void* c;               // (E, m, n), row-major
+  const float* a_s;      // (E, m)
+  const float* b_s;      // (E, n)
+  const int* masked_m;   // the valid rows of expert e
+  int m, n;              // m: M_max
+  int kb;                // 128-deep K stages
+};
+
+// K6's CTAs walk the m-tiles y, y + Y, ... of their (expert, n-tile), Y =
+// ceil(m-tiles / kTilesPerCta): the tiles past masked_m[e] (most of the
+// buffer) are zeroed by the CTA that walks them, after its valid tiles,
+// which come first and are spread over the Y CTAs.
+constexpr int kTilesPerCta = 8;
+
+int walkers(int tiles_m) { return (tiles_m + kTilesPerCta - 1) / kTilesPerCta; }
+
+// Zeros over rows [r0, r1) x columns [c0, c1) of c (n columns), by the
+// `threads` threads numbered from `tid`: 16-byte stores where the row
+// pitch and c0 allow them, else one element at a time.
+template <typename OutT>
+__device__ void zero_block(OutT* c, int n, int r0, int r1, int c0, int c1, int tid, int threads) {
+  constexpr int kVec = 16 / (int)sizeof(OutT);
+  if (n % kVec == 0 && c0 % kVec == 0) {
+    const int per_row = (c1 - c0) / kVec;
+    for (int i = tid; i < (r1 - r0) * per_row; i += threads)
+      *reinterpret_cast<uint4*>(c + (size_t)(r0 + i / per_row) * n + c0 + (i % per_row) * kVec) =
+          make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    const int w = c1 - c0;
+    for (int i = tid; i < (r1 - r0) * w; i += threads)
+      s9::store1(c + (size_t)(r0 + i / w) * n + c0 + i % w, 0.f);
+  }
+}
+
+// Route 1, "ring" (decode: a few rows an expert): 16 x 64 tiles, a TMA
+// ring of kStages 128-deep stages (16 A rows and 64 B rows of 128 bytes,
+// 128-byte swizzle, 3-D maps with batch = expert) fed by a producer warp;
+// four consumer warps of 16 x 16 run mma.sync m16n8k32 s8 into int32
+// accumulators held over the whole K loop, then int8_tile's epilogue.
+namespace ring8 {
+
+constexpr int kBM = 16, kBN = 64, kWarps = 4, kStages = 6;
+constexpr int kThreads = (kWarps + 1) * 32;
+constexpr int kA = kBM * 128, kB = kBN * 128, kStage = kA + kB;
+constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
+static_assert(kA % 1024 == 0, "B's box starts on the swizzle period");
+
+// The word at byte kk (a multiple of 4) of row r of a 128-byte-swizzled
+// box: eight rows x four threads of a warp hit 32 distinct banks.
+__device__ __forceinline__ uint32_t ld_sw(const uint8_t* box, int r, int kk) {
+  return *reinterpret_cast<const uint32_t*>(box + r * 128 + (((kk >> 4) ^ (r & 7)) << 4) +
+                                            (kk & 15));
+}
+
+// Grid (ceil(n / kBN), walkers, E). Threads: the consumer warps, then the
+// producer warp.
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 3)
+    masked_ring_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb, MaskedArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = s9::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kBN, e = blockIdx.z;
+  const int tiles_m = (p.m + kBM - 1) / kBM;
+  const int rows = min(p.masked_m[e], p.m);
+  OutT* c = static_cast<OutT*>(p.c) + (size_t)e * p.m * p.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  s9::init_ring<kStages>(full, empty, kWarps);
+  __syncthreads();
+  if (warp == kWarps) {
+    if (lane == 0) {
+      int j = 0;
+      for (int mt = blockIdx.y; mt < tiles_m && mt * kBM < rows; mt += gridDim.y)
+        for (int g = 0; g < p.kb; ++g, ++j) {
+          const int s = j % kStages;
+          s9::mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+          s9::mbar_expect_tx(&full[s], kStage);
+          uint8_t* st = ring + s * kStage;
+          s9::tma_load(st, &ta, &full[s], g * 128, mt * kBM, e);
+          s9::tma_load(st + kA, &tb, &full[s], g * 128, n0, e);
+        }
+    }
+    return;
+  }
+  const int gid = lane >> 2, t = lane & 3;
+  const int cb = warp * 16;   // the warp's columns in the tile
+  int j = 0;
+  for (int mt = blockIdx.y; mt < tiles_m; mt += gridDim.y) {
+    const int m0 = mt * kBM;
+    if (m0 >= rows) {
+      zero_block(c, p.n, m0, min(m0 + kBM, p.m), n0, min(n0 + kBN, p.n), threadIdx.x,
+                 kWarps * 32);
+      continue;
+    }
+    int acc[2][4] = {};
+    for (int g = 0; g < p.kb; ++g, ++j) {
+      const int s = j % kStages;
+      s9::mbar_wait(&full[s], (j / kStages) & 1);
+      const uint8_t* sa = ring + s * kStage;
+      const uint8_t* sb = sa + kA;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int kk = 32 * ks + 4 * t;
+        const uint32_t a[4] = {ld_sw(sa, gid, kk), ld_sw(sa, gid + 8, kk),
+                               ld_sw(sa, gid, kk + 16), ld_sw(sa, gid + 8, kk + 16)};
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+          const int col = cb + 8 * jn + gid;
+          const uint32_t b[2] = {ld_sw(sb, col, kk), ld_sw(sb, col, kk + 16)};
+          mma_s8(acc[jn], a, b);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) s9::mbar_arrive(&empty[s]);
+    }
+    // int8_tile's epilogue: (acc * a_s) * b_s, rows past M_max dropped.
+    const int r = m0 + gid;
+    const float s_lo = r < p.m ? p.a_s[(size_t)e * p.m + r] : 0.f;
+    const float s_hi = r + 8 < p.m ? p.a_s[(size_t)e * p.m + r + 8] : 0.f;
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int col = n0 + cb + 8 * jn + 2 * t;
+      const float b0 = col < p.n ? p.b_s[(size_t)e * p.n + col] : 0.f;
+      const float b1 = col + 1 < p.n ? p.b_s[(size_t)e * p.n + col + 1] : 0.f;
+      if (r < p.m)
+        store_cols(c + (size_t)r * p.n, col, p.n, s9::dequant(acc[jn][0], s_lo, b0),
+                   s9::dequant(acc[jn][1], s_lo, b1));
+      if (r + 8 < p.m)
+        store_cols(c + (size_t)(r + 8) * p.n, col, p.n, s9::dequant(acc[jn][2], s_hi, b0),
+                   s9::dequant(acc[jn][3], s_hi, b1));
+    }
+  }
+}
+
+}  // namespace ring8
+
+// Route 2, "wgmma" (prefill: many rows an expert): K7's Hopper main loop
+// (8-bit stages, wgmma s8) over 3-D maps with batch = expert; a CTA walks
+// its valid m-tiles with one ring (produce / mma_loop from stage `it` on),
+// then zeroes the rest. At prefill most of the (E, 6T, n) buffer is zeros
+// past masked_m: the kernel is bound by those stores and the operand reads
+// together (DRAM; scripts/decode_sweep.py times Tensor.zero_ beside it).
+template <int BM, int BN, int STAGES, typename OutT>
+__global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 64 ? 2 : 1)
+    int8_masked_sm90_kernel(const __grid_constant__ CUtensorMap ta,
+                            const __grid_constant__ CUtensorMap tb, MaskedArgs p) {
+  using R = s9::Ring<BM, BN, STAGES>;
+  constexpr int kConsumers = BM / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = s9::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::kBytes);
+  uint64_t* empty = full + STAGES;
+  const int n0 = blockIdx.x * BN, e = blockIdx.z;
+  const int tiles_m = (p.m + BM - 1) / BM;
+  const int rows = min(p.masked_m[e], p.m);
+  OutT* c = static_cast<OutT*>(p.c) + (size_t)e * p.m * p.n;
+  const int wg = threadIdx.x / 128;
+  // The CTA's tiles: blockIdx.y + j * gridDim.y for j < mine; the first
+  // `valid` of them hold rows below masked_m[e] (spread over the CTAs).
+  const int mine = (tiles_m - (int)blockIdx.y + (int)gridDim.y - 1) / (int)gridDim.y;
+  const int valid =
+      min(mine, max(0, ((rows + BM - 1) / BM - (int)blockIdx.y + (int)gridDim.y - 1) /
+                           (int)gridDim.y));
+  s9::init_ring<STAGES>(full, empty, kConsumers);
+  __syncthreads();
+  if (wg == kConsumers) {
+    if constexpr (kConsumers == 2) s9::regs_dec<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      for (int j = 0; j < valid; ++j)
+        s9::produce<int8_t, BM, BN, STAGES, false, false>(ring, full, empty, &ta, &tb,
+                                                          (blockIdx.y + j * gridDim.y) * BM, n0,
+                                                          e, 0, p.kb, j * p.kb);
+    }
+  } else {
+    if constexpr (kConsumers == 2) s9::regs_inc<232>();
+    const int tid = threadIdx.x & 127;
+    for (int j = 0; j < mine; ++j) {
+      const int m0 = (blockIdx.y + j * gridDim.y) * BM, it = j * p.kb;
+      if (j >= valid) {
+        const int r0 = min(m0 + wg * 64, p.m);
+        zero_block(c, p.n, r0, min(r0 + 64, p.m), n0, min(n0 + BN, p.n), tid, 128);
+        continue;
+      }
+      int acc[BN / 2];
+      s9::mma_loop<int8_t, BM, BN, STAGES, false, false>(acc, ring, full, empty, p.kb, wg,
+                                                         [](int) {}, it);
+      if (tid == 0) s9::mbar_arrive(&empty[(it + p.kb - 1) % STAGES]);
+      s9::store_tile_scaled<BN>(acc, c, p.a_s + (size_t)e * p.m, p.b_s + (size_t)e * p.n, p.m,
+                                p.n, m0 + wg * 64, n0);
+    }
+  }
+}
+
+// Maps of A (E, m, k) and B (E, n, k, expert pitch b_e) as bytes, 128-byte
+// boxes of K, then the launch of `kernel` over (ceil(n / BN), walkers, E).
+template <int BM, int BN>
+int masked_maps(CUtensorMap* ta, CUtensorMap* tb, const void* a, const void* b, long long b_e,
+                int e, int k, const MaskedArgs& p) {
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const int rc = s9::make_map(ta, u8, 1, a, k, p.m, e, k, (uint64_t)p.m * k, 128, BM, sw);
+  return rc ? rc : s9::make_map(tb, u8, 1, b, k, p.n, e, k, b_e, 128, BN, sw);
+}
+
+template <int BM, int BN>
+dim3 masked_grid(int e, const MaskedArgs& p) {
+  return dim3((p.n + BN - 1) / BN, walkers((p.m + BM - 1) / BM), e);
+}
+
+template <typename OutT>
+int run_masked_ring(const void* a, const void* b, long long b_e, int e, int k,
+                    const MaskedArgs& p, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  const int rc = masked_maps<ring8::kBM, ring8::kBN>(&ta, &tb, a, b, b_e, e, k, p);
+  if (rc) return rc;
+  return s9::launch<ring8::masked_ring_kernel<OutT>>(masked_grid<ring8::kBM, ring8::kBN>(e, p),
+                                                      ring8::kThreads, ring8::kSmem, s, ta, tb,
+                                                      p);
+}
+
+template <int BM, int BN, int STAGES, typename OutT>
+int run_masked_sm90(const void* a, const void* b, long long b_e, int e, int k,
+                    const MaskedArgs& p, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  const int rc = masked_maps<BM, BN>(&ta, &tb, a, b, b_e, e, k, p);
+  if (rc) return rc;
+  return s9::launch<int8_masked_sm90_kernel<BM, BN, STAGES, OutT>>(
+      masked_grid<BM, BN>(e, p), (BM / 64 + 1) * 128, s9::Ring<BM, BN, STAGES>::kSmem, s, ta, tb,
+      p);
+}
+
+// K6 on route 1 (tile ignored) or 2 (tile 0: 64 x 64, tile 1: 128 x 256).
+template <typename OutT>
+int run_masked(int route, int tile, const void* a, const void* b, long long b_e, int e, int k,
+               const MaskedArgs& p, cudaStream_t s) {
+  if (route == 1) return run_masked_ring<OutT>(a, b, b_e, e, k, p, s);
+  if (tile == 0) return run_masked_sm90<64, 64, 6, OutT>(a, b, b_e, e, k, p, s);
+  if (tile == 1) return run_masked_sm90<128, 256, 4, OutT>(a, b, b_e, e, k, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // K7: c (m, n) = (a . b) * a_s * b_s, bf16 or f32 (out_f32); B's strides
@@ -492,13 +760,26 @@ extern "C" int dga_int8_grouped_contiguous(const void* a, const void* a_s, const
   return (int)cudaGetLastError();
 }
 
+// K6 on route 0 (int8_tile), 1 (ring) or 2 (wgmma, `tile` 0 or 1); routes
+// 1 and 2 take B K-major (sbk == 1) only, and the tensor maps refuse what
+// TMA cannot describe.
 extern "C" int dga_int8_grouped_masked(const void* a, const void* a_s, const void* b,
                                        const void* b_s, const void* masked_m, void* c, int e,
                                        int m_max, int n, int k, long long b_e, long long sbk,
-                                       long long sbn, int out_f32, void* stream) {
+                                       long long sbn, int out_f32, int route, int tile,
+                                       void* stream) {
   if (e <= 0 || e > kMaxGridY || m_max <= 0 || n <= 0 || k <= 0 ||
       (m_max + kBM - 1) / kBM > kMaxGridY)
     return (int)cudaErrorInvalidValue;
+  if (route == 1 || route == 2) {
+    if (sbk != 1 || sbn != k) return (int)cudaErrorInvalidValue;
+    const MaskedArgs p{c, static_cast<const float*>(a_s), static_cast<const float*>(b_s),
+                       static_cast<const int*>(masked_m), m_max, n, (k + 127) / 128};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return out_f32 ? run_masked<float>(route, tile, a, b, b_e, e, k, p, s)
+                   : run_masked<__nv_bfloat16>(route, tile, a, b, b_e, e, k, p, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   const Args p = make_args(a, a_s, b, b_s, n, k, sbk, sbn, b_e);
   dispatch<MaskedLaunch>(sbk == 1, out_f32, p, static_cast<const int*>(masked_m), e, m_max,
                          b_e, c, static_cast<cudaStream_t>(stream));

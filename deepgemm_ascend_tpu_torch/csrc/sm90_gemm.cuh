@@ -1,6 +1,9 @@
 // Hopper (sm_90a) GEMM main loop shared by the dense GEMM and split-K GEMM
 // (gemm.cu, K10 and K11), the folded-scale FP8 GEMM (fp8_gemm.cu, K12) and
-// the dense W8A8 int8 GEMM (int8_gemm.cu, K7).
+// the W8A8 int8 GEMMs (int8_gemm.cu: K7, and K6's wgmma route, whose CTAs
+// carry one ring across several tiles); its TMA, mbarrier and cp.async
+// pieces also serve the TMA rings of fp8_gemm.cuh (K1, K3), K6's ring
+// route and K2's live route (flash_decode.cu).
 //
 // The pieces, each written once and generic in the element size:
 //   * TMA tensor maps (cuTensorMapEncodeTiled, reached through
@@ -176,6 +179,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 4 bytes from global src to shared dst, asynchronously (cp.async); zeros
+// when !valid (src is not read).
+__device__ __forceinline__ void copy4_async(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// An arrival on bar once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void arrive_after_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // Generic-proxy writes to shared memory made visible to wgmma (async proxy).
@@ -374,15 +391,18 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int c
 // K (kStageK<T> elements each) of the tile at (m0, n0) of batch element
 // `batch`, by TMA into the ring, each once its slot is empty. An operand
 // stored K-major is one box (K inner); an MN-major one (16-bit only) is
-// 64-column panels (MN inner).
+// 64-column panels (MN inner). `it0`: stages this ring has already
+// carried (a block that walks several tiles), which sets the first slot
+// and its phase.
 template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN>
 __device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t* empty,
                                         const CUtensorMap* ta, const CUtensorMap* tb, int m0,
-                                        int n0, int batch, int kb_begin, int kb_count) {
+                                        int n0, int batch, int kb_begin, int kb_count,
+                                        int it0 = 0) {
   using R = Ring<BM, BN, STAGES>;
   static_assert(sizeof(T) == 2 || !(A_MN || B_MN), "8-bit operands are K-major only");
-  int s = 0;
-  uint32_t phase = 0;
+  int s = it0 % STAGES;
+  uint32_t phase = (it0 / STAGES) & 1;
   for (int kb = 0; kb < kb_count; ++kb) {
     const int k0 = (kb_begin + kb) * kStageK<T>;
     mbar_wait(&empty[s], phase ^ 1);
@@ -416,11 +436,14 @@ __device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t*
 // stage once its products are done (one arrival per warpgroup on
 // `empty`). issued(kb) runs once stage kb's products are issued, while
 // they run (K12 folds the next stage's A there). Acc is float for 16-bit
-// T, int for int8; acc is zero when nk is 0.
+// T, int for int8; acc is zero when nk is 0. `it0` as in produce. The last
+// stage is not handed back: a block that walks on to another tile arrives
+// on its empty barrier itself.
 template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN, typename Acc,
           typename Issued>
 __device__ __forceinline__ void mma_loop(Acc (&acc)[BN / 2], const uint8_t* ring, uint64_t* full,
-                                         uint64_t* empty, int nk, int wg, Issued issued) {
+                                         uint64_t* empty, int nk, int wg, Issued issued,
+                                         int it0 = 0) {
   using R = Ring<BM, BN, STAGES>;
   constexpr bool kS8 = std::is_same<T, int8_t>::value;
   static_assert(kS8 == std::is_same<Acc, int>::value, "s32 accumulators for int8 only");
@@ -429,8 +452,8 @@ __device__ __forceinline__ void mma_loop(Acc (&acc)[BN / 2], const uint8_t* ring
   const bool leader = (threadIdx.x & 127) == 0;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
-  int s = 0, prev = 0;
-  uint32_t phase = 0;
+  int s = it0 % STAGES, prev = s;
+  uint32_t phase = (it0 / STAGES) & 1;
   for (int kb = 0; kb < nk; ++kb) {
     mbar_wait(&full[s], phase);
     const uint32_t a = base + s * R::kStage, b = a + R::kA;

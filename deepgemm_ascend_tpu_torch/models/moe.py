@@ -268,15 +268,15 @@ def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
 
     # Expert SwiGLU through the masked grouped GEMM of the experts' type:
     # fp8 blockwise (K3) or W8A8 int8 with per-token scales (K6).
+    # The rows an expert holds on average picks K3's tile and K6's route.
     exp = params.experts
     if isinstance(exp, Int8ExpertWeights):
         quantize = lambda t: quant.quantize_int8(t, axis=-1)  # (E, cap, 1)
         gemm = i8.m_grouped_int8_gemm_masked
     else:
-        # The rows an expert holds on average picks K3's tile.
         quantize = quant.quantize_fp8_act
-        gemm = functools.partial(gg.m_grouped_gemm_masked,
-                                 expected_m=-(-t * cfg.top_k // e_total))
+        gemm = gg.m_grouped_gemm_masked
+    gemm = functools.partial(gemm, expected_m=-(-t * cfg.top_k // e_total))
     a_q, a_s = quantize(buf)
     del buf
     h = gemm(a_q, a_s, exp.w1_q, exp.w1_s, masked_m, b_layout="t")

@@ -70,9 +70,9 @@ KERNELS = {
                                 + [_I, _I, _P]),
     "gemm": ("gemm", "dga_gemm", [_P, _P, _P] + [_I] * 10 + [_P]),
     "gemm_ksplit": ("gemm", "dga_gemm_ksplit", [_P, _P, _P] + [_I] * 8 + [_P]),
+    # K2 also takes its arrival counts and its route.
     "flash_decode": ("flash_decode", "dga_flash_decode_inplace",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _F, _P]),
+                     [_P] * 13 + [_I] * 7 + [_F, _P]),
     "flash_prefill": ("flash_prefill", "dga_flash_prefill",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _F, _P]),
@@ -86,8 +86,9 @@ KERNELS = {
                   [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P]),
     "int8_grouped_contiguous": ("int8_gemm", "dga_int8_grouped_contiguous",
                                 _INT8_GROUPED),
+    # K6 also takes its route and tile.
     "int8_grouped_masked": ("int8_gemm", "dga_int8_grouped_masked",
-                            _INT8_GROUPED),
+                            _INT8_GROUPED[:-1] + [_I, _I, _P]),
     "copy_probe": ("dispatch_probe", "dga_copy_probe", [_P, _P, _I, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))

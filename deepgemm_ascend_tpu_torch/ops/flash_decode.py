@@ -13,12 +13,18 @@ per sequence each op attends cache rows [0, seq_len) of its kv head, with
   online-softmax state ``(acc, m, l)`` so that a caller can merge further
   terms exactly (an empty sequence gives m = NEG_INF, l = 0).
 
-On a CUDA tensor the wrappers launch ``csrc/flash_decode.cu`` (one block
-per span of :data:`SPLIT_KEYS` keys of each (batch, kv head), then a merge
-of the spans that normalizes, or for K5b writes the merged state); on a
-CPU tensor they run the plain versions beside them. K2 updates the caches
-passed in and returns them (the JAX package returns new arrays through
-aliased outputs).
+On a CUDA tensor the wrappers launch ``csrc/flash_decode.cu``; on a CPU
+tensor they run the plain versions beside them. K5a and K5b take route
+"span": one block per span of :data:`SPLIT_KEYS` keys of each (batch, kv
+head), then a merge of the spans that normalizes, or for K5b writes the
+merged state. K2 takes route "live" (:func:`route`): a grid of
+:func:`live_blocks` blocks, fixed by the shapes, which read the lengths on
+the card and share the live keys of all sequences out in proportion to
+their lengths (:func:`live_plan`, :func:`live_block_range`), each through
+a TMA ring and the tensor cores; the last block of each (batch, kv head)
+to finish merges its blocks and writes the new row. Nothing is read back
+to the host. K2 updates the caches passed in and returns them
+(the JAX package returns new arrays through aliased outputs).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import math
 
 import torch
 
+from ..tiling import platform
 from . import _kernels
 from .flash_common import (NEG_INF, check_cuda_geometry, softmax_pv,
                            softmax_state)
@@ -34,7 +41,8 @@ from .flash_common import (NEG_INF, check_cuda_geometry, softmax_pv,
 __all__ = ["flash_decode_gqa", "flash_decode_gqa_state",
            "flash_decode_gqa_inplace", "flash_decode_plain",
            "flash_decode_state_plain", "flash_decode_inplace_plain",
-           "merge_current_token"]
+           "merge_current_token", "route", "live_blocks", "live_plan",
+           "live_block_range"]
 
 COUNTER = _kernels.COUNTERS["flash_decode"]
 READ_COUNTER = _kernels.COUNTERS["flash_decode_read"]
@@ -43,6 +51,82 @@ STATE_COUNTER = _kernels.COUNTERS["flash_decode_state"]
 # 16 slots x 4 kv heads alone would give 64 blocks to 132 SMs, so longer
 # caches are split into spans that run in parallel and are merged after.
 SPLIT_KEYS = 512
+# K2's routes, as the C entry numbers them.
+ROUTES = ("span", "live")
+# Route "live": keys a stage of its ring (a chunk), the blocks an SM its
+# grid gives the live chunks beyond one per (batch, kv head)
+# (scripts/decode_sweep.py times other counts), and the most blocks one
+# (batch, kv head) takes (the kernel's bound: its merge's weights).
+LIVE_CHUNK = 64
+LIVE_BLOCKS_PER_SM = 3
+LIVE_MAX_SPLITS = 256
+
+
+def route(k_q, v_q, k_new, v_new) -> str:
+    """K2's route: ``"live"`` where TMA and 16-byte loads can read the
+    caches and the new rows (16-byte-aligned ``data_ptr``s; the wrapper
+    makes them contiguous), else ``"span"``."""
+    return ("live" if all(t.data_ptr() % 16 == 0
+                          for t in (k_q, v_q, k_new, v_new)) else "span")
+
+
+def live_blocks(b: int, kvh: int, s_max: int, sms: int) -> int:
+    """The grid of route "live", fixed by the shapes so that no length is
+    read back: one block per (batch, kv head) plus LIVE_BLOCKS_PER_SM on
+    each of ``sms`` SMs for the live chunks, but no more than one block per
+    chunk of a full cache."""
+    heads = b * kvh
+    return min(heads + LIVE_BLOCKS_PER_SM * sms,
+               heads * (1 + -(-s_max // LIVE_CHUNK)))
+
+
+def live_plan(lens, kvh: int, blocks: int):
+    """What each of the ``blocks`` blocks of route "live" takes, as the
+    kernel computes it on the card from the clamped lengths ``lens``: with
+    C the live chunks of all (batch, kv head)s and A = blocks - b·kvh, each
+    head of sequence i takes nb_i = min(LIVE_MAX_SPLITS,
+    max(1, ceil(chunks_i / ceil(C / A)))) blocks, in the order (i, head,
+    split). Returns one (sequence, head, split, nb) per block, None for a
+    block past the plan."""
+    chunks = [-(-int(n) // LIVE_CHUNK) for n in lens]
+    avail = blocks - len(chunks) * kvh
+    quota = max(1, -(-sum(chunks) * kvh // avail))
+    plan = []
+    for i, c in enumerate(chunks):
+        nb = min(LIVE_MAX_SPLITS, max(1, -(-c // quota)))
+        plan += [(i, h, split, nb) for h in range(kvh) for split in range(nb)]
+    return plan + [None] * (blocks - len(plan))
+
+
+# Route "live"'s arrival counts, one per (batch, kv head), by (device,
+# stream): zero between launches (each launch's merging blocks reset
+# theirs), so one buffer serves every launch of a stream, which runs them
+# one after another; launches on two streams never share counts. A launch
+# that fails drops its stream's buffer (it may have left counts behind).
+_ARRIVALS = {}
+
+
+def _arrivals(n: int, dev, stream: int) -> torch.Tensor:
+    """At least ``n`` zeroed arrival counts for launches on ``stream`` (a
+    ``cuda_stream`` handle) of ``dev``."""
+    buf = _ARRIVALS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[dev, stream] = torch.zeros(n, dtype=torch.int32,
+                                                  device=dev)
+    return buf
+
+
+def live_block_range(length: int, split: int, splits: int):
+    """Keys [t0, t1) that block ``split`` of ``splits`` takes of a sequence
+    of ``length`` live keys, as the kernel computes them on the card: the
+    ceil(length / LIVE_CHUNK) chunks dealt out so that blocks differ by at
+    most one chunk; an empty range for a block with none."""
+    chunks = -(-length // LIVE_CHUNK)
+    base, rem = divmod(chunks, splits)
+    c0 = split * base + min(split, rem)
+    nc = base + (1 if split < rem else 0)
+    return (min(length, c0 * LIVE_CHUNK),
+            min(length, (c0 + nc) * LIVE_CHUNK))
 
 
 def _write_new_rows(k_q, k_s, v_q, v_s, k_new, v_new, k_snew, v_snew, lens):
@@ -126,8 +210,10 @@ def _prepare(name, q, k_q, k_s, v_q, v_s, seq_lens):
             q.to(torch.bfloat16).contiguous())
 
 
-def _span_scratch(b, kvh, g, s_max, hd, dev):
-    n_split = -(-s_max // SPLIT_KEYS)
+def _span_scratch(b, kvh, g, s_max, hd, dev, split_keys=None):
+    """Route "span"'s partial states: one per span of ``split_keys``
+    (SPLIT_KEYS if None) keys of each (batch, kv head)."""
+    n_split = -(-s_max // (split_keys or SPLIT_KEYS))
     return torch.empty((b * kvh * n_split * g * (hd + 2),),
                        dtype=torch.float32, device=dev)
 
@@ -151,6 +237,15 @@ def flash_decode_gqa_inplace(
     cache extent first: the engine decodes every slot, freed ones included,
     and a freed slot's length may already equal S.
     """
+    return _launch_inplace(q, k_q, k_s, v_q, v_s, k_new, v_new, k_snew,
+                           v_snew, seq_lens)
+
+
+def _launch_inplace(q, k_q, k_s, v_q, v_s, k_new, v_new, k_snew, v_snew,
+                    seq_lens, plan=None):
+    """K2 on ``q``'s device. ``plan``: (route, split) in place of
+    :func:`route` and :func:`live_blocks`'s (for tests and sweeps): the
+    span's keys for "span", the grid's blocks for "live"."""
     b, heads, hd, kvh, g, s_max, lens, qb = _prepare(
         "flash_decode_gqa_inplace", q, k_q, k_s, v_q, v_s, seq_lens)
     dev = q.device
@@ -167,16 +262,28 @@ def flash_decode_gqa_inplace(
         if t.device != dev:
             raise ValueError(f"flash_decode_gqa_inplace: {label} must be on "
                              f"{dev}")
+    if plan is None:
+        rt = route(k_q, v_q, kn, vn)
+        plan = rt, (live_blocks(b, kvh, s_max, platform.detect(dev).num_cores)
+                    if rt == "live" else SPLIT_KEYS)
+    rt, split = plan
     out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
-    part = _span_scratch(b, kvh, g, s_max, hd, dev)
+    # Partial states: one per span, or one per block of the grid.
+    part = (_span_scratch(b, kvh, g, s_max, hd, dev, split) if rt == "span"
+            else torch.empty((split * g * (hd + 2),), dtype=torch.float32,
+                             device=dev))
+    stream = _kernels.stream_ptr(dev)
     rc = _kernels.entry("flash_decode")(
         qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), kn.data_ptr(), vn.data_ptr(), ksn.data_ptr(),
-        vsn.data_ptr(), lens.data_ptr(), part.data_ptr(), out.data_ptr(), b,
-        kvh, g, s_max, hd, SPLIT_KEYS, 1.0 / math.sqrt(hd),
-        _kernels.stream_ptr(dev))
+        vsn.data_ptr(), lens.data_ptr(), part.data_ptr(), out.data_ptr(),
+        _arrivals(b * kvh, dev, stream).data_ptr(), b, kvh, g, s_max, hd,
+        ROUTES.index(rt), split, 1.0 / math.sqrt(hd), stream)
+    if rc:
+        _ARRIVALS.pop((dev, stream), None)
     _kernels.check(rc, "flash_decode")
     COUNTER.launches += 1
+    COUNTER.count_plan(f"{rt}/{split}")
     return out.reshape(b, heads, hd), k_q, v_q, k_s, v_s
 
 

@@ -18,7 +18,17 @@ the kernel, which refuses a route it cannot take: ``"wgmma"`` (the Hopper
 main loop of ``csrc/sm90_gemm.cuh`` with 8-bit stages: TMA and
 ``wgmma`` s8, 128 × 256 or 64 × 64 tiles; B stored K-major only) or
 ``"int8_tile"`` (``mma.sync`` on fixed 64 × 64 tiles: every layout and
-shape, and always K9 and K6).
+shape, and always K9).
+
+K6 with B stored K-major takes one of two routes by the rows an expert is
+expected to hold (:func:`masked_plan`; ``expected_m``, DeepGEMM's hint,
+which the MoE layer passes and which changes no result): ``"ring"`` at
+decode (16 × 64 tiles, a TMA ring fed by a producer warp, ``mma.sync`` s8
+into int32 accumulators) or ``"wgmma"`` beyond (K7's Hopper main loop over
+the experts, 64 × 64 tiles up to 64 rows an expert, 128 × 256 beyond); in
+both a CTA walks the m-tiles of its (expert, n-tile), reads
+``masked_m[e]`` on the card and zeroes the tiles past it.
+``b_layout='n'`` and operands TMA cannot describe keep ``"int8_tile"``.
 
 ``b_layout='t'`` takes B stored K-major, (n, k) / (E, n, k): the layout of
 the port's int8 weights, which the tensor cores' B operand wants. The
@@ -39,13 +49,23 @@ from .grouped_gemm import contiguous_tiles
 __all__ = ["int8_gemm", "int8_gemm_with_config", "route",
            "m_grouped_int8_gemm_contiguous", "m_grouped_int8_gemm_masked",
            "int8_gemm_plain", "grouped_contiguous_plain",
-           "grouped_masked_plain"]
+           "grouped_masked_plain", "masked_plan"]
 
 K7 = _kernels.COUNTERS["int8_gemm"]
 K9 = _kernels.COUNTERS["int8_grouped_contiguous"]
 K6 = _kernels.COUNTERS["int8_grouped_masked"]
 # K7's route codes.
 ROUTES = ("int8_tile", "wgmma")
+# K6's route codes, the tiles of its wgmma route (rows, columns), and the
+# rows an expert may be expected to hold for its ring route (16-row
+# tiles) and for the 64-row wgmma tile: the crossovers that
+# scripts/decode_sweep.py measures at V2_LITE's experts (ring ahead at 12
+# rows, 64 x 64 at 24 and 48, 128 x 256 level with it at 96 and ahead
+# from 192).
+MASKED_ROUTES = ("int8_tile", "ring", "wgmma")
+MASKED_WGMMA_TILES = ((64, 64), (128, 256))
+SMALL_ROWS = 16
+MEDIUM_ROWS = 64
 
 
 def _layout(b_layout: str) -> bool:
@@ -137,6 +157,26 @@ def route(a_q, b_q, b_layout: str = "n") -> str:
             or b_q.data_ptr() % 16):
         return "int8_tile"
     return "wgmma"
+
+
+def masked_plan(m_max: int, expected_m=None):
+    """(route, tile) of K6 on operands that take the TMA routes, by the
+    rows an expert is expected to hold — ``expected_m`` or, without it,
+    M_max: ``"ring"`` up to SMALL_ROWS, else ``"wgmma"`` on 64 × 64 tiles
+    (tile 0) up to MEDIUM_ROWS and on 128 × 256 (tile 1) beyond."""
+    rows = m_max if expected_m is None else max(0, min(m_max, expected_m))
+    if rows <= SMALL_ROWS:
+        return "ring", 0
+    return "wgmma", int(rows > MEDIUM_ROWS)
+
+
+def masked_plan_label(rt: str, tile: int) -> str:
+    """A K6 launch's plan as its wrapper counts it (``Counter.plans``)."""
+    if rt == "ring":
+        return "ring 16x64"
+    if rt == "wgmma":
+        return "wgmma {}x{}".format(*MASKED_WGMMA_TILES[tile])
+    return rt
 
 
 def _cuda_operands(name, a_q, a_scales, b_q, b_scales, out_dtype):
@@ -333,6 +373,7 @@ def m_grouped_int8_gemm_masked(
     out_dtype=torch.bfloat16,
     config: Optional[GemmConfig] = None,
     b_layout: str = "n",
+    expected_m: Optional[int] = None,
 ) -> torch.Tensor:
     """Masked grouped W8A8 GEMM (MoE decode and prefill, fixed shapes).
 
@@ -340,6 +381,9 @@ def m_grouped_int8_gemm_masked(
     (E, K, N) int8 (or (E, N, K) with ``b_layout='t'``) with b_scales
     (E, 1, N) f32; masked_m (E,) int. Rows ≥ masked_m[e] are unspecified
     (whole inactive tiles are zeroed), as in the fp8 twin.
+    ``expected_m``: the rows an expert is expected to hold, a hint that
+    picks the kernel's route and tile (:func:`masked_plan`) and changes no
+    result.
     """
     b_t = _layout(b_layout)
     e, m_max, n, k, k2 = _grouped_shapes(a_q, b_q, b_t)
@@ -360,21 +404,37 @@ def m_grouped_int8_gemm_masked(
         return y.to(out_dtype)
     if config is not None:
         check_config(config)
+    return _launch_masked(a_q, a_scales, b_q, b_scales, masked_m, b_t,
+                          out_dtype, expected_m=expected_m)
+
+
+def _launch_masked(a_q, a_scales, b_q, b_scales, masked_m, b_t, out_dtype,
+                   plan=None, expected_m=None):
+    """K6 on ``a_q``'s device. ``plan``: (route, tile) in place of
+    :func:`route` and :func:`masked_plan`'s (for tests and sweeps; the C
+    entry refuses what it cannot run)."""
     if not _on_device("m_grouped_int8_gemm_masked", a_q):
         return grouped_masked_plain(a_q, a_scales, b_q, b_scales, masked_m,
                                     b_t=b_t, out_dtype=out_dtype)
     a_s, b_s = _cuda_operands("m_grouped_int8_gemm_masked", a_q, a_scales,
                               b_q, b_scales, out_dtype)
     dev = a_q.device
+    e, m_max, k = a_q.shape
+    n = b_s.shape[-1]
     mm = masked_m.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((e, m_max, n), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = (("int8_tile", 0)
+                if route(a_q, b_q, "t" if b_t else "n") == "int8_tile"
+                else masked_plan(m_max, expected_m))
     rc = _kernels.entry("int8_grouped_masked")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
         mm.data_ptr(), out.data_ptr(), e, m_max, n, k, n * k,
         *_strides(b_t, n, k), int(out_dtype == torch.float32),
-        _kernels.stream_ptr(dev))
+        MASKED_ROUTES.index(plan[0]), plan[1], _kernels.stream_ptr(dev))
     _kernels.check(rc, "int8_grouped_masked")
     K6.launches += 1
+    K6.count_plan(masked_plan_label(*plan))
     return out

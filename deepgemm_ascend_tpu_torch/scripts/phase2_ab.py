@@ -12,9 +12,18 @@ one card. ``--serving`` also runs that checkout's serving phase (phase 4:
 fp8 experts, then int8) after phase 2 and keeps each run's profiled decode
 step (device and wall ms, launches) and launch counts. The card only.
 
+After the runs (or, given no ``--run``, alone) it prints the summary of
+``OUT``'s files: runs whose labels differ only in their trailing digits
+form one side (parent1 and parent2: "parent"); each phase-2 row that
+every side ran, with each side's mean ms, the ratio of the last side to
+the first (``parent`` first where there is one) and the plans of the
+last; then each side's profiled decode steps, with the device ms per step
+of the port's own kernels among the profile's top 12.
+
     python -m deepgemm_ascend_tpu_torch.scripts.phase2_ab --out OUT \\
         [--serving] --run ../parent:parent1 --run .:change1 \\
         --run .:change2 --run ../parent:parent2
+    python -m deepgemm_ascend_tpu_torch.scripts.phase2_ab --out OUT
 """
 
 from __future__ import annotations
@@ -53,9 +62,78 @@ def _child(tree: str, label: str, out: str, serving: bool) -> None:
                    "seconds": time.perf_counter() - t0}, f, default=str)
 
 
+def _side(label: str) -> str:
+    return label.rstrip("0123456789") or label
+
+
+def _own_kernel(name: str) -> str:
+    """The function name of one of the port's kernels in a profile, or ''
+    for PyTorch's own (``at::``) and library kernels."""
+    if "at::" in name[:40] or "(anonymous namespace)" not in name:
+        return ""
+    head = name.removeprefix("void ").replace("(anonymous namespace)", "_")
+    return head.split("<", 1)[0].split("(", 1)[0].rsplit("::", 1)[-1]
+
+
+def summary(out: str) -> list:
+    """The lines of the summary of ``out``'s phase2_<label>.json files."""
+    runs = {}
+    for path in sorted(Path(out).glob("phase2_*.json")):
+        with open(path) as f:
+            d = json.load(f)
+        runs.setdefault(_side(d["label"]), []).append(d)
+    sides = sorted(runs, key=lambda side: side != "parent")
+    lines = ["sides: " + ", ".join(
+        f"{s} ({', '.join(d['label'] for d in runs[s])})" for s in sides)]
+    rows = {}
+    for side in sides:
+        for d in runs[side]:
+            for name, checks in d["checks"].items():
+                for r in checks:
+                    rows.setdefault((name, r["shape"]), {}).setdefault(
+                        side, []).append(r)
+    for (name, shape), by_side in rows.items():
+        if len(by_side) < len(sides):
+            continue
+        means = {s: sum(r["ms"] for r in by_side[s]) / len(by_side[s])
+                 for s in sides}
+        plans = sorted({str(r.get("route", "")) for r in by_side[sides[-1]]})
+        ratio = (means[sides[-1]] / means[sides[0]] if means[sides[0]]
+                 else float("nan"))
+        lines.append(f"{name:24s} {shape:58s} "
+                     + " ".join(f"{s} {means[s]:.4f}" for s in sides)
+                     + f" ratio {ratio:.3f} {' '.join(p for p in plans if p)}")
+    for side in sides:
+        for d in runs[side]:
+            for run in d.get("serving", []):
+                prof = run["profile"]
+                own = {}
+                for k in prof.get("top", []):
+                    fn = _own_kernel(k["kernel"])
+                    if fn:
+                        ms, n = own.get(fn, (0.0, 0))
+                        own[fn] = (ms + k["ms"], n + k["count"])
+                lines.append(
+                    f"serving {run['run']:4s} {d['label']:10s} device_ms "
+                    f"{prof['device_ms']:.3f} wall_ms {prof['wall_ms']:.2f} "
+                    f"launches {prof['launches']} decode_tok_s "
+                    f"{run['decode_tok_s']:.1f} plans {run.get('plans')} "
+                    + " ".join(f"{fn} {ms:.3f} ms/{n}" for fn, (ms, n)
+                               in sorted(own.items())))
+        steps = {}
+        for d in runs[side]:
+            for run in d.get("serving", []):
+                steps.setdefault(run["run"], []).append(
+                    run["profile"]["device_ms"])
+        for experts, ms in steps.items():
+            lines.append(f"serving {experts:4s} {side} mean device_ms "
+                         f"{sum(ms) / len(ms):.3f}")
+    return lines
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--run", action="append", required=True,
+    parser.add_argument("--run", action="append", default=[],
                         metavar="TREE:LABEL")
     parser.add_argument("--out", required=True, help="directory for the "
                         "phase2_<LABEL>.json files")
@@ -66,6 +144,9 @@ def main(argv=None) -> int:
     out = os.path.abspath(args.out)
     if args.child:
         _child(*args.child, out, args.serving)
+        return 0
+    if not args.run:
+        print("\n".join(summary(out)), flush=True)
         return 0
     os.makedirs(out, exist_ok=True)
     failed = []
@@ -80,6 +161,8 @@ def main(argv=None) -> int:
         print(f"{label} ({tree}): rc {rc}", flush=True)
         if rc:
             failed.append(label)
+    if not failed:
+        print("\n".join(summary(out)), flush=True)
     return 1 if failed else 0
 
 

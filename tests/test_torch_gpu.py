@@ -378,6 +378,95 @@ def test_int8_masked_kernel_matches_plain_bit_for_bit(dev, b_layout,
     assert bool((got[2, 64:] == 0).all())
 
 
+# ---- K6 on its ring and wgmma routes
+
+
+@pytest.mark.parametrize("plan", [("ring", 0), ("wgmma", 0), ("wgmma", 1)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("loads", ["none", "full", "mixed"])
+def test_int8_masked_routes_match_plain_and_tile(dev, plan, out_dtype, loads):
+    """Every new route and tile of K6 (B stored (E, n, k)) bit-equal to the
+    plain version and to int8_tile on the valid rows, for masked_m all 0,
+    all M_max, and mixed (0, 1, a tile edge + 1, most rows); every tile
+    that starts at or past masked_m[e] is zeros. n = 320 ends inside a 64-
+    and a 256-column tile, k = 208 inside the second 128-deep stage, and
+    M_max = 272 inside a 128-row tile."""
+    e, m_max, n, k = 4, 272, 320, 208
+    a_q, a_s, b_q, b_s = _int8_operands((e, m_max, k), (e, n, k), True, dev,
+                                        seed=11)
+    rows = {"none": [0] * e, "full": [m_max] * e,
+            "mixed": [0, 1, 17, 200]}[loads]
+    masked_m = torch.tensor(rows, dtype=torch.int32, device=dev)
+    k6 = _kernels.COUNTERS["int8_grouped_masked"]
+    k6.plans.clear()
+    got = i8mod._launch_masked(a_q, a_s, b_q, b_s, masked_m, True, out_dtype,
+                               plan=plan)
+    tile = i8mod._launch_masked(a_q, a_s, b_q, b_s, masked_m, True,
+                                out_dtype, plan=("int8_tile", 0))
+    ref = i8mod.grouped_masked_plain(a_q, a_s, b_q, b_s, masked_m, b_t=True,
+                                     out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert k6.plans == {i8mod.masked_plan_label(*plan): 1, "int8_tile": 1}
+    bm = 16 if plan[0] == "ring" else i8mod.MASKED_WGMMA_TILES[plan[1]][0]
+    for ei, r in enumerate(rows):
+        assert torch.equal(got[ei, :r], ref[ei, :r]), ei
+        assert torch.equal(got[ei, :r], tile[ei, :r]), ei
+        assert bool((got[ei, -(-r // bm) * bm:] == 0).all()), ei
+
+
+def test_int8_masked_plan_follows_the_hint(dev):
+    """At V2_LITE's decode shape the MoE layer's hint (3 rows an expert)
+    takes the ring, a short prefill's (24 rows) the 64 x 64 wgmma tile, a
+    long prefill's the 128 x 256 tile; 'n' stays on int8_tile. Each is
+    bit-equal to the plain version."""
+    e, m_max, n, k = 32, 96, 2816, 2048
+    a_q, a_s, b_q, b_s = _int8_operands((e, m_max, k), (e, n, k), True, dev,
+                                        seed=12)
+    masked_m = torch.randint(0, 8, (e,), dtype=torch.int32, device=dev)
+    k6 = _kernels.COUNTERS["int8_grouped_masked"]
+    ref = i8mod.grouped_masked_plain(a_q, a_s, b_q, b_s, masked_m, b_t=True)
+    b_kn = b_q.transpose(1, 2).contiguous()
+    for kw, b, label in ((dict(b_layout="t", expected_m=3), b_q,
+                          "ring 16x64"),
+                         (dict(b_layout="t", expected_m=24), b_q,
+                          "wgmma 64x64"),
+                         (dict(b_layout="t", expected_m=384), b_q,
+                          "wgmma 128x256"),
+                         (dict(b_layout="n", expected_m=3), b_kn,
+                          "int8_tile")):
+        k6.plans.clear()
+        got = i8mod.m_grouped_int8_gemm_masked(a_q, a_s, b, b_s, masked_m,
+                                               **kw)
+        torch.cuda.synchronize()
+        assert list(k6.plans) == [label]
+        for ei, r in enumerate(masked_m.tolist()):
+            assert torch.equal(got[ei, :r], ref[ei, :r]), (label, ei)
+
+
+def test_int8_masked_entry_refuses_what_it_cannot_run(dev):
+    """Routes 1 and 2 refuse B stored (k, n) and an unknown wgmma tile;
+    int8_tile takes B stored (k, n)."""
+    e, m_max, n, k = 2, 32, 128, 256
+    a_q, a_s, b_q, b_s = _int8_operands((e, m_max, k), (e, k, n), False, dev,
+                                        seed=13)
+    mm = torch.tensor([3, 32], dtype=torch.int32, device=dev)
+    out = torch.empty(e, m_max, n, dtype=torch.bfloat16, device=dev)
+    entry = _kernels.entry("int8_grouped_masked")
+    stream = _kernels.stream_ptr(dev)
+    args = (a_q.data_ptr(), a_s.contiguous().data_ptr(), b_q.data_ptr(),
+            b_s.contiguous().data_ptr(), mm.data_ptr(), out.data_ptr(), e,
+            m_max, n, k, n * k, n, 1, 0)
+    assert entry(*args, 1, 0, stream) != 0
+    assert entry(*args, 2, 0, stream) != 0
+    kmajor = args[:11] + (1, k, 0)
+    assert entry(*kmajor, 2, 2, stream) != 0
+    assert entry(*args, 0, 0, stream) == 0
+    torch.cuda.synchronize()
+    want = i8mod.grouped_masked_plain(a_q, a_s, b_q, b_s, mm)
+    for ei, r in enumerate(mm.tolist()):
+        assert torch.equal(out[ei, :r], want[ei, :r])
+
+
 # ---- K7 on the wgmma route (TMA + wgmma s8, csrc/sm90_gemm.cuh)
 
 
@@ -459,12 +548,13 @@ def _cache(b, kvh, s_max, hd, dev, seed):
 
 
 @pytest.mark.parametrize("g", [1, 4, 8])
-@pytest.mark.parametrize("split_keys", [128, 512])
-def test_flash_decode_kernel_matches_plain(dev, g, split_keys, monkeypatch):
-    """5 spans of 128 keys (lengths ending mid-span and on a span edge)
-    and one span of 512 for the whole 320-key cache."""
+@pytest.mark.parametrize("blocks", [9, 64])
+def test_flash_decode_kernel_matches_plain(dev, g, blocks):
+    """K2's route "live" on a grid of one block per (batch, kv head) and
+    one to spare (a quota of every live chunk), and of 64 blocks (one or
+    two chunks each), over a 320-key cache (lengths ending mid-chunk and on
+    a chunk edge)."""
     from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
-    monkeypatch.setattr(fdmod, "SPLIT_KEYS", split_keys)
     b, kvh, s_max, hd = 4, 2, 320, 128
     k_q, k_s, v_q, v_s = _cache(b, kvh, s_max, hd, dev, 2)
     gen = _gen(3, dev)
@@ -480,9 +570,9 @@ def test_flash_decode_kernel_matches_plain(dev, g, split_keys, monkeypatch):
                         device=dev)
     caches_k = [t.clone() for t in (k_q, k_s, v_q, v_s)]
     caches_p = [t.clone() for t in (k_q, k_s, v_q, v_s)]
-    out, *new_k = flash_decode_gqa_inplace(
+    out, *new_k = fdmod._launch_inplace(
         q, caches_k[0], caches_k[1], caches_k[2], caches_k[3], k_new, v_new,
-        ks_new, vs_new, lens)
+        ks_new, vs_new, lens, plan=("live", blocks))
     ref = flash_decode_inplace_plain(
         q, caches_p[0], caches_p[1], caches_p[2], caches_p[3], k_new, v_new,
         ks_new, vs_new, lens.clamp(max=s_max)).reshape(b, kvh * g, hd)
@@ -491,6 +581,88 @@ def test_flash_decode_kernel_matches_plain(dev, g, split_keys, monkeypatch):
     for got_c, ref_c in zip(caches_k, caches_p):
         assert torch.equal(got_c, ref_c)
     assert new_k[0] is caches_k[0]
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_flash_decode_live_route_matches_plain_and_span(dev, g):
+    """K2 takes route "live" on its own plan; against its plain version and
+    against route "span" on the same inputs the output agrees within 2e-3
+    and per element within (2⁻⁷ + 2⁻¹²)·Σ w·|v|, and the three caches are
+    equal. Lengths: empty, one token, a chunk's edges, ragged, S and past S
+    (a freed slot)."""
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
+    b, kvh, s_max, hd = 7, 2, 320, 128
+    cache = _cache(b, kvh, s_max, hd, dev, 31)
+    gen = _gen(32, dev)
+    q = torch.randn(b, kvh * g, hd, generator=gen, device=dev).to(torch.bfloat16)
+    new = (torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                         dtype=torch.int8),
+           torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                         dtype=torch.int8),
+           torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3,
+           torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3)
+    lens = torch.tensor([0, 1, 64, 65, 200, s_max, s_max + 3],
+                        dtype=torch.int32, device=dev)
+    live, span, plain = ([t.clone() for t in cache] for _ in range(3))
+    counter = _kernels.COUNTERS["flash_decode"]
+    counter.plans.clear()
+    got = flash_decode_gqa_inplace(q, *live, *new, lens)[0]
+    assert list(counter.plans) == [
+        f"live/{fdmod.live_blocks(b, kvh, s_max, 132)}"]
+    by_span = fdmod._launch_inplace(q, *span, *new, lens,
+                                    plan=("span", 128))[0]
+    clamped = lens.clamp(max=s_max)
+    ref = flash_decode_inplace_plain(q, *plain, *new, clamped).reshape(
+        b, kvh * g, hd)
+    pv = fdmod.flash_decode_plain(q, *_abs_v(plain), clamped).reshape(
+        b, kvh * g, hd)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) < 2e-3
+    assert output_close(got, ref, pv)
+    assert float((got - by_span).abs().max()) < 2e-3
+    assert not got[0].any()
+    for x, y, z in zip(live, span, plain):
+        assert torch.equal(x, z) and torch.equal(y, z)
+
+
+def test_flash_decode_live_route_on_two_streams(dev):
+    """K2 launched on two streams at once, again and again: each stream
+    has its own arrival counts, so every launch merges its own blocks and
+    matches its plain version, caches equal."""
+    b, kvh, g, s_max, hd = 16, 4, 4, 1024, 128
+    gen = _gen(41, dev)
+    cases = []
+    for seed in (42, 43):
+        cache = _cache(b, kvh, s_max, hd, dev, seed)
+        q = torch.randn(b, kvh * g, hd, generator=gen, device=dev).to(
+            torch.bfloat16)
+        new = (torch.randint(-127, 128, (b, kvh, hd), generator=gen,
+                             device=dev, dtype=torch.int8),
+               torch.randint(-127, 128, (b, kvh, hd), generator=gen,
+                             device=dev, dtype=torch.int8),
+               torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3,
+               torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3)
+        lens = torch.randint(1, s_max + 1, (b,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        plain = [t.clone() for t in cache]
+        ref = flash_decode_inplace_plain(q, *plain, *new, lens).reshape(
+            b, kvh * g, hd)
+        cases.append((cache, q, new, lens, plain, ref))
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(20):
+        for s, (cache, q, new, lens, _, _), got in zip(streams, cases, outs):
+            with torch.cuda.stream(s):
+                got.append(flash_decode_gqa_inplace(q, *cache, *new,
+                                                    lens)[0])
+    torch.cuda.synchronize()
+    for (cache, _, _, _, plain, ref), got in zip(cases, outs):
+        for out in got:
+            assert float((out - ref).abs().max()) < 2e-3
+        for x, y in zip(cache, plain):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("g", [1, 4])

@@ -58,6 +58,7 @@ def test_importing_the_port_loads_no_jax():
         "import deepgemm_ascend_tpu_torch.scripts.k12_fold_ablation\n"
         "import deepgemm_ascend_tpu_torch.scripts.ksplit_sweep\n"
         "import deepgemm_ascend_tpu_torch.scripts.ring_sweep\n"
+        "import deepgemm_ascend_tpu_torch.scripts.decode_sweep\n"
         "import deepgemm_ascend_tpu_torch.scripts.phase2_ab\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deepgemm_ascend_tpu'))\n"

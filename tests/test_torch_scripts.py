@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from deepgemm_ascend_tpu_torch.ops import _kernels
-from deepgemm_ascend_tpu_torch.scripts import (headline, k12_fold_ablation,
+from deepgemm_ascend_tpu_torch.scripts import (decode_sweep, headline,
+                                               k12_fold_ablation,
                                                ksplit_sweep, layer_bench,
-                                               profile_kernel, ring_sweep,
-                                               serve_bench, straggler_probe)
+                                               phase2_ab, profile_kernel,
+                                               ring_sweep, serve_bench,
+                                               straggler_probe)
 
 CPU = ["--device", "cpu"]
 T_KW = dict(iters=2, repeats=1, min_chain_seconds=0.0)
@@ -159,6 +161,69 @@ def test_entry_points_default_to_cuda():
         ksplit_sweep.main(["--m", "16", "--nk", "512x2048"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ring_sweep.main(["--k1", "16x512x2048", "--k3"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decode_sweep.main(["--k2", "16x4x4x4096:serving", "--k6"])
+
+
+def test_decode_sweep_rows():
+    """The sweep's K2 lengths are phase 4's (prompts of 16..1024 tokens and
+    up to 32 decoded) or phase 2's (a fresh, a full and a freed slot
+    first); its K6 rows carry the MoE layer's hint, ceil(M_max / E), and
+    its default rows parse."""
+    serving = decode_sweep.decode_lengths(16, 4096, "serving")
+    assert serving.min() >= 16 and serving.max() <= 1056
+    phase2 = decode_sweep.decode_lengths(16, 4096)
+    assert list(phase2[:3]) == [1, 4096, 4096] and phase2.max() <= 4096
+    assert set(decode_sweep.decode_lengths(4, 80, "ones")) == {1}
+    assert set(decode_sweep.decode_lengths(4, 80, "full")) == {80}
+    for spec in decode_sweep.K6:
+        e, cap, n, k, hint = (int(x) for x in spec.split("x"))
+        assert hint == -(-cap // e) and n % 64 == 0 and k % 16 == 0
+    for spec in decode_sweep.K2:
+        shape, _, lengths = spec.partition(":")
+        assert len(shape.split("x")) == 4 and lengths in (
+            "", "serving", "ones", "full")
+
+
+def _ab_run(label, k2_ms, k6_ms, device_ms, k2_kernel):
+    top = [{"kernel": "void at::native::elementwise_kernel<128, 4>(int)",
+            "ms": 0.5, "count": 9},
+           {"kernel": f"void (anonymous namespace)::{k2_kernel}<4, true>"
+                      "(CUtensorMap_st, int)", "ms": 0.125, "count": 8}]
+    return {"label": label, "tree": ".", "seconds": 1.0, "checks": {
+        "flash_decode": [{"shape": "b=16", "ms": k2_ms, "route": "live/460"}],
+        "int8_grouped_masked": [{"shape": "E=32", "ms": k6_ms}],
+        "gemm": [{"shape": "only in " + label, "ms": 1.0}]},
+        "serving": [{"run": "int8", "decode_tok_s": 300.0, "plans": {},
+                     "profile": {"device_ms": device_ms, "wall_ms": 40.0,
+                                 "launches": 1400, "top": top}}]}
+
+
+def test_phase2_ab_summary(tmp_path, capsys):
+    """The summary of a call's phase2_<label>.json files: runs that differ
+    in their trailing digits form one side, parent first; a row that every
+    side ran gets each side's mean and the ratio; each profiled step its
+    device ms and the port's own kernels (not PyTorch's) in it."""
+    for label, k2, k6, dev_ms in (("parent1", 0.09, 0.11, 6.5),
+                                  ("change1", 0.04, 0.08, 6.0),
+                                  ("change2", 0.05, 0.08, 6.1),
+                                  ("parent2", 0.07, 0.11, 6.7)):
+        kernel = "live::live_kernel" if label[0] == "c" else "span_kernel"
+        (tmp_path / f"phase2_{label}.json").write_text(json.dumps(
+            _ab_run(label, k2, k6, dev_ms, kernel)))
+    assert phase2_ab.main(["--out", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == ("sides: parent (parent1, parent2), change (change1, "
+                        "change2)")
+    k2 = next(ln for ln in lines if ln.startswith("flash_decode"))
+    assert "parent 0.0800 change 0.0450 ratio 0.562 live/460" in k2
+    assert any(ln.startswith("int8_grouped_masked") and "ratio 0.727" in ln
+               for ln in lines)
+    assert not any("only in" in ln for ln in lines)
+    assert "serving int8 parent mean device_ms 6.600" in lines
+    assert "serving int8 change mean device_ms 6.050" in lines
+    step = next(ln for ln in lines if "change1" in ln and "device_ms" in ln)
+    assert "live_kernel 0.125 ms/8" in step and "elementwise" not in step
 
 
 def test_k12_ablation_swaps_only_k12_entry():
