@@ -241,6 +241,13 @@ flash_decode_merge_kernel(const float* __restrict__ part,
 namespace live {
 
 namespace s9 = dga::sm90;
+using dga::ex2;
+using dga::ld_tile;
+using dga::mma_bf16;
+using dga::pack_bf16x2;
+using dga::quad_max;
+using dga::quad_sum;
+using dga::s8x2_to_bf16x2;
 
 constexpr int kChunk = 64;                  // keys a stage
 constexpr int kWarps = 4;                   // consumer warps, 16 keys of each stage each
@@ -348,55 +355,6 @@ __device__ __forceinline__ void block_range(int len, int split, int splits, int&
   const int base = chunks / splits, rem = chunks % splits;
   c0 = split * base + min(split, rem);
   nc = base + (split < rem ? 1 : 0);
-}
-
-// Bytes 0 and 2 of w, int8, as an exact bf16x2 (byte 0 in the low half):
-// 0x4300 | (x & 0x7f) is 128 + (x & 0x7f), 0x4300 | (x & 0x80) is 128 or
-// 256 by the sign, and their difference, x, is exact in one fma.
-__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w) {
-  const uint32_t a = (w & 0x007F007Fu) | 0x43004300u;
-  const uint32_t b = (w & 0x00800080u) | 0x43004300u;
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(b), "r"(0xBF80BF80u), "r"(a));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The 16 bytes of logical chunk `ch` of row `r` of a 128-byte-swizzled
-// tile (eight rows x four threads of a warp's loads hit distinct banks).
-__device__ __forceinline__ uint4 ld_tile(const uint8_t* tile, int r, int ch) {
-  return *reinterpret_cast<const uint4*>(tile + r * kHD + ((ch ^ (r & 7)) << 4));
-}
-
-// 2^x (ex2.approx: 2 ulp); the kernel keeps its scores and maxima in the
-// log2 domain, s * log2(e), so that e^(s - m) is one instruction.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Writes the new token's row of (batch, kv head) bh into the cache: every

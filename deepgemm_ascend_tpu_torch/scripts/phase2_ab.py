@@ -10,7 +10,9 @@ commits are measured by one timer. Give the runs alternately (parent,
 change, change, parent): two commits are compared only inside one call, on
 one card. ``--serving`` also runs that checkout's serving phase (phase 4:
 fp8 experts, then int8) after phase 2 and keeps each run's profiled decode
-step (device and wall ms, launches) and launch counts. The card only.
+step (device and wall ms, launches), launch counts and profiled prefill
+forward of the 1024 bucket (``bench.prefill_profile``: this checkout's,
+for a tree from before it). The card only.
 
 After the runs (or, given no ``--run``, alone) it prints the summary of
 ``OUT``'s files: runs whose labels differ only in their trailing digits
@@ -18,7 +20,8 @@ form one side (parent1 and parent2: "parent"); each phase-2 row that
 every side ran, with each side's mean ms, the ratio of the last side to
 the first (``parent`` first where there is one) and the plans of the
 last; then each side's profiled decode steps, with the device ms per step
-of the port's own kernels among the profile's top 12.
+of the port's own kernels among the profile's top 12, and its profiled
+prefill forwards (wall, device and K4 ms).
 
     python -m deepgemm_ascend_tpu_torch.scripts.phase2_ab --out OUT \\
         [--serving] --run ../parent:parent1 --run .:change1 \\
@@ -37,25 +40,48 @@ import sys
 import time
 from pathlib import Path
 
-_TIMING = Path(__file__).resolve().parents[1] / "bench" / "timing.py"
+_BENCH = Path(__file__).resolve().parents[1] / "bench"
+_TIMING = _BENCH / "timing.py"
+
+
+def _load(path: Path, name: str):
+    """A module of this checkout, loaded by path (beside another
+    checkout's package)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
 
 
 def _child(tree: str, label: str, out: str, serving: bool) -> None:
     """Phases 1-2 (and 4 if ``serving``) of ``tree``'s chip_smoke.py with
     this checkout's timer."""
-    spec = importlib.util.spec_from_file_location("phase2_ab_timing", _TIMING)
-    timing = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = timing
-    spec.loader.exec_module(timing)
+    timing = _load(_TIMING, "phase2_ab_timing")
     sys.path.insert(0, os.path.abspath(tree))
     os.chdir(tree)
     import chip_smoke
     chip_smoke.cold_ms = timing.cold_ms
+    prefills = []
+    if serving and not hasattr(chip_smoke, "_profile_prefill_forward"):
+        # A tree from before the prefill profile: this checkout's, run on
+        # that tree's engine right after its decode step's.
+        profiler = _load(_BENCH / "prefill_profile.py",
+                         "phase2_ab_prefill_profile")
+        decode_step = chip_smoke._profile_decode_step
+
+        def both(eng):
+            out = decode_step(eng)
+            prefills.append(profiler.profile_bucket(eng, 1024))
+            return out
+        chip_smoke._profile_decode_step = both
     t0 = time.perf_counter()
     device = chip_smoke.phase_device()
     checks = chip_smoke.phase_kernels()["checks"]
     runs = [chip_smoke.phase_serving(device, experts)
             for experts in ("fp8", "int8")] if serving else []
+    for run, prefill in zip(runs, prefills):
+        run["prefill_profile"] = prefill
     with open(os.path.join(out, f"phase2_{label}.json"), "w") as f:
         json.dump({"label": label, "tree": tree, "device": device,
                    "checks": checks, "serving": runs,
@@ -120,6 +146,17 @@ def summary(out: str) -> list:
                     f"{run['decode_tok_s']:.1f} plans {run.get('plans')} "
                     + " ".join(f"{fn} {ms:.3f} ms/{n}" for fn, (ms, n)
                                in sorted(own.items())))
+        for d in runs[side]:
+            for run in d.get("serving", []):
+                pre = run.get("prefill_profile")
+                if pre:
+                    lines.append(
+                        f"prefill {run['run']:4s} {d['label']:10s} bucket "
+                        f"{pre['bucket']} wall_ms {pre['wall_ms']:.2f} "
+                        f"unprofiled_wall_ms {pre['unprofiled_wall_ms']:.2f} "
+                        f"device_ms {pre['device_ms']:.3f} k4_ms "
+                        f"{pre['k4_ms']:.3f} k4_launches {pre['k4_launches']}"
+                        f" prefill_tok_s {run.get('prefill_tok_s', 0):.1f}")
         steps = {}
         for d in runs[side]:
             for run in d.get("serving", []):

@@ -17,7 +17,8 @@ from deepgemm_ascend_tpu.ops import flash_prefill as jp
 from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.ops import flash_decode as td
 from deepgemm_ascend_tpu_torch.ops import flash_prefill as tp
-from torch_bridge import to_numpy, to_torch
+from torch_bridge import (PREFILL_BUCKET_IDS, PREFILL_BUCKETS, to_numpy,
+                          to_torch)
 
 
 def _cache(b, kvh, s_max, hd, seed):
@@ -75,7 +76,7 @@ def test_flash_decode_empty_sequence_gives_zeros():
 
 
 @pytest.mark.parametrize("start", [[0, 0], [40, 7], [-24, 5]])
-@pytest.mark.parametrize("kvh,g", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("kvh,g", [(2, 2), (1, 4), (4, 1), (1, 8), (1, 16)])
 def test_flash_prefill_matches_jax(start, kvh, g):
     b, s, s_max, hd = 2, 32, 128, 128
     k_q, k_s, v_q, v_s = _cache(b, kvh, s_max, hd, seed=5)
@@ -90,6 +91,60 @@ def test_flash_prefill_matches_jax(start, kvh, g):
         to_torch(q), *(torch.from_numpy(x) for x in (k_q, k_s, v_q, v_s)),
         torch.from_numpy(st), torch.from_numpy(lens)))
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("kvh,g,s,s_max,start,lens", PREFILL_BUCKETS,
+                         ids=PREFILL_BUCKET_IDS)
+def test_flash_prefill_bucket_geometry_matches_jax(kvh, g, s, s_max, start,
+                                                  lens):
+    """Buckets whose q block is wider than s (s = 16, 48 at group 1 or 2),
+    ragged lengths with a serving padding row (length 1) and an empty one,
+    a start at or past the cache, and a cache that is not a multiple of 64:
+    K4 (plain) against JAX in interpret mode, within 1e-3 absolute."""
+    b, hd = len(start), 128
+    cache = _cache(b, kvh, s_max, hd, seed=s + g)
+    q = jnp.asarray(np.random.default_rng(9).normal(size=(b, s, kvh * g, hd)),
+                    jnp.bfloat16)
+    st, ln = np.asarray(start, np.int32), np.asarray(lens, np.int32)
+    want = np.asarray(jp.flash_prefill_gqa(
+        q, *map(jnp.asarray, cache), jnp.asarray(st), jnp.asarray(ln)))
+    got = to_numpy(tp.flash_prefill_gqa(
+        to_torch(q), *(torch.from_numpy(x) for x in cache),
+        torch.from_numpy(st), torch.from_numpy(ln)))
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+def _block_keys(qb, start, seq_len, s, s_max, g, rows=tp.ROWS):
+    """The keys q block ``qb`` of a sequence loads: [0, min(len, last
+    position + 1)), none where its rows see no key."""
+    last = start + min((qb + 1) * (rows // g), s) - 1
+    return max(0, min(seq_len, s_max, last + 1))
+
+
+def test_flash_prefill_block_order_is_heaviest_first():
+    """The CUDA kernel's launch order (its Python mirror): every (batch, kv
+    head, q block) exactly once, and at equal starts and lengths the keys
+    each block loads never increase along it; the q order is its reverse
+    in q blocks."""
+    for b, kvh, s, g, start, s_max in ((2, 4, 512, 4, 0, 4096),
+                                       (1, 4, 4096, 4, 8192, 16384),
+                                       (3, 2, 48, 1, 0, 64),
+                                       (2, 1, 16, 16, -8, 32)):
+        order = tp.block_order(b, kvh, s, g)
+        nq = -(-s // (tp.ROWS // g))
+        assert sorted(order) == [(i, h, q) for i in range(b)
+                                 for h in range(kvh) for q in range(nq)]
+        keys = [_block_keys(q, start, start + s, s, s_max, g)
+                for _, _, q in order]
+        assert keys == sorted(keys, reverse=True)
+        assert keys[0] == _block_keys(nq - 1, start, start + s, s, s_max,
+                                        g)
+        plain = tp.block_order(b, kvh, s, g, heavy_first=False)
+        assert [q for _, _, q in plain] == [nq - 1 - q for _, _, q in order]
+    # 64-row blocks double the q blocks of every group.
+    assert len(tp.block_order(1, 4, 1024, 4, rows=64)) == 4 * 64
+    assert _block_keys(0, -300, 16, 64, 4096, 4, rows=64) == 0
+    assert _block_keys(3, 100, 612, 512, 4096, 4, rows=64) == 164
 
 
 def test_flash_prefill_ragged_s_raises_like_jax():

@@ -22,7 +22,8 @@ from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.ops import flash_decode as td
 from deepgemm_ascend_tpu_torch.ops import flash_prefill as tp
 from deepgemm_ascend_tpu_torch.ops.flash_decode import merge_current_token
-from torch_bridge import to_numpy, to_torch
+from torch_bridge import (PREFILL_BUCKET_IDS, PREFILL_BUCKETS, to_numpy,
+                          to_torch)
 
 
 def _cache(b, kvh, s_max, hd, seed):
@@ -116,7 +117,7 @@ def test_state_plus_current_token_equals_inplace():
 
 
 @pytest.mark.parametrize("start", [-48, -16, 0, 40, 128, 500])
-@pytest.mark.parametrize("kvh,g", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("kvh,g", [(2, 2), (1, 4), (4, 1), (1, 8), (1, 16)])
 def test_flash_prefill_stats_matches_jax(start, kvh, g):
     """Rows before position 0 (start < 0), a q block straddling 0, and a
     start at or past the cache length (a fully visible ring hop)."""
@@ -141,6 +142,28 @@ def test_flash_prefill_stats_matches_jax(start, kvh, g):
         torch.from_numpy(lens)))
     safe = np.where(got[2] > 0, got[2], 1.0)[..., None]
     np.testing.assert_allclose(got[0] / safe, normalized, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kvh,g,s,s_max,start,lens", PREFILL_BUCKETS,
+                         ids=PREFILL_BUCKET_IDS)
+def test_flash_prefill_stats_bucket_geometry_matches_jax(kvh, g, s, s_max,
+                                                        start, lens):
+    """K4-stats (plain) against JAX in interpret mode at K4's bucket
+    geometries (``torch_bridge.PREFILL_BUCKETS``): m and l within 1e-5
+    relative, acc within 1e-3 of l, empty rows exactly (0, -1e30, 0)."""
+    b, hd = len(start), 128
+    cache = _cache(b, kvh, s_max, hd, seed=s + g + 1)
+    q = jnp.asarray(np.random.default_rng(10).normal(
+        size=(b, s, kvh * g, hd)), jnp.bfloat16)
+    st, ln = np.asarray(start, np.int32), np.asarray(lens, np.int32)
+    want = [np.asarray(x) for x in jp.flash_prefill_gqa(
+        q, *map(jnp.asarray, cache), jnp.asarray(st), jnp.asarray(ln),
+        return_stats=True)]
+    got = [to_numpy(x) for x in tp.flash_prefill_gqa(
+        to_torch(q), *_torch(*cache), torch.from_numpy(st),
+        torch.from_numpy(ln), return_stats=True)]
+    assert [x.shape for x in got] == [x.shape for x in want]
+    assert_state_matches(got, want)
 
 
 def test_new_cpu_paths_count_plain_calls():

@@ -665,22 +665,129 @@ def test_flash_decode_live_route_on_two_streams(dev):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("start", [0, 100, -8])
+PREFILL_GROUPS = [1, 2, 4, 8, 16]
+
+
+def _check_prefill(q, cache, st, lens, dev):
+    """K4 and K4-stats on the card against their plain versions: one launch
+    each and no plain call; K4's output within 2e-3 and per element within
+    ``output_close``, K4-stats' state within ``state_close`` (empty rows
+    exactly (0, -1e30, 0)), and its acc / l K4's output within 2e-3."""
+    from deepgemm_ascend_tpu_torch.ops.flash_prefill import \
+        flash_prefill_stats_plain
+    b, s, heads, hd = q.shape
+    kvh = cache[0].shape[1]
+    g = heads // kvh
+    counters = [_kernels.COUNTERS[n] for n in ("flash_prefill",
+                                               "flash_prefill_stats")]
+    before = [(c.launches, c.plain_calls) for c in counters]
+    out = flash_prefill_gqa(q, *cache, st, lens)
+    acc, m, l = flash_prefill_gqa(q, *cache, st, lens, return_stats=True)
+    assert [(c.launches, c.plain_calls) for c in counters] == [
+        (n + 1, p) for n, p in before]
+    qg = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
+    to_rows = lambda x: x.permute(0, 3, 1, 2, *range(4, x.dim())).reshape(
+        b, s, heads, *x.shape[4:])
+    ref = to_rows(flash_prefill_plain(qg, *cache, st, lens))
+    pv = to_rows(flash_prefill_plain(qg, *_abs_v(cache), st, lens))
+    ref_state = [to_rows(x)
+                 for x in flash_prefill_stats_plain(qg, *cache, st, lens)]
+    pv_state = to_rows(flash_prefill_stats_plain(qg, *_abs_v(cache), st,
+                                                 lens)[0])
+    torch.cuda.synchronize()
+    assert out.shape == (b, s, heads, hd) and m.shape == (b, s, heads)
+    assert float((out - ref).abs().max()) < 2e-3
+    assert output_close(out, ref, pv)
+    assert state_close((acc, m, l), ref_state, pv_state)
+    safe = torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    assert float((acc / safe - out).abs().max()) < 2e-3
+    return out, (acc, m, l)
+
+
+@pytest.mark.parametrize("g", PREFILL_GROUPS)
+@pytest.mark.parametrize("start", [0, 100, -8, -300, 1000, "S"])
 def test_flash_prefill_kernel_matches_plain(dev, g, start):
+    """K4 and K4-stats over a 256-key cache from a start before position 0
+    (-8: a block straddling it; -300: every row before it), at 0, inside
+    the cache, at S and past it (every valid key)."""
     b, kvh, s, s_max, hd = 2, 2, 64, 256, 128
-    k_q, k_s, v_q, v_s = _cache(b, kvh, s_max, hd, dev, 4)
+    start = s_max if start == "S" else start
+    cache = _cache(b, kvh, s_max, hd, dev, 4)
     q = torch.randn(b, s, kvh * g, hd, generator=_gen(5, dev),
                     device=dev).to(torch.bfloat16)
     st = torch.tensor([start, max(start, 0) + 3], dtype=torch.int32,
                       device=dev)
     lens = st.clamp(min=0) + s
-    got = flash_prefill_gqa(q, k_q, k_s, v_q, v_s, st, lens)
-    qg = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
-    ref = flash_prefill_plain(qg, k_q, k_s, v_q, v_s, st, lens)
-    ref = ref.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd)
+    _check_prefill(q, cache, st, lens, dev)
+
+
+@pytest.mark.parametrize("g", PREFILL_GROUPS)
+@pytest.mark.parametrize("s", [16, 48, 1024])
+def test_flash_prefill_kernel_bucket_geometry(dev, g, s):
+    """Serving's buckets: s = 16 and 48 (narrower than a 64-row block's
+    positions at groups 1 and 2) and 1024, over caches that are not a
+    multiple of 64 keys, with ragged lengths in one bucket: an empty row, a
+    padding row of length 1, one a few tokens short of the bucket, a
+    resumed one (start 37) and one that stops mid-bucket."""
+    kvh, hd = 2, 128
+    s_max = 200 if s < 64 else 1090
+    starts = [0, 0, 0, 37, 0]
+    lens = [0, 1, max(1, s - 5), 37 + s, s // 2 + 3]
+    b = len(starts)
+    cache = _cache(b, kvh, s_max, hd, dev, 6 + s)
+    q = torch.randn(b, s, kvh * g, hd, generator=_gen(7 + g, dev),
+                    device=dev).to(torch.bfloat16)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out, (acc, m, l) = _check_prefill(q, cache, st, ln, dev)
+    # The empty row: zeros, and the state (0, -1e30, 0).
+    assert not out[0].any() and not acc[0].any()
+    assert bool((m[0] == -1e30).all()) and not l[0].any()
+
+
+def test_flash_prefill_refuses_an_offset_cache(dev):
+    """q read in 16-byte words and the caches by TMA: a view off 16 bytes
+    (``buf[1:]`` of a flat buffer) raises ValueError from K4 and K4-stats
+    before any launch, and the C entry refuses an offset q itself; the
+    aligned copies still run."""
+    b, kvh, g, s, s_max, hd = 1, 2, 4, 32, 128, 128
+    cache = list(_cache(b, kvh, s_max, hd, dev, 8))
+    q = torch.randn(b, s, kvh * g, hd, generator=_gen(9, dev),
+                    device=dev).to(torch.bfloat16)
+    st = torch.zeros(b, dtype=torch.int32, device=dev)
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    c = _kernels.COUNTERS["flash_prefill"]
+    cs = _kernels.COUNTERS["flash_prefill_stats"]
+    before = (c.launches, cs.launches)
+    for i in (0, 2):
+        flat = torch.zeros(cache[i].numel() + 1, dtype=torch.int8, device=dev)
+        shifted = flat[1:].view(cache[i].shape)
+        shifted.copy_(cache[i])
+        bad = list(cache)
+        bad[i] = shifted
+        for stats in (False, True):
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_prefill_gqa(q, *bad, st, lens, return_stats=stats)
+    flat_q = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    q_off = flat_q[1:].view(q.shape)
+    q_off.copy_(q)
+    for stats in (False, True):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_prefill_gqa(q_off, *cache, st, lens, return_stats=stats)
+    assert (c.launches, cs.launches) == before
+    out = torch.empty(b, s, kvh * g, hd, dtype=torch.float32, device=dev)
+    entry = _kernels.entry("flash_prefill")
+    args = [q_off.data_ptr(), cache[0].data_ptr(), cache[1].data_ptr(),
+            cache[2].data_ptr(), cache[3].data_ptr(), st.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), b, kvh, g, s, s_max, hd,
+            float(1.0 / np.sqrt(hd)), _kernels.stream_ptr(dev)]
+    assert entry(*args) != 0
+    args[0] = q.data_ptr()
+    assert entry(*args) == 0
     torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) < 2e-3
+    want = flash_prefill_gqa(q, *cache, st, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 GEMM_REL_TOL = 1e-5
@@ -1188,7 +1295,7 @@ def test_flash_decode_read_and_state_agree_with_inplace(dev, g):
     assert float((merged - want).abs().max()) < 2e-3
 
 
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", PREFILL_GROUPS)
 @pytest.mark.parametrize("start", [0, 100, -8, -256, 256, 1000])
 def test_flash_prefill_stats_kernel_matches_plain(dev, g, start):
     """K4-stats: acc / l equals K4's output, (acc, m, l) the plain state;

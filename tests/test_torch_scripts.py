@@ -18,9 +18,9 @@ from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.scripts import (decode_sweep, headline,
                                                k12_fold_ablation,
                                                ksplit_sweep, layer_bench,
-                                               phase2_ab, profile_kernel,
-                                               ring_sweep, serve_bench,
-                                               straggler_probe)
+                                               phase2_ab, prefill_sweep,
+                                               profile_kernel, ring_sweep,
+                                               serve_bench, straggler_probe)
 
 CPU = ["--device", "cpu"]
 T_KW = dict(iters=2, repeats=1, min_chain_seconds=0.0)
@@ -163,6 +163,8 @@ def test_entry_points_default_to_cuda():
         ring_sweep.main(["--k1", "16x512x2048", "--k3"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         decode_sweep.main(["--k2", "16x4x4x4096:serving", "--k6"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prefill_sweep.main(["--shapes", "phase2-start0"])
 
 
 def test_decode_sweep_rows():
@@ -185,6 +187,33 @@ def test_decode_sweep_rows():
             "", "serving", "ones", "full")
 
 
+def test_prefill_sweep_rows():
+    """The sweep's shapes are chip_smoke's K4 rows (phase 4's 1024-bucket
+    prompts of its default_rng(2) draw plus a padding row; phase 6's
+    prompt), its variants parse into the kernel's defines (the package's
+    64x4:heavy among them) and refuse what the kernel has no build for;
+    the bound counts each visible key once."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    first = rng.integers(16, 1025, size=24)[:16]
+    b, kvh, g, s, s_max, starts, lens = prefill_sweep.SHAPES["bucket1024"]
+    assert lens == [int(x) for x in first if x > 512] + [1]
+    assert (b, s, s_max) == (len(lens), 1024, 4096) and set(starts) == {0}
+    assert prefill_sweep.SHAPES["cp16384"][3:5] == (16384, 16384)
+    assert "192x2:heavy" in prefill_sweep.VARIANTS
+    assert prefill_sweep.defines("128x3:q") == [
+        "-DDGA_K4_WARPS=8", "-DDGA_K4_STAGES=3", "-DDGA_K4_HEAVY_FIRST=0"]
+    for bad in ("96x4:heavy", "256x2:heavy", "64x4:light"):
+        with pytest.raises(ValueError):
+            prefill_sweep.defines(bad)
+    # 16 rows from position 0 read 16 key rows; rows before 0 read none.
+    ms, by = prefill_sweep.k4_bound(1, 1, 1, 16, 64, [0], [16])
+    assert by == "bytes" and ms == pytest.approx(
+        (16 * 128 * 6 + 16 * (2 * 128 + 8)) / 3.35e9)
+    assert prefill_sweep.k4_bound(1, 1, 1, 16, 64, [-40], [16])[0] == \
+        pytest.approx(16 * 128 * 6 / 3.35e9)
+
+
 def _ab_run(label, k2_ms, k6_ms, device_ms, k2_kernel):
     top = [{"kernel": "void at::native::elementwise_kernel<128, 4>(int)",
             "ms": 0.5, "count": 9},
@@ -195,8 +224,14 @@ def _ab_run(label, k2_ms, k6_ms, device_ms, k2_kernel):
         "int8_grouped_masked": [{"shape": "E=32", "ms": k6_ms}],
         "gemm": [{"shape": "only in " + label, "ms": 1.0}]},
         "serving": [{"run": "int8", "decode_tok_s": 300.0, "plans": {},
+                     "prefill_tok_s": 4000.0,
                      "profile": {"device_ms": device_ms, "wall_ms": 40.0,
-                                 "launches": 1400, "top": top}}]}
+                                 "launches": 1400, "top": top},
+                     "prefill_profile": {"bucket": 1024, "wall_ms": 300.0,
+                                         "unprofiled_wall_ms": 290.0,
+                                         "device_ms": 2 * device_ms,
+                                         "k4_ms": k2_ms * 10,
+                                         "k4_launches": 8}}]}
 
 
 def test_phase2_ab_summary(tmp_path, capsys):
@@ -222,7 +257,11 @@ def test_phase2_ab_summary(tmp_path, capsys):
     assert not any("only in" in ln for ln in lines)
     assert "serving int8 parent mean device_ms 6.600" in lines
     assert "serving int8 change mean device_ms 6.050" in lines
-    step = next(ln for ln in lines if "change1" in ln and "device_ms" in ln)
+    assert ("prefill int8 parent1    bucket 1024 wall_ms 300.00 "
+            "unprofiled_wall_ms 290.00 device_ms 13.000 k4_ms 0.900 "
+            "k4_launches 8 prefill_tok_s 4000.0") in lines
+    step = next(ln for ln in lines if "change1" in ln and "device_ms" in ln
+                and ln.startswith("serving"))
     assert "live_kernel 0.125 ms/8" in step and "elementwise" not in step
 
 

@@ -81,3 +81,20 @@ def bf16_within_one_ulp(got, ref) -> bool:
     ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
     tiny = 1e-6 * float(np.abs(ref).max(initial=0.0))
     return bool(np.all(np.abs(got - ref) <= ulp + tiny))
+
+
+# K4's bucket geometries, (kvh, g, s, S, start, lens) per case: serving's
+# buckets of 16 and 48 rows (wider than a q block of the kernel at groups 1
+# and 2), ragged lengths with a padding row (length 1) and an empty one, a
+# start at or past S (a ring hop that sees every key), and an S that is
+# not a multiple of 64.
+PREFILL_BUCKETS = [
+    (4, 1, 16, 128, [0, 0, 0], [11, 1, 16]),
+    (2, 2, 48, 128, [0, 0, 0], [48, 29, 1]),
+    (1, 16, 16, 128, [128, 140], [128, 128]),
+    (1, 8, 48, 96, [96, 0], [96, 40]),
+    (2, 4, 16, 80, [0, 0, 64], [0, 16, 80]),
+]
+PREFILL_BUCKET_IDS = ["s16-g1-padding-row", "s48-g2-ragged",
+                      "s16-g16-start-past-S", "s48-g8-S96",
+                      "s16-g4-empty-row-S80"]
