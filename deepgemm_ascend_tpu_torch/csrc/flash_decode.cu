@@ -21,7 +21,8 @@
 // shape 0.0111 ms at 3.35 TB/s.
 //
 // Two routes (ops/flash_decode.py: ROUTES):
-//   "span" (K5a, K5b; K2 only where the caches are off 16 bytes): the keys
+//   "span" (K5a, K5b; K2 where the caches are off 16 bytes or the head
+//     size is 64; head sizes 64 and 128): the keys
 //     of each (batch, kv head) split into spans of split_len keys, one
 //     block of 128 threads per span, however many keys are live; per chunk
 //     of 128 keys thread j scores key j against the G rows on the CUDA
@@ -30,8 +31,9 @@
 //     after key; nothing overlaps loads with math. A second kernel merges
 //     the spans: M = max m_i, l = sum l_i e^(m_i-M), acc = sum acc_i
 //     e^(m_i-M), and out = acc / l (K5a) or (acc, M, l) (K5b). One span
-//     kernel, templated on WRITE, and one merge kernel, on STATE.
-//   "live" (K2's decode path): the live keys of all sequences dealt over a
+//     kernel, templated on WRITE and the head size, and one merge kernel,
+//     on STATE and the head size.
+//   "live" (K2's decode path at head size 128): the live keys of all sequences dealt over a
 //     grid fixed by the shapes, a TMA ring, and both products on the
 //     tensor cores, with the merge done by the last block of each (batch,
 //     kv head) to finish. Its design note is at namespace live below.
@@ -41,13 +43,14 @@
 
 namespace {
 
-constexpr int kHD = 128;
+constexpr int kHD = 128;       // route "live"'s head size
 constexpr int kThreads = 128;
 constexpr int kChunk = 128;   // keys per step; one per thread when scoring
 
 // WRITE = false: k_new, v_new, ks_new, vs_new are null and the caches are
-// only read.
-template <int G, bool WRITE>
+// only read. HD, the head size (64 or 128): thread d < HD owns column d of
+// the new row, of V and of the state; every thread scores a key.
+template <int G, bool WRITE, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_span_kernel(const __nv_bfloat16* __restrict__ q, int8_t* kq,
                             float* ks, int8_t* vq, float* vs,
@@ -58,7 +61,8 @@ flash_decode_span_kernel(const __nv_bfloat16* __restrict__ q, int8_t* kq,
                             const int* __restrict__ seq_lens,
                             float* __restrict__ part, int kvh, int S,
                             int split_len, float scale) {
-  __shared__ float sq[G][kHD];
+  static_assert(HD % 16 == 0 && HD <= kThreads, "a column a thread");
+  __shared__ float sq[G][HD];
   __shared__ float sp[G][kChunk + 1];
   __shared__ float svs[kChunk];
   __shared__ float sm[G], sl[G], salpha[G];
@@ -70,13 +74,13 @@ flash_decode_span_kernel(const __nv_bfloat16* __restrict__ q, int8_t* kq,
   const int pos = WRITE ? len - 1 : -1;  // the new token's row (none: -1)
   const int t_begin = span * split_len;
   const int t_end = min(len, t_begin + split_len);
-  int8_t* kc = kq + bh * S * kHD;
-  int8_t* vc = vq + bh * S * kHD;
-  const int8_t* kn = WRITE ? k_new + bh * kHD : nullptr;
-  const int8_t* vn = WRITE ? v_new + bh * kHD : nullptr;
+  int8_t* kc = kq + bh * S * HD;
+  int8_t* vc = vq + bh * S * HD;
+  const int8_t* kn = WRITE ? k_new + bh * HD : nullptr;
+  const int8_t* vn = WRITE ? v_new + bh * HD : nullptr;
 
-  for (int i = tid; i < G * kHD; i += kThreads)
-    sq[i / kHD][i % kHD] = __bfloat162float(q[bh * G * kHD + i]);
+  for (int i = tid; i < G * HD; i += kThreads)
+    sq[i / HD][i % HD] = __bfloat162float(q[bh * G * HD + i]);
   if (tid < G) {
     sm[tid] = dga::kNegInf;
     sl[tid] = 0.f;
@@ -84,8 +88,10 @@ flash_decode_span_kernel(const __nv_bfloat16* __restrict__ q, int8_t* kq,
   // In-place cache write (by the first span's block). Reads of row `pos`
   // take the spliced inputs, so no thread reads what these stores write.
   if (WRITE && span == 0 && pos >= 0) {
-    kc[(size_t)pos * kHD + tid] = kn[tid];
-    vc[(size_t)pos * kHD + tid] = vn[tid];
+    if (tid < HD) {
+      kc[(size_t)pos * HD + tid] = kn[tid];
+      vc[(size_t)pos * HD + tid] = vn[tid];
+    }
     if (tid == 0) {
       ks[bh * S + pos] = ks_new[bh];
       vs[bh * S + pos] = vs_new[bh];
@@ -100,13 +106,13 @@ flash_decode_span_kernel(const __nv_bfloat16* __restrict__ q, int8_t* kq,
   for (int t0 = t_begin; t0 < t_end; t0 += kChunk) {
     const int t = t0 + tid;
     if (t < t_end) {
-      const int8_t* krow = (WRITE && t == pos) ? kn : kc + (size_t)t * kHD;
+      const int8_t* krow = (WRITE && t == pos) ? kn : kc + (size_t)t * HD;
       const float kscale = (WRITE && t == pos) ? ks_new[bh] : ks[bh * S + t];
       float sc[G];
 #pragma unroll
       for (int r = 0; r < G; ++r) sc[r] = 0.f;
 #pragma unroll 2
-      for (int c = 0; c < kHD; c += 16) {
+      for (int c = 0; c < HD; c += 16) {
         const int4 w = *reinterpret_cast<const int4*>(krow + c);
         const int8_t* kb = reinterpret_cast<const int8_t*>(&w);
 #pragma unroll
@@ -134,58 +140,63 @@ flash_decode_span_kernel(const __nv_bfloat16* __restrict__ q, int8_t* kq,
     }
     __syncthreads();
 
+    if (tid < HD) {
 #pragma unroll
-    for (int r = 0; r < G; ++r) acc[r] *= salpha[r];
-    for (int j = 0; j < n; ++j) {
-      const int tk = t0 + j;
-      const float v = static_cast<float>(WRITE && tk == pos ? vn[tid] : vc[(size_t)tk * kHD + tid]);
+      for (int r = 0; r < G; ++r) acc[r] *= salpha[r];
+      for (int j = 0; j < n; ++j) {
+        const int tk = t0 + j;
+        const float v = static_cast<float>(WRITE && tk == pos ? vn[tid] : vc[(size_t)tk * HD + tid]);
 #pragma unroll
-      for (int r = 0; r < G; ++r) acc[r] = fmaf(sp[r][j], v, acc[r]);
+        for (int r = 0; r < G; ++r) acc[r] = fmaf(sp[r][j], v, acc[r]);
+      }
     }
     __syncthreads();
   }
 
-  // This span's unnormalized state: per row r, [acc(kHD), m, l].
-  float* mine = part + ((bh * gridDim.z + span) * G) * (kHD + 2);
+  // This span's unnormalized state: per row r, [acc(HD), m, l].
+  float* mine = part + ((bh * gridDim.z + span) * G) * (HD + 2);
+  if (tid < HD) {
 #pragma unroll
-  for (int r = 0; r < G; ++r) mine[r * (kHD + 2) + tid] = acc[r];
+    for (int r = 0; r < G; ++r) mine[r * (HD + 2) + tid] = acc[r];
+  }
   if (tid < G) {
-    mine[tid * (kHD + 2) + kHD] = sm[tid];
-    mine[tid * (kHD + 2) + kHD + 1] = sl[tid];
+    mine[tid * (HD + 2) + HD] = sm[tid];
+    mine[tid * (HD + 2) + HD + 1] = sl[tid];
   }
 }
 
 // Merges the spans of one (batch, kv head): thread d owns output column d.
 // out: (b, kvh, G, hd) f32, normalized, or with STATE the merged acc and
 // m_out / l_out (b, kvh, G).
-template <int G, bool STATE>
+template <int G, bool STATE, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_merge_kernel(const float* __restrict__ part,
                           float* __restrict__ out, float* __restrict__ m_out,
                           float* __restrict__ l_out, int n_split) {
   const int tid = threadIdx.x;
+  if (tid >= HD) return;
   const size_t bh = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  const float* base = part + bh * n_split * G * (kHD + 2);
+  const float* base = part + bh * n_split * G * (HD + 2);
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     float m_all = dga::kNegInf;
     for (int s = 0; s < n_split; ++s)
-      m_all = fmaxf(m_all, base[(s * G + r) * (kHD + 2) + kHD]);
+      m_all = fmaxf(m_all, base[(s * G + r) * (HD + 2) + HD]);
     float l_all = 0.f, a_all = 0.f;
     for (int s = 0; s < n_split; ++s) {
-      const float* p = base + (s * G + r) * (kHD + 2);
-      const float w = expf(p[kHD] - m_all);
-      l_all += p[kHD + 1] * w;
+      const float* p = base + (s * G + r) * (HD + 2);
+      const float w = expf(p[HD] - m_all);
+      l_all += p[HD + 1] * w;
       a_all += p[tid] * w;
     }
     if (STATE) {
-      out[(bh * G + r) * kHD + tid] = a_all;
+      out[(bh * G + r) * HD + tid] = a_all;
       if (tid == 0) {
         m_out[bh * G + r] = m_all;
         l_out[bh * G + r] = l_all;
       }
     } else {
-      out[(bh * G + r) * kHD + tid] = dga::finalize(a_all, l_all);
+      out[(bh * G + r) * HD + tid] = dga::finalize(a_all, l_all);
     }
   }
 }
@@ -714,17 +725,17 @@ struct Args {
   float scale;
 };
 
-template <int G, bool WRITE, bool STATE>
+template <int G, bool WRITE, bool STATE, int HD>
 void launch(const Args& a, cudaStream_t stream) {
   const int n_split = (a.S + a.split_len - 1) / a.split_len;
-  flash_decode_span_kernel<G, WRITE><<<dim3(a.kvh, a.b, n_split), kThreads, 0, stream>>>(
+  flash_decode_span_kernel<G, WRITE, HD><<<dim3(a.kvh, a.b, n_split), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<int8_t*>(a.kq),
       static_cast<float*>(a.ks), static_cast<int8_t*>(a.vq), static_cast<float*>(a.vs),
       static_cast<const int8_t*>(a.k_new), static_cast<const int8_t*>(a.v_new),
       static_cast<const float*>(a.ks_new), static_cast<const float*>(a.vs_new),
       static_cast<const int*>(a.seq_lens), static_cast<float*>(a.part), a.kvh, a.S,
       a.split_len, a.scale);
-  flash_decode_merge_kernel<G, STATE><<<dim3(a.kvh, a.b), kThreads, 0, stream>>>(
+  flash_decode_merge_kernel<G, STATE, HD><<<dim3(a.kvh, a.b), kThreads, 0, stream>>>(
       static_cast<const float*>(a.part), static_cast<float*>(a.out),
       static_cast<float*>(a.m), static_cast<float*>(a.l), n_split);
 }
@@ -770,21 +781,28 @@ int dispatch_live(const Args& a, int g, int hd, int blocks, void* arrivals, void
   }
 }
 
-template <bool WRITE, bool STATE>
-int dispatch(const Args& a, int g, int hd, void* stream) {
-  if (hd != kHD || a.b <= 0 || a.kvh <= 0 || a.S <= 0 || a.split_len <= 0 ||
-      a.split_len % kChunk)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <bool WRITE, bool STATE, int HD>
+int dispatch_group(const Args& a, int g, cudaStream_t s) {
   switch (g) {
-    case 1: launch<1, WRITE, STATE>(a, s); break;
-    case 2: launch<2, WRITE, STATE>(a, s); break;
-    case 4: launch<4, WRITE, STATE>(a, s); break;
-    case 8: launch<8, WRITE, STATE>(a, s); break;
-    case 16: launch<16, WRITE, STATE>(a, s); break;
+    case 1: launch<1, WRITE, STATE, HD>(a, s); break;
+    case 2: launch<2, WRITE, STATE, HD>(a, s); break;
+    case 4: launch<4, WRITE, STATE, HD>(a, s); break;
+    case 8: launch<8, WRITE, STATE, HD>(a, s); break;
+    case 16: launch<16, WRITE, STATE, HD>(a, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Route "span", for head sizes 64 and 128.
+template <bool WRITE, bool STATE>
+int dispatch(const Args& a, int g, int hd, void* stream) {
+  if (a.b <= 0 || a.kvh <= 0 || a.S <= 0 || a.split_len <= 0 || a.split_len % kChunk)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 128) return dispatch_group<WRITE, STATE, 128>(a, g, s);
+  if (hd == 64) return dispatch_group<WRITE, STATE, 64>(a, g, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -12,7 +12,8 @@
 // start at or past the cache length sees every valid key. Numerics as in
 // flash_common.cuh.
 //
-// Design. A block takes kRows = 16 x kWarps (192) query rows of one (batch, kv
+// Design (head size 128; at head size 64 the kernel of namespace cores
+// below takes over). A block takes kRows = 16 x kWarps (192) query rows of one (batch, kv
 // head): BQ = kRows / G consecutive positions of all G heads of the group
 // (the TPU kernel's g*bq collapse), row r = gi * BQ + qi holding head gi at
 // position q0 + qi, so each K/V chunk is loaded and converted once for the
@@ -433,6 +434,161 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// ------------------------------------------------ head size 64: CUDA cores
+//
+// K4 and K4-stats at head size 64, which the wgmma kernel above is not
+// built for: the decode kernels' route "span" (flash_decode.cu) applied to
+// a q block. A block of 128 threads takes kRows = 16 query rows of one
+// (batch, kv head), the G heads at 16 / G positions (row r = gi * BQ + qi,
+// as above), and walks their keys [0, kv_end) in chunks of 128, twice:
+// thread j scores key j against the 16 rows (NEG_INF past a row's
+// position), and one warp a row takes the chunk's max (first pass), then
+// runs the softmax against the row's final max (second pass:
+// flash_common.cuh's softmax_row_step with alpha 1), so that w =
+// bf16(p * v_s) is rounded where the plain version rounds it; thread
+// (d, part) accumulates head dim d of the part-th group of 16 / (128 /
+// HD) rows, reading V a byte a thread. Nothing overlaps loads with math:
+// the route covers the geometry; it is not tuned.
+namespace cores {
+
+constexpr int kThreads = 128;
+constexpr int kRows = 16;
+constexpr int kChunk = 128;   // keys a step; one a thread when scoring
+
+struct Params {
+  const __nv_bfloat16* q;   // (b, s, heads, hd)
+  const int8_t* kq;         // (b, kvh, S, hd)
+  const float* ks;          // (b, kvh, S)
+  const int8_t* vq;
+  const float* vs;
+  const int* start;         // (b,)
+  const int* seq_lens;      // (b,)
+  float* out;               // (b, s, heads, hd)
+  float* m;                 // (b, s, heads), STATS only
+  float* l;
+  int b, kvh, s, S;
+  float scale;
+};
+
+template <int G, int HD, bool STATS>
+__global__ void __launch_bounds__(kThreads) prefill_kernel(Params p) {
+  static_assert(HD % 16 == 0 && kThreads % HD == 0 && kRows % (kThreads / HD) == 0, "");
+  constexpr int BQ = kRows / G;
+  constexpr int kMine = kRows / (kThreads / HD);   // rows a thread accumulates
+  __shared__ float sq[kRows][HD];
+  __shared__ float sp[kRows][kChunk + 1];
+  __shared__ float svs[kChunk];
+  __shared__ float sm[kRows], sl[kRows];
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int heads = p.kvh * G;
+  const int pairs = p.b * p.kvh;
+  const int bh = blockIdx.x % pairs;
+  const int b = bh / p.kvh, h = bh % p.kvh;
+  const int q0 = (blockIdx.x / pairs) * BQ;
+  const int st = p.start[b];
+  const int limit = min(max(p.seq_lens[b], 0), p.S);
+  // The block's keys: [0, kv_end), kv_end = min(limit, last position + 1).
+  const long long q_hi = (long long)st + min(q0 + BQ, p.s) - 1;
+  const int kv_end = (int)max(0ll, min((long long)limit, q_hi + 1));
+
+  for (int i = tid; i < kRows * HD; i += kThreads) {
+    const int r = i / HD, qpos = q0 + r % BQ;
+    sq[r][i % HD] = qpos < p.s ? __bfloat162float(
+        p.q[(((size_t)b * p.s + qpos) * heads + h * G + r / BQ) * HD + i % HD]) : 0.f;
+  }
+  if (tid < kRows) {
+    sm[tid] = dga::kNegInf;
+    sl[tid] = 0.f;
+  }
+  const int d = tid % HD, r0 = (tid / HD) * kMine;
+  float acc[kMine];
+#pragma unroll
+  for (int i = 0; i < kMine; ++i) acc[i] = 0.f;
+  __syncthreads();
+
+  const int8_t* kc = p.kq + (size_t)bh * p.S * HD;
+  const int8_t* vc = p.vq + (size_t)bh * p.S * HD;
+  const float* ks = p.ks + (size_t)bh * p.S;
+  const float* vs = p.vs + (size_t)bh * p.S;
+  // The chunk from key t0 into sp (scores, NEG_INF where masked) and svs.
+  auto score = [&](int t0) {
+    const int t = t0 + tid;
+    if (t < kv_end) {
+      float sc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < HD; c += 16) {
+        const int4 w = *reinterpret_cast<const int4*>(kc + (size_t)t * HD + c);
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const float kv = static_cast<float>(kb[u]);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) sc[r] = fmaf(sq[r][c + u], kv, sc[r]);
+        }
+      }
+      const float f = ks[t] * p.scale;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int qpos = q0 + r % BQ;
+        sp[r][tid] = (qpos < p.s && t <= st + qpos) ? sc[r] * f : dga::kNegInf;
+      }
+      svs[tid] = vs[t];
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) sp[r][tid] = dga::kNegInf;
+      svs[tid] = 0.f;
+    }
+  };
+
+  // First pass: each row's max over its keys.
+  for (int t0 = 0; t0 < kv_end; t0 += kChunk) {
+    score(t0);
+    __syncthreads();
+    const int n = min(kChunk, kv_end - t0);
+    for (int r = warp; r < kRows; r += kThreads / 32) {
+      float mx = dga::kNegInf;
+      for (int j = tid & 31; j < n; j += 32) mx = fmaxf(mx, sp[r][j]);
+      mx = dga::warp_max(mx);
+      if ((tid & 31) == 0) sm[r] = fmaxf(sm[r], mx);
+    }
+    __syncthreads();
+  }
+
+  // Second pass: p = e^(s - max), l, and acc += bf16(p * v_s) * v.
+  for (int t0 = 0; t0 < kv_end; t0 += kChunk) {
+    score(t0);
+    __syncthreads();
+    const int n = min(kChunk, kv_end - t0);
+    for (int r = warp; r < kRows; r += kThreads / 32)
+      dga::softmax_row_step(sp[r], svs, n, &sm[r], &sl[r]);   // alpha 1
+    __syncthreads();
+    for (int j = 0; j < n; ++j) {
+      const float v = static_cast<float>(vc[(size_t)(t0 + j) * HD + d]);
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) acc[i] = fmaf(sp[r0 + i][j], v, acc[i]);
+    }
+    __syncthreads();
+  }
+
+  // A row with no key keeps (acc 0, m -1e30, l 0): out 0.
+#pragma unroll
+  for (int i = 0; i < kMine; ++i) {
+    const int r = r0 + i, qpos = q0 + r % BQ;
+    if (qpos >= p.s) continue;
+    const size_t row = ((size_t)b * p.s + qpos) * heads + h * G + r / BQ;
+    p.out[row * HD + d] = STATS ? acc[i] : dga::finalize(acc[i], sl[r]);
+    if (STATS && d == 0) {
+      p.m[row] = sm[r];
+      p.l[row] = sl[r];
+    }
+  }
+}
+
+}  // namespace cores
+
 struct Args {
   const void *q, *kq, *ks, *vq, *vs, *start, *seq_lens;
   void *out, *m, *l;
@@ -466,12 +622,38 @@ int launch(const Args& a, cudaStream_t stream) {
                                                     stream, tk, tv, p);
 }
 
+// Head size 64: the kernel on the CUDA cores, on nq * b * kvh blocks.
+template <int G, bool STATS>
+int launch_cores(const Args& a, cudaStream_t stream) {
+  constexpr int BQ = cores::kRows / G;
+  const long long blocks = (long long)((a.s + BQ - 1) / BQ) * a.b * a.kvh;
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  const cores::Params p{static_cast<const __nv_bfloat16*>(a.q), static_cast<const int8_t*>(a.kq),
+                        static_cast<const float*>(a.ks), static_cast<const int8_t*>(a.vq),
+                        static_cast<const float*>(a.vs), static_cast<const int*>(a.start),
+                        static_cast<const int*>(a.seq_lens), static_cast<float*>(a.out),
+                        static_cast<float*>(a.m), static_cast<float*>(a.l), a.b, a.kvh, a.s,
+                        a.S, a.scale};
+  cores::prefill_kernel<G, 64, STATS><<<(unsigned)blocks, cores::kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <bool STATS>
 int dispatch(const Args& a, int g, int hd, void* stream) {
-  if (hd != kHD || a.b <= 0 || a.kvh <= 0 || a.s <= 0 || a.S <= 0 ||
+  if ((hd != kHD && hd != 64) || a.b <= 0 || a.kvh <= 0 || a.s <= 0 || a.S <= 0 ||
       (reinterpret_cast<uintptr_t>(a.q) & 15u))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64) {
+    switch (g) {
+      case 1: return launch_cores<1, STATS>(a, st);
+      case 2: return launch_cores<2, STATS>(a, st);
+      case 4: return launch_cores<4, STATS>(a, st);
+      case 8: return launch_cores<8, STATS>(a, st);
+      case 16: return launch_cores<16, STATS>(a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (g) {
     case 1: return launch<1, STATS>(a, st);
     case 2: return launch<2, STATS>(a, st);
@@ -484,9 +666,10 @@ int dispatch(const Args& a, int g, int hd, void* stream) {
 
 }  // namespace
 
-// K4: q (b, s, heads, hd) bf16 -> out (b, s, heads, hd) f32 = acc / l.
-// q, kq and vq must start on 16-byte boundaries (16-byte loads, TMA): the
-// entry refuses them otherwise.
+// K4: q (b, s, heads, hd) bf16 -> out (b, s, heads, hd) f32 = acc / l;
+// hd 128 on wgmma, hd 64 on the CUDA cores (namespace cores). q, kq and
+// vq must start on 16-byte boundaries (16-byte loads, TMA): the entry
+// refuses an offset q, the tensor map an offset cache.
 extern "C" int dga_flash_prefill(const void* q, const void* kq, const void* ks,
                                  const void* vq, const void* vs, const void* start,
                                  const void* seq_lens, void* out, int b, int kvh,

@@ -250,7 +250,10 @@ def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
     # as in the JAX package. No real row lands there: an expert gets at
     # most T of the cap = T·K rows (top-k picks distinct experts), and
     # with K = 1 one off-shard assignment leaves expert 0 fewer than T.
-    rows = torch.repeat_interleave(x.to(torch.bfloat16), cfg.top_k, dim=0)
+    # Each token's row top_k times (repeat_interleave's values, with no
+    # count read back to the host: the decode step is graph-captured).
+    rows = x.to(torch.bfloat16)[:, None].expand(
+        t, cfg.top_k, hidden).reshape(t * cfg.top_k, hidden)
     in_shard = None
     if e_local != e_total or expert_offset:
         local = topk_idx - expert_offset

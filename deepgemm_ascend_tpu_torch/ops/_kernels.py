@@ -22,6 +22,10 @@ kernel has a
 wrapper right where the kernel is launched, ``plain_calls`` by its plain
 PyTorch version, ``bare_launches`` by a caller that launches the C entry
 with no wrapper (P0's dispatch floor, ``scripts/straggler_probe.py``).
+A CUDA graph's capture goes through the wrappers but runs nothing, and its
+replays launch every captured kernel again without them: the engine that
+captures counts the capture's launches under ``captured`` and each replay's
+under ``replayed``, so :meth:`Counter.on_card` is what the card ran.
 ``chip_smoke.py`` zeroes them around each serving run to show which
 kernels the run really went through.
 """
@@ -104,15 +108,24 @@ class Counter:
     launches: int = 0
     plain_calls: int = 0
     bare_launches: int = 0
+    captured: int = 0
+    replayed: int = 0
     plans: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def count_plan(self, label: str) -> None:
         self.plans[label] = self.plans.get(label, 0) + 1
 
+    def on_card(self) -> int:
+        """The launches through the wrapper that ran on the card: those a
+        graph capture recorded left out, its replays' put in."""
+        return self.launches - self.captured + self.replayed
+
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
         self.bare_launches = 0
+        self.captured = 0
+        self.replayed = 0
         self.plans.clear()
 
 

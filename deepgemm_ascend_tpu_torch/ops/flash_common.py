@@ -16,12 +16,16 @@ through :func:`softmax_pv`:
 The stats variants (K4-stats, K5b) return the raw state ``(acc, m, l)``
 instead of ``acc / l``: an empty row keeps ``(0, NEG_INF, 0)``.
 
-The CUDA kernels take one head size and five GQA group sizes
-(:func:`check_cuda_geometry`); any other raises on the card.
+The CUDA kernels take two head sizes and five GQA group sizes
+(:func:`cuda_geometry_ok`): head size 128 on the tensor cores (K2's route
+"live", K4's wgmma kernel), 64 on the CUDA cores (K2, K5a and K5b's route
+"span", K4's kernel of ``namespace cores``). A wrapper given any other on
+the card raises (:func:`check_cuda_geometry`).
 
 A kernel differs from its plain version in one place: it rounds each
 ``p · v_scale`` to bf16 against its running row max, the plain version
-against the final one. Each rounding is within 2^-8 (bf16's unit
+against the final one (K4's kernel on the CUDA cores takes the final max
+in a first pass and rounds where the plain version does). Each rounding is within 2^-8 (bf16's unit
 roundoff), so per element acc may differ by 2^-7 · Σ_j w_j·|v_j| (w_j the
 plain version's bf16 ``p_j · v_scale_j``) plus the f32 sum order:
 :func:`state_close` and :func:`output_close` hold a kernel to that, with
@@ -33,19 +37,25 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8, 16)
 # Per element, |acc_kernel - acc_plain| / Σ_j w_j·|v_j|: two bf16 roundings
 # of 2^-8 each, and 2^-12 for the f32 sum order and the exp of another max.
 PV_ROUNDING = 2.0 ** -7 + 2.0 ** -12
 
 
+def cuda_geometry_ok(hd: int, g: int) -> bool:
+    """Whether the CUDA kernels are built for head size ``hd`` and GQA
+    group ``g`` (the plain versions take any)."""
+    return hd in KERNEL_HEAD_DIMS and g in KERNEL_GROUPS
+
+
 def check_cuda_geometry(name: str, hd: int, g: int) -> None:
     """Raise for a head size or GQA group the CUDA kernels are not built
     for (a CPU tensor takes the plain version, which has no such limit)."""
-    if hd != KERNEL_HEAD_DIM or g not in KERNEL_GROUPS:
-        raise ValueError(f"{name}: the CUDA kernel takes head_dim "
-                         f"{KERNEL_HEAD_DIM} and a GQA group in "
+    if not cuda_geometry_ok(hd, g):
+        raise ValueError(f"{name}: the CUDA kernel takes a head_dim in "
+                         f"{KERNEL_HEAD_DIMS} and a GQA group in "
                          f"{KERNEL_GROUPS}, got head_dim={hd}, group={g}")
 
 

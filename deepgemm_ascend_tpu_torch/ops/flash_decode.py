@@ -17,7 +17,8 @@ On a CUDA tensor the wrappers launch ``csrc/flash_decode.cu``; on a CPU
 tensor they run the plain versions beside them. K5a and K5b take route
 "span": one block per span of :data:`SPLIT_KEYS` keys of each (batch, kv
 head), then a merge of the spans that normalizes, or for K5b writes the
-merged state. K2 takes route "live" (:func:`route`): a grid of
+merged state. K2 takes route "live" at head size 128 (:func:`route`; at
+64 it takes route "span"): a grid of
 :func:`live_blocks` blocks, fixed by the shapes, which read the lengths on
 the card and share the live keys of all sequences out in proportion to
 their lengths (:func:`live_plan`, :func:`live_block_range`), each through
@@ -58,16 +59,18 @@ ROUTES = ("span", "live")
 # (scripts/decode_sweep.py times other counts), and the most blocks one
 # (batch, kv head) takes (the kernel's bound: its merge's weights).
 LIVE_CHUNK = 64
+LIVE_HEAD_DIM = 128
 LIVE_BLOCKS_PER_SM = 3
 LIVE_MAX_SPLITS = 256
 
 
 def route(k_q, v_q, k_new, v_new) -> str:
-    """K2's route: ``"live"`` where TMA and 16-byte loads can read the
-    caches and the new rows (16-byte-aligned ``data_ptr``s; the wrapper
-    makes them contiguous), else ``"span"``."""
-    return ("live" if all(t.data_ptr() % 16 == 0
-                          for t in (k_q, v_q, k_new, v_new)) else "span")
+    """K2's route: ``"live"`` at head size LIVE_HEAD_DIM where TMA and
+    16-byte loads can read the caches and the new rows (16-byte-aligned
+    ``data_ptr``s; the wrapper makes them contiguous), else ``"span"``."""
+    return ("live" if k_q.shape[-1] == LIVE_HEAD_DIM
+            and all(t.data_ptr() % 16 == 0 for t in (k_q, v_q, k_new, v_new))
+            else "span")
 
 
 def live_blocks(b: int, kvh: int, s_max: int, sms: int) -> int:

@@ -14,7 +14,8 @@ On a CUDA tensor the wrapper launches ``csrc/flash_prefill.cu`` (the
 of :data:`ROWS` query rows (the TPU kernel's VMEM-driven q-block search is
 not needed) fed by a TMA ring, both products on the tensor cores, launched
 heaviest first (:func:`block_order`); it reads q and writes its outputs in
-the public layouts. On a CPU tensor it runs :func:`flash_prefill_plain` or
+the public layouts. At head size 64 the same entries run a kernel on the
+CUDA cores instead, 16 query rows a block. On a CPU tensor it runs :func:`flash_prefill_plain` or
 :func:`flash_prefill_stats_plain`, on the kernel layout of the JAX package.
 """
 

@@ -11,14 +11,19 @@ script's keys:
 * ``--mode engine``: the continuous-batching ``Engine`` end to end.
 * ``--mode mixed``: 2×slots requests, so that slots recycle mid-run, with
   several admissions a step.
+* ``--mode chunksweep``: the engine at ``decode_chunk`` 1, 2, 4, 8 and 16
+  (a CUDA graph replay a chunk on the card) over requests of staggered
+  lengths, with the utilization (decode tokens over slot-steps run).
+* ``--mode prefix``: one batched admission of requests that share a long
+  system prompt, on a cold engine and on one with the prefix cache.
+* ``--speculative-k k`` (engine mode): greedy speculative decoding with
+  prompt-lookup drafts, or with ``--spec-oracle`` the greedy continuation
+  that a speculative engine recorded first.
 
 ``--expert-quant int8`` runs the MoE experts as W8A8 int8
 (``models.params_with_int8_experts``), in every mode, as in JAX for scan
-and engine. The modes ``chunksweep``, ``prefix``, ``scaling`` and
-``--speculative-k`` need what the port does not have yet (chunked decode,
-the prefix cache, speculative decoding, ``parallel/sharded.py``): they stay
-in the choices and raise ``NotImplementedError`` (the engine's own, where
-the engine refuses them).
+and engine. ``--mode scaling`` needs ``parallel/sharded.py``, which the
+port does not have yet, and raises ``NotImplementedError``.
 
     python -m deepgemm_ascend_tpu_torch.scripts.serve_bench --mode scan \\
         --model v2_lite --batch 64 --steps 64 --max-seq 4096
@@ -40,6 +45,8 @@ from ..utils.common import resolve_device
 from ..utils.logging import metrics
 
 MODELS = {"tiny": TINY, "v2_lite": V2_LITE}
+# The chunk sweep's decode_chunk values.
+CHUNKS = (1, 2, 4, 8, 16)
 
 
 def _params_for(args, cfg, dev):
@@ -81,30 +88,112 @@ def _scan_mode(args, dev):
     }), flush=True)
 
 
+def recorded_drafts(prompts, outputs):
+    """A draft function that drafts each request's recorded continuation
+    exactly: the request is the first whose prompt starts the history,
+    its drafts the ``k`` recorded tokens after the history (the last one
+    repeated past the record's end)."""
+    pairs = list(zip(prompts, outputs))
+
+    def draft_fn(slot, hist, k):
+        for prompt, seq in pairs:
+            n = len(prompt)
+            if len(hist) >= n and list(hist[:n]) == list(prompt):
+                cont = list(seq[len(hist) - n:len(hist) - n + k])
+                pad = cont[-1] if cont else hist[-1]
+                return (cont + [pad] * k)[:k]
+        return [hist[-1] if hist else 0] * k
+    return draft_fn
+
+
+def _oracle_drafts(params, cfg, args, prompts, dev):
+    """The draft function of ``--spec-oracle``: each request's greedy
+    continuation as a speculative engine records it first (its own
+    argmaxes: a plain engine's decode kernels round near-ties otherwise),
+    drafted exactly."""
+    recorded = Engine(params, cfg, max_slots=args.batch,
+                      max_seq_len=args.steps + 16,
+                      speculative_k=args.speculative_k,
+                      device=dev).generate(prompts,
+                                           max_new_tokens=args.steps)
+    return recorded_drafts(prompts, recorded)
+
+
 def _engine_mode(args, dev):
     cfg = MODELS[args.model]
     params = _params_for(args, cfg, dev)
     prompts = [[1, 2, 3]] * args.batch
+    draft_fn = (_oracle_drafts(params, cfg, args, prompts, dev)
+                if args.speculative_k and args.spec_oracle else None)
     eng = Engine(params, cfg, max_slots=args.batch,
                  max_seq_len=args.steps + 16,
                  decode_chunk=args.decode_chunk,
-                 speculative_k=args.speculative_k, device=dev)
+                 speculative_k=args.speculative_k, draft_fn=draft_fn,
+                 device=dev)
     eng.generate(prompts, max_new_tokens=8)   # warm
-    # Full reset: a missed decode_tokens here inflates tokens_per_s.
+    # Full reset: a missed decode_tokens here inflates tokens_per_s, and the
+    # metrics carry the warm run's proposals.
     eng.stats.update(decode_steps=0, tokens_out=0, decode_time_s=0.0,
                      decode_tokens=0, decode_slot_steps=0)
     metrics.reset()
     eng.generate(prompts, max_new_tokens=args.steps)
+    snap = metrics.snapshot()
     print(json.dumps({
         "metric": "moe_decode_tokens_per_s", "mode": "engine",
         "expert_quant": args.expert_quant,
         "speculative_k": args.speculative_k,
-        "spec_drafting": None, "spec_accept_rate": None,
+        "spec_drafting": (("oracle" if args.spec_oracle else "prompt_lookup")
+                          if args.speculative_k else None),
+        "spec_accept_rate": (
+            round(snap.get("engine.spec_accepted", 0)
+                  / max(snap.get("engine.spec_proposed", 0), 1), 3)
+            if args.speculative_k else None),
         "model": args.model, "slots": args.batch,
         "decode_chunk": args.decode_chunk,
         "tokens_per_s": round(eng.tokens_per_second, 1),
         "decode_steps": eng.stats["decode_steps"],
     }), flush=True)
+
+
+def _chunksweep_mode(args, dev):
+    """The decode_chunk tradeoff: staggered request lengths expose the
+    ≤ N−1 wasted steps a finished request and the ≤ N-step admission wait.
+    Utilization = decode tokens emitted over decode slot-steps run."""
+    cfg = MODELS[args.model]
+    params = _params_for(args, cfg, dev)
+    prompts = [[1, 2, 3]] * args.batch
+    # Request i stops after steps/2 + i·Δ tokens.
+    lens = [args.steps // 2
+            + (i * (args.steps // 2)) // max(args.batch - 1, 1)
+            for i in range(args.batch)]
+    for chunk in CHUNKS:
+        eng = Engine(params, cfg, max_slots=args.batch,
+                     max_seq_len=args.steps + 24, decode_chunk=chunk,
+                     device=dev)
+        eng.generate(prompts, max_new_tokens=8)   # warm (and capture)
+        eng.stats.update(decode_steps=0, tokens_out=0, decode_tokens=0,
+                         decode_time_s=0.0, decode_slot_steps=0)
+        ids = [eng.scheduler.submit(p, n) for p, n in zip(prompts, lens)]
+        t0 = time.perf_counter()
+        while eng.scheduler.has_work:
+            eng.step()
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+        for i in ids:
+            eng.scheduler.pop_result(i)
+        print(json.dumps({
+            "metric": "decode_chunk_tradeoff", "mode": "chunksweep",
+            "expert_quant": args.expert_quant,
+            "model": args.model, "slots": args.batch,
+            "decode_chunk": chunk,
+            "tokens_per_s_decode": round(eng.tokens_per_second, 1),
+            "tokens_per_s_wall": round(sum(lens) / wall, 1),
+            "utilization": round(
+                eng.stats["decode_tokens"]
+                / max(eng.stats["decode_slot_steps"], 1), 3),
+            "decode_steps": eng.stats["decode_steps"],
+            "graph_capture_s": round(eng.stats["graph_capture_s"], 4),
+        }), flush=True)
 
 
 def _mixed_mode(args, dev):
@@ -141,19 +230,54 @@ def _mixed_mode(args, dev):
     }), flush=True)
 
 
-# What each unported mode needs of the engine (the JAX script's chunk
-# sweep starts at 2 after 1, its prefix mode warms 4 prefix slots).
-_NEEDS = {"chunksweep": {"decode_chunk": 2},
-          "prefix": {"prefix_cache_slots": 4}}
-
-
-def _unported_mode(args, dev):
-    """Build the engine the mode needs; the port's engine refuses the
-    feature with ``NotImplementedError``."""
+def _prefix_mode(args, dev):
+    """Prefix-cache admission latency: ``batch`` requests sharing a long
+    system prompt, admitted in one step, on a cold engine and on a warm
+    one (``prefix_cache_slots``), which prefills only each request's
+    suffix window (16 tokens here) after one batched row copy of the
+    stored prefix. Each engine's second wave is the one measured."""
     cfg = MODELS[args.model]
-    Engine(_params_for(args, cfg, dev), cfg, max_slots=args.batch,
-           device=dev, **_NEEDS[args.mode])
-    raise NotImplementedError(f"--mode {args.mode} is not ported")
+    params = _params_for(args, cfg, dev)
+    sys_len = (max(32, min((args.max_seq or 512) - 32, 992)) // 16) * 16
+    system = [(i * 7 + 1) % cfg.vocab_size for i in range(sys_len)]
+    n_req = args.batch
+    prompts = [system + [(i * 13 + j) % cfg.vocab_size for j in range(4)]
+               for i in range(n_req)]
+
+    def run(prefix_slots):
+        eng = Engine(params, cfg, max_slots=n_req, max_seq_len=sys_len + 64,
+                     prefix_cache_slots=prefix_slots, device=dev)
+        eng.generate([prompts[0]], max_new_tokens=1)   # warm, and seed
+
+        def wave():
+            metrics.reset()
+            ids = [eng.scheduler.submit(p, 1) for p in prompts]
+            synchronize(dev)
+            t0 = time.perf_counter()
+            eng.step()                  # one batched admission
+            synchronize(dev)
+            wall = time.perf_counter() - t0
+            while eng.scheduler.has_work:
+                eng.step()
+            for i in ids:
+                eng.scheduler.pop_result(i)
+            return wall, metrics.snapshot()
+
+        wave()
+        return wave()
+
+    cold_wall, _ = run(0)
+    warm_wall, snap = run(4)
+    print(json.dumps({
+        "metric": "prefix_cache_admission_speedup", "mode": "prefix",
+        "expert_quant": args.expert_quant,
+        "model": args.model, "requests": n_req, "system_tokens": sys_len,
+        "cold_admission_s": round(cold_wall, 4),
+        "warm_admission_s": round(warm_wall, 4),
+        "speedup": round(cold_wall / max(warm_wall, 1e-9), 2),
+        "prefix_hits": int(snap.get("engine.prefix_hits", 0)),
+        "tokens_reused": int(snap.get("engine.prefix_tokens_reused", 0)),
+    }), flush=True)
 
 
 def _scaling_mode(args, dev):
@@ -163,8 +287,8 @@ def _scaling_mode(args, dev):
 
 
 MODES = {"scan": _scan_mode, "engine": _engine_mode,
-         "scaling": _scaling_mode, "chunksweep": _unported_mode,
-         "mixed": _mixed_mode, "prefix": _unported_mode}
+         "scaling": _scaling_mode, "chunksweep": _chunksweep_mode,
+         "mixed": _mixed_mode, "prefix": _prefix_mode}
 
 
 def main(argv=None) -> int:
@@ -176,13 +300,19 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-chunk", type=int, default=1,
                     help="engine mode: decode N tokens per dispatch")
     ap.add_argument("--max-seq", type=int, default=0,
-                    help="KV cache length (scan mode; 0 = steps+8)")
+                    help="KV cache length (scan mode; 0 = steps+8); prefix "
+                         "mode: the system prompt is max-seq - 32 tokens "
+                         "(0: 480), within 32..992")
     ap.add_argument("--expert-quant", choices=["fp8", "int8"], default="fp8",
                     help="run the MoE experts as W8A8 int8 "
                          "(models.params_with_int8_experts)")
     ap.add_argument("--speculative-k", type=int, default=0,
                     help="engine mode: greedy speculative decoding with k "
-                         "drafts per step")
+                         "prompt-lookup drafts per step (lossless)")
+    ap.add_argument("--spec-oracle", action="store_true",
+                    help="engine mode with --speculative-k: draft the "
+                         "greedy continuation a speculative engine "
+                         "recorded first (the verify machinery's ceiling)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     MODES[args.mode](args, resolve_device(args.device))

@@ -7,15 +7,29 @@ power-of-two buckets from 16 and each step's admissions are prefilled in
 one forward per bucket, on a copy of their slots' cache rows that is
 merged back afterwards. Padding rows (slot −1) never write a cache row.
 
-Left for later slices, and refused by the constructor: the device mesh,
-chunked decode (``decode_chunk > 1``), the prefix cache and speculative
-decoding. PyTorch runs eagerly, so the JAX package's per-shape program
-memo has no counterpart here.
+The JAX engine's serving features, with its semantics:
+
+* chunked decode (``decode_chunk`` = N > 1): N decode steps an iteration,
+  sampled inside the chunk. JAX scans them in one device program. Here the
+  chunk is a loop of eager steps on the CPU; on CUDA the first chunk runs
+  eagerly on a side stream and is then captured there as one CUDA graph,
+  which every later chunk replays (a failure to capture raises);
+* the prefix cache (``prefix_cache_slots``): a store of prefilled 16-token
+  grain prompt prefixes, LRU, copied into an admitted slot whose prompt
+  extends one, the suffix prefilled from ``prefill_start`` = the hit;
+* greedy speculative decoding (``speculative_k``, ``draft_fn``): every
+  slot's current token and k drafts verified in one 16-token forward.
+
+The engine's state (caches, lengths, last tokens) is updated in place, so
+that a captured graph reads and writes one storage for each. The device
+mesh waits for the parallel slice and is refused. PyTorch runs eagerly, so
+the JAX package's per-shape program memo has no counterpart here.
 """
 
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,6 +38,7 @@ import torch
 from ..models.attention import KVCache
 from ..models.config import ModelConfig
 from ..models.model import ModelParams, decode_step, forward, init_cache
+from ..ops._kernels import COUNTERS
 from ..utils.common import resolve_device
 from ..utils.logging import get_logger, metrics
 from .scheduler import Scheduler
@@ -35,6 +50,39 @@ def _bucket(n: int, lo: int = 16) -> int:
     while b < n:
         b *= 2
     return b
+
+
+_CACHE_FIELDS = ("k_q", "k_s", "v_q", "v_s")
+# Verify-window width: the flash-prefill grain (s % 16 == 0, attention.py
+# gate), so that the verification forward runs K4 over the int8 cache; the
+# columns past k + 1 are padding, their cache rows invalid by length.
+_VERIFY_WINDOW = 16
+
+
+def _draft_prompt_lookup(hist: List[int], k: int, n: int = 3) -> List[int]:
+    """Prompt-lookup (n-gram) drafting, the JAX engine's: the k tokens that
+    followed the most recent earlier occurrence of the last n-gram, padded
+    with the last of them; with no match, the last token k times."""
+    if len(hist) >= n + 1:
+        tail = hist[-n:]
+        for i in range(len(hist) - n - 1, -1, -1):
+            if hist[i:i + n] == tail:
+                cont = hist[i + n:i + n + k]
+                if cont:
+                    return (cont + [cont[-1]] * (k - len(cont)))[:k]
+    last = hist[-1] if hist else 0
+    return [last] * k
+
+
+def _copy_cache_rows(dst: List[KVCache], src: List[KVCache],
+                     dst_idx: torch.Tensor, src_idx: torch.Tensor) -> None:
+    """Copy batch rows src[src_idx] → dst[dst_idx] of every layer's values
+    and scales, in place (the destination rows are distinct). Used both
+    ways between the slot caches and the prefix store."""
+    for d, s in zip(dst, src):
+        for name in _CACHE_FIELDS:
+            getattr(d, name).index_copy_(
+                0, dst_idx, getattr(s, name).index_select(0, src_idx))
 
 
 def _prefill(params: ModelParams, caches: List[KVCache], cfg: ModelConfig,
@@ -61,7 +109,7 @@ def _prefill(params: ModelParams, caches: List[KVCache], cfg: ModelConfig,
     src = torch.from_numpy(rows).to(dev, torch.int64)
     dst = torch.from_numpy(slots[rows]).to(dev, torch.int64)
     for c, s in zip(caches, sub):
-        for name in ("k_q", "k_s", "v_q", "v_s"):
+        for name in _CACHE_FIELDS:
             getattr(c, name)[dst] = getattr(s, name)[src]
     return logits[torch.arange(s_pad, device=dev),
                   torch.from_numpy(last_idx).to(dev, torch.int64)]
@@ -114,11 +162,9 @@ def sample_logits(logits: torch.Tensor,
     # logits' dtype first.
     logits = logits / torch.tensor(temperature, dtype=logits.dtype)
     top_k = min(top_k, logits.shape[-1])   # top_k > vocab would crash
-    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
-                           device=logits.device)
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < kth, neg_inf, logits)
+        logits = logits.masked_fill(logits < kth, float("-inf"))
     if top_p < 1.0:
         sorted_l = torch.sort(logits, dim=-1, descending=True).values
         probs = _softmax(sorted_l)
@@ -131,11 +177,19 @@ def sample_logits(logits: torch.Tensor,
         cutoff = torch.where(keep, sorted_l,
                              torch.full_like(sorted_l, float("inf")))
         cutoff = cutoff.amin(dim=-1, keepdim=True)
-        logits = torch.where(logits < cutoff, neg_inf, logits)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    draw = torch.multinomial(flat, 1, generator=generator)
-    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+    return _categorical(probs, generator).to(torch.int32)
+
+
+def _categorical(probs: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw from each row of ``probs`` (..., n): argmax of p / q with q
+    ~ Exp(1), the draw ``torch.multinomial`` makes for one sample, without
+    its checks of the probabilities, which read them back to the host (a
+    captured CUDA graph reads nothing back)."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
 
 
 class Engine:
@@ -161,22 +215,18 @@ class Engine:
         device="cuda",
     ):
         """Serve ``params`` on ``device`` (where the parameters must be).
-        Sampling parameters are fixed at construction."""
+        Sampling parameters are fixed at construction.
+
+        ``decode_chunk``: decode N tokens an iteration (one graph replay on
+        CUDA), at the cost of admission granularity and up to N−1 wasted
+        steps a request after its EOS or budget (the scheduler drops
+        them). ``prefix_cache_slots``: the number of stored prefixes.
+        ``speculative_k``: drafts verified an iteration (greedy only);
+        ``draft_fn(slot, hist, k) -> k tokens`` replaces prompt-lookup
+        drafting."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving arrives with the port's parallel slice")
-        if int(decode_chunk) > 1:
-            raise NotImplementedError(
-                "decode_chunk > 1 arrives with the port's serving-features "
-                "slice")
-        if prefix_cache_slots:
-            raise NotImplementedError(
-                "prefix_cache_slots arrives with the port's serving-features "
-                "slice")
-        if speculative_k or draft_fn is not None:
-            raise NotImplementedError(
-                "speculative decoding arrives with the port's "
-                "serving-features slice")
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, engine device "
@@ -189,6 +239,24 @@ class Engine:
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
+        self.decode_chunk = max(int(decode_chunk), 1)
+        # Greedy speculative decoding, lossless: the emitted tokens are the
+        # verify forward's own argmaxes; drafts only decide how many land.
+        self.spec_k = max(int(speculative_k), 0)
+        if self.spec_k:
+            if self.decode_chunk > 1:
+                raise ValueError("speculative_k requires single-device "
+                                 "mode with decode_chunk=1")
+            if temperature != 0.0 or top_k or (top_p and top_p < 1.0):
+                raise ValueError("speculative_k requires greedy sampling "
+                                 "(temperature 0, no top-k/top-p) — "
+                                 "greedy verification is lossless")
+            if self.spec_k >= _VERIFY_WINDOW:
+                raise ValueError(f"speculative_k must be < the verify "
+                                 f"window {_VERIFY_WINDOW}")
+        self._draft_fn = (draft_fn if draft_fn is not None else
+                          (lambda slot, hist, k:
+                           _draft_prompt_lookup(hist, k)))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.caches = init_cache(cfg, max_slots, self.max_seq_len,
                                  device=self.device)
@@ -196,10 +264,35 @@ class Engine:
                                     device=self.device)
         self.last_tokens = torch.zeros((max_slots,), dtype=torch.int32,
                                        device=self.device)
+        # The decode steps' mask of active slots and their tokens (chunk,
+        # slots): static buffers, which a captured chunk reads and writes.
+        self._mask = torch.zeros((max_slots,), dtype=torch.bool,
+                                 device=self.device)
+        self._out = torch.zeros((self.decode_chunk, max_slots),
+                                dtype=torch.int32, device=self.device)
+        self._graph = None
+        self._capture_stream = None
+        # Launches and plain calls of each kernel in the captured chunk:
+        # what every replay launches (the counters are bumped on the host,
+        # once, while capturing).
+        self.graph_launches: Optional[Dict[str, tuple]] = None
+        self._prefix_slots = int(prefix_cache_slots)
+        if self._prefix_slots:
+            self._prefix_store = init_cache(cfg, self._prefix_slots,
+                                            self.max_seq_len,
+                                            device=self.device)
+            self._prefix_map: "OrderedDict[tuple, int]" = OrderedDict()
+            self._prefix_free = list(range(self._prefix_slots))
         self.stats = {"decode_steps": 0, "prefills": 0, "tokens_out": 0,
                       "decode_tokens": 0, "decode_time_s": 0.0,
+                      # slot-steps the decode ran (chunk × active slots):
+                      # decode_tokens / decode_slot_steps is the chunked
+                      # decode's utilization.
                       "decode_slot_steps": 0, "prefill_time_s": 0.0,
-                      "prefill_tokens": 0}
+                      "prefill_tokens": 0,
+                      # host time of the CUDA graph capture, outside
+                      # decode_time_s, and the graph's replays.
+                      "graph_capture_s": 0.0, "graph_replays": 0}
 
     def _prompt_bucket(self, prompt_len: int) -> int:
         bucket = _bucket(prompt_len)
@@ -209,22 +302,207 @@ class Engine:
             bucket = min(-(-prompt_len // 16) * 16, self.max_seq_len)
         return bucket
 
+    # -- prefix cache --------------------------------------------------------
+    def _prefix_lookup(self, prompt) -> tuple:
+        """(hit_len, store_idx): the longest stored 16-grain prefix of
+        ``prompt`` that still leaves ≥1 suffix token, or (0, None)."""
+        if not self._prefix_slots:
+            return 0, None
+        L = ((len(prompt) - 1) // 16) * 16
+        while L >= 16:
+            key = tuple(prompt[:L])
+            ent = self._prefix_map.get(key)
+            if ent is not None:
+                # The window must fit before the LRU promotion: a hit this
+                # prompt cannot use must not displace reusable entries.
+                if L + -(-(len(prompt) - L) // 16) * 16 <= self.max_seq_len:
+                    self._prefix_map.move_to_end(key)
+                    return L, ent
+                return 0, None
+            L -= 16
+        return 0, None
+
+    def _prefix_insert_batch(self, pending) -> None:
+        """Store the freshly prefilled prefixes of ``pending`` (prompt,
+        slot) pairs in one batched row copy. Called only after every hit
+        of the step has copied its store row out, so that an LRU eviction
+        here cannot overwrite a row a hit still needs."""
+        dst, src = [], []
+        for prompt, slot in pending:
+            # The largest multiple of 16 that leaves ≥1 token, so that an
+            # exact repeat hits too (a lookup needs a suffix).
+            L = ((len(prompt) - 1) // 16) * 16
+            key = tuple(prompt[:L])
+            if L < 16 or key in self._prefix_map:
+                continue
+            if self._prefix_free:
+                idx = self._prefix_free.pop()
+            else:
+                _, idx = self._prefix_map.popitem(last=False)   # LRU
+            self._prefix_map[key] = idx
+            dst.append(idx)
+            src.append(slot)
+        if dst:
+            _copy_cache_rows(self._prefix_store, self.caches,
+                             self._index(dst), self._index(src))
+            metrics.inc("engine.prefix_inserts", len(dst))
+
+    def _index(self, rows) -> torch.Tensor:
+        return torch.as_tensor(rows, dtype=torch.int64).to(self.device)
+
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample_logits(logits, self._gen, temperature=self.temperature,
                              top_k=self.top_k, top_p=self.top_p)
 
-    def _emit_tokens(self, out_rows, active, sched, emitted) -> None:
-        """Per-step emission: out_rows (T, slots) tokens; slots that finish
-        (EOS/budget) stop emitting via the scheduler."""
+    # -- decode ----------------------------------------------------------------
+    def _decode_chunk(self, mask: torch.Tensor, out: torch.Tensor) -> None:
+        """``out.shape[0]`` decode steps of every slot, each sampled: the
+        function that the CUDA graph captures. Slots where ``mask`` is
+        False neither advance nor change their token; step t's tokens go
+        to ``out[t]``. Every state tensor is updated in place."""
+        for t in range(out.shape[0]):
+            logits, _ = decode_step(self.params, self.last_tokens,
+                                    self.caches, self.seq_lens, self.cfg)
+            nxt = torch.where(mask, self._sample(logits), self.last_tokens)
+            self.seq_lens.add_(mask.to(torch.int32))
+            self.last_tokens.copy_(nxt)
+            out[t].copy_(nxt)
+
+    def _run_decode(self, chunk: int) -> np.ndarray:
+        """``chunk`` decode steps of the slots in ``self._mask``; returns
+        their tokens (chunk, slots). On CUDA a chunk of ``decode_chunk``
+        replays the captured graph; the first one runs eagerly on the
+        stream the graph is then captured on (:meth:`_capture`)."""
+        out = self._out[:chunk]
+        if chunk == 1 or self.device.type != "cuda":
+            self._decode_chunk(self._mask, out)
+        elif self._graph is not None:
+            self._graph.replay()
+            self.stats["graph_replays"] += 1
+            for n, (launches, _) in self.graph_launches.items():
+                COUNTERS[n].replayed += launches
+        else:
+            # Real work, on the capture stream: it also makes that stream's
+            # K2 arrival counts (flash_decode._ARRIVALS) before the
+            # capture, outside the graph's memory pool.
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._capture_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._capture_stream):
+                self._decode_chunk(self._mask, out)
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._capture_stream)
+        return out.cpu().numpy()
+
+    def _capture(self) -> None:
+        """Capture one chunk of ``decode_chunk`` steps as a CUDA graph on
+        the stream its eager run used. Capturing runs nothing on the card:
+        the launches its wrappers count are one replay's
+        (``graph_launches``), kept apart under each counter's ``captured``
+        (each replay adds them to ``replayed``). A failure raises: no chunk
+        falls back to eager steps."""
+        t0 = time.perf_counter()
+        before = {n: (c.launches, c.plain_calls) for n, c in COUNTERS.items()}
+        graph = torch.cuda.CUDAGraph()
+        if self.temperature > 0.0:
+            # Each replay then draws from the generator's next offset.
+            graph.register_generator_state(self._gen)
+        with torch.cuda.graph(graph, stream=self._capture_stream):
+            self._decode_chunk(self._mask, self._out)
+        self._graph = graph
+        self.graph_launches = {
+            n: (c.launches - before[n][0], c.plain_calls - before[n][1])
+            for n, c in COUNTERS.items()}
+        for n, (launches, _) in self.graph_launches.items():
+            COUNTERS[n].captured += launches
+        self.stats["graph_capture_s"] += time.perf_counter() - t0
+
+    def _verify(self, toks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """Every slot's window ``toks`` (slots, W) through the model at
+        positions lens..lens+W-1 (K4 from ``prefill_start`` = lens; the
+        window's cache rows written in place) → the greedy next token at
+        each position (slots, W). Rows past a slot's accepted prefix are
+        invalid by length and rewritten before they are attended."""
+        w = toks.shape[1]
+        pos = lens[:, None] + torch.arange(w, device=self.device,
+                                           dtype=torch.int32)[None]
+        logits, _ = forward(self.params, toks, self.caches, pos, lens + w,
+                            self.cfg, prefill_start=lens)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _spec_decode(self, active, sched, emitted) -> bool:
+        """One speculative iteration: k drafts a slot, all slots verified in
+        one (max_slots, W) forward, each slot's accepted drafts plus the
+        verify's next token emitted (1..k+1 tokens a slot). Returns False
+        when an active slot is within W rows of the cache's end (the
+        caller then takes a plain step)."""
+        k = self.spec_k
+        w = _VERIFY_WINDOW
+        lens_np = self.seq_lens.cpu().numpy()
+        if int(lens_np[active].max()) + w > self.max_seq_len:
+            return False
+        last_np = self.last_tokens.cpu().numpy()
+        mask = np.zeros((self.max_slots,), bool)
+        mask[active] = True
+        toks = np.zeros((self.max_slots, w), np.int32)
+        for slot in active:
+            req = sched.running[slot]
+            hist = list(req.prompt) + list(req.output)
+            toks[slot, 0] = last_np[slot]
+            toks[slot, 1:k + 1] = self._draft_fn(slot, hist, k)
+
+        t0 = time.perf_counter()
+        # Inactive slots run at length 0: their rows 0..k are scribbled but
+        # invalid (rewritten by their next prefill).
+        greedy = self._verify(
+            torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(np.where(mask, lens_np, 0).astype(
+                np.int32)).to(self.device))
+        g_np = greedy.cpu().numpy()                    # (slots, w)
+        self.stats["decode_time_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        self.stats["decode_slot_steps"] += w * len(active)
+
+        acc = {}
+        for slot in active:
+            a = 0
+            while a < k and toks[slot, a + 1] == g_np[slot, a]:
+                a += 1
+            acc[slot] = a
+            metrics.inc("engine.spec_proposed", k)
+            metrics.inc("engine.spec_accepted", a)
+        counts = self._emit_tokens(g_np[:, :k + 1].T, active, sched, emitted,
+                                   row_limit=acc)
+        new_lens, new_last = lens_np.copy(), last_np.copy()
+        for slot in active:
+            n_em = counts[slot]
+            if n_em:
+                new_lens[slot] = lens_np[slot] + n_em
+                new_last[slot] = g_np[slot, n_em - 1]
+        self.seq_lens.copy_(torch.from_numpy(new_lens))
+        self.last_tokens.copy_(torch.from_numpy(new_last))
+        metrics.gauge("engine.active_slots", len(sched.running))
+        return True
+
+    def _emit_tokens(self, out_rows, active, sched, emitted,
+                     row_limit=None) -> Dict[int, int]:
+        """Emission of out_rows (T, slots) tokens; slots that finish
+        (EOS/budget) stop emitting via the scheduler; ``row_limit[slot]``
+        (inclusive) caps a slot's rows (speculative acceptance). Returns
+        the tokens emitted a slot."""
+        counts = {s: 0 for s in active}
         for t in range(out_rows.shape[0]):
             slot_tokens = {}
             for slot in active:
+                if row_limit is not None and t > row_limit[slot]:
+                    continue
                 req = sched.running.get(slot)
                 if req is None:        # finished earlier in this batch
                     continue
                 tok = int(out_rows[t, slot])
                 slot_tokens[slot] = tok
                 emitted.setdefault(req.req_id, []).append(tok)
+                counts[slot] += 1
             if not slot_tokens:
                 break
             self.stats["tokens_out"] += len(slot_tokens)
@@ -232,20 +510,31 @@ class Engine:
             metrics.inc("engine.tokens_out", len(slot_tokens))
             for rid in sched.record_tokens(slot_tokens):
                 get_logger().info("req %d finished", rid)
+        return counts
 
+    # -- main loop -------------------------------------------------------------
     def step(self) -> Dict[int, List[int]]:
-        """One engine iteration: admit + prefill new requests, decode all
-        active slots once. Returns {req_id: [tokens]} emitted this step."""
+        """One engine iteration: admit + prefill new requests, then decode
+        every active slot: one step, a chunk, or a speculative window.
+        Returns {req_id: [tokens]} emitted this iteration."""
         sched = self.scheduler
         emitted: Dict[int, List[int]] = {}
 
-        # Batched admission: one prefill forward per bucket, the row count
-        # padded to a power of two.
+        # Batched admission: one prefill forward per (suffix) bucket, the
+        # row count padded to a power of two. Prefix-cache hits copy their
+        # stored rows in first and prefill only the suffix window.
         prefill_tokens: Dict[int, int] = {}
         groups: Dict[int, list] = {}
+        pending_inserts: list = []
         for adm in sched.admissions():
-            groups.setdefault(self._prompt_bucket(len(adm.prompt)),
-                              []).append(adm)
+            hit_len, store_idx = self._prefix_lookup(adm.prompt)
+            sfx = len(adm.prompt) - hit_len
+            bucket = self._prompt_bucket(sfx)
+            if hit_len and hit_len + bucket > self.max_seq_len:
+                # pow2 overshoot past the cache: the 16-grain window (the
+                # lookup made sure it fits).
+                bucket = -(-sfx // 16) * 16
+            groups.setdefault(bucket, []).append((adm, hit_len, store_idx))
         for bucket, group in groups.items():
             s_pad = 1
             while s_pad < len(group):
@@ -255,54 +544,78 @@ class Engine:
             last_i = np.zeros((s_pad,), np.int32)
             pstart = np.zeros((s_pad,), np.int32)
             slots = np.full((s_pad,), -1, np.int32)
-            for i, adm in enumerate(group):
-                toks[i, :len(adm.prompt)] = adm.prompt
+            hit_dst, hit_src = [], []
+            for i, (adm, hit_len, store_idx) in enumerate(group):
+                sfx_toks = adm.prompt[hit_len:]
+                toks[i, :len(sfx_toks)] = sfx_toks
                 total[i] = len(adm.prompt)
-                last_i[i] = len(adm.prompt) - 1
+                last_i[i] = len(sfx_toks) - 1
+                pstart[i] = hit_len
                 slots[i] = adm.slot
+                if hit_len:
+                    hit_dst.append(adm.slot)
+                    hit_src.append(store_idx)
+                    metrics.inc("engine.prefix_hits")
+                    metrics.inc("engine.prefix_tokens_reused", hit_len)
             t0 = time.perf_counter()
+            if hit_dst:
+                # The stored prefix rows into the slots (the suffix prefill
+                # overwrites [hit, hit + bucket); later rows are rewritten
+                # by decode before they are attended).
+                _copy_cache_rows(self.caches, self._prefix_store,
+                                 self._index(hit_dst), self._index(hit_src))
             last_logits = _prefill(self.params, self.caches, self.cfg, toks,
                                    total, last_i, pstart, slots)
             metrics.inc("engine.prefill_dispatches")
             firsts = self._sample(last_logits).cpu().numpy()   # (s_pad,)
             self.stats["prefill_time_s"] += time.perf_counter() - t0
             self.stats["prefill_tokens"] += int(total[:len(group)].sum())
+            if self._prefix_slots:
+                pending_inserts.extend((adm.prompt, adm.slot)
+                                       for adm, _, _ in group)
             g = len(group)
-            v_slots = torch.from_numpy(slots[:g]).to(self.device,
-                                                     torch.int64)
+            v_slots = self._index(slots[:g])
             self.seq_lens[v_slots] = torch.from_numpy(total[:g]).to(
                 self.device)
             self.last_tokens[v_slots] = torch.from_numpy(
                 firsts[:g].astype(np.int32)).to(self.device)
-            for i, adm in enumerate(group):
+            for i, (adm, hit_len, _) in enumerate(group):
                 first_tok = int(firsts[i])
                 self.stats["prefills"] += 1
                 self.stats["tokens_out"] += 1
                 metrics.inc("engine.prefills")
-                get_logger().info("admitted req %d → slot %d (prompt %d)",
-                                  adm.req_id, adm.slot, len(adm.prompt))
+                get_logger().info("admitted req %d → slot %d (prompt %d, "
+                                  "prefix hit %d)", adm.req_id, adm.slot,
+                                  len(adm.prompt), hit_len)
                 prefill_tokens[adm.slot] = first_tok
                 emitted.setdefault(adm.req_id, []).append(first_tok)
+        if pending_inserts:
+            # After every group's hits copied their rows out.
+            self._prefix_insert_batch(pending_inserts)
         if prefill_tokens:
             sched.record_tokens(prefill_tokens)
 
         active = sched.active_slots()
+        if active and self.spec_k:
+            if self._spec_decode(active, sched, emitted):
+                return emitted
+            # Too close to the cache's end for a window: a plain step.
         if active:
+            chunk = self.decode_chunk
+            if chunk > 1 and (int(self.seq_lens.cpu()[active].max()) + chunk
+                              > self.max_seq_len):
+                chunk = 1   # the tail of a long sequence: single steps
             mask = np.zeros((self.max_slots,), bool)
             mask[active] = True
-            jmask = torch.from_numpy(mask).to(self.device)
             t0 = time.perf_counter()
-            logits, self.caches = decode_step(self.params, self.last_tokens,
-                                              self.caches, self.seq_lens,
-                                              self.cfg)
-            nxt = self._sample(logits)
-            self.seq_lens = torch.where(jmask, self.seq_lens + 1,
-                                        self.seq_lens)
-            self.last_tokens = torch.where(jmask, nxt, self.last_tokens)
-            out_np = nxt.cpu().numpy()[None]           # (1, slots)
+            self._mask.copy_(torch.from_numpy(mask))
+            out_np = self._run_decode(chunk)            # (chunk, slots)
             self.stats["decode_time_s"] += time.perf_counter() - t0
-            self.stats["decode_steps"] += 1
-            self.stats["decode_slot_steps"] += len(active)
+            self.stats["decode_steps"] += chunk
+            self.stats["decode_slot_steps"] += chunk * len(active)
+            if chunk > 1 and self.device.type == "cuda" and \
+                    self._graph is None:
+                self._capture()
             self._emit_tokens(out_np, active, sched, emitted)
             metrics.gauge("engine.active_slots", len(sched.running))
         return emitted

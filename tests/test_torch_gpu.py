@@ -625,6 +625,46 @@ def test_flash_decode_live_route_matches_plain_and_span(dev, g):
         assert torch.equal(x, z) and torch.equal(y, z)
 
 
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_flash_decode_span_route_at_head_dim_64(dev, g):
+    """At head size 64 K2 takes route "span" (route "live" is built for
+    128): against its plain version the output agrees within 2e-3 and per
+    element within (2⁻⁷ + 2⁻¹²)·Σ w·|v|, and the caches are equal. Lengths:
+    empty, one token, a chunk's edges, ragged, S and past S."""
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
+    b, kvh, s_max, hd = 7, 2, 320, 64
+    cache = _cache(b, kvh, s_max, hd, dev, 33)
+    gen = _gen(34, dev)
+    q = torch.randn(b, kvh * g, hd, generator=gen, device=dev).to(torch.bfloat16)
+    new = (torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                         dtype=torch.int8),
+           torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                         dtype=torch.int8),
+           torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3,
+           torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3)
+    lens = torch.tensor([0, 1, 128, 129, 200, s_max, s_max + 3],
+                        dtype=torch.int32, device=dev)
+    span, plain = ([t.clone() for t in cache] for _ in range(2))
+    counter = _kernels.COUNTERS["flash_decode"]
+    counter.plans.clear()
+    before = (counter.launches, counter.plain_calls)
+    got = flash_decode_gqa_inplace(q, *span, *new, lens)[0]
+    assert (counter.launches, counter.plain_calls) == (before[0] + 1,
+                                                       before[1])
+    assert list(counter.plans) == [f"span/{fdmod.SPLIT_KEYS}"]
+    clamped = lens.clamp(max=s_max)
+    ref = flash_decode_inplace_plain(q, *plain, *new, clamped).reshape(
+        b, kvh * g, hd)
+    pv = fdmod.flash_decode_plain(q, *_abs_v(plain), clamped).reshape(
+        b, kvh * g, hd)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) < 2e-3
+    assert output_close(got, ref, pv)
+    assert not got[0].any()
+    for x, y in zip(span, plain):
+        assert torch.equal(x, y)
+
+
 def test_flash_decode_live_route_on_two_streams(dev):
     """K2 launched on two streams at once, again and again: each stream
     has its own arrival counts, so every launch merges its own blocks and
@@ -666,6 +706,8 @@ def test_flash_decode_live_route_on_two_streams(dev):
 
 
 PREFILL_GROUPS = [1, 2, 4, 8, 16]
+# The head sizes the attention kernels are built for (flash_common).
+HEAD_DIMS = [128, 64]
 
 
 def _check_prefill(q, cache, st, lens, dev):
@@ -704,13 +746,15 @@ def _check_prefill(q, cache, st, lens, dev):
     return out, (acc, m, l)
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("g", PREFILL_GROUPS)
 @pytest.mark.parametrize("start", [0, 100, -8, -300, 1000, "S"])
-def test_flash_prefill_kernel_matches_plain(dev, g, start):
+def test_flash_prefill_kernel_matches_plain(dev, g, start, hd):
     """K4 and K4-stats over a 256-key cache from a start before position 0
     (-8: a block straddling it; -300: every row before it), at 0, inside
-    the cache, at S and past it (every valid key)."""
-    b, kvh, s, s_max, hd = 2, 2, 64, 256, 128
+    the cache, at S and past it (every valid key); head size 128 (wgmma)
+    and 64 (the CUDA cores)."""
+    b, kvh, s, s_max = 2, 2, 64, 256
     start = s_max if start == "S" else start
     cache = _cache(b, kvh, s_max, hd, dev, 4)
     q = torch.randn(b, s, kvh * g, hd, generator=_gen(5, dev),
@@ -721,15 +765,16 @@ def test_flash_prefill_kernel_matches_plain(dev, g, start):
     _check_prefill(q, cache, st, lens, dev)
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("g", PREFILL_GROUPS)
 @pytest.mark.parametrize("s", [16, 48, 1024])
-def test_flash_prefill_kernel_bucket_geometry(dev, g, s):
+def test_flash_prefill_kernel_bucket_geometry(dev, g, s, hd):
     """Serving's buckets: s = 16 and 48 (narrower than a 64-row block's
     positions at groups 1 and 2) and 1024, over caches that are not a
     multiple of 64 keys, with ragged lengths in one bucket: an empty row, a
     padding row of length 1, one a few tokens short of the bucket, a
     resumed one (start 37) and one that stops mid-bucket."""
-    kvh, hd = 2, 128
+    kvh = 2
     s_max = 200 if s < 64 else 1090
     starts = [0, 0, 0, 37, 0]
     lens = [0, 1, max(1, s - 5), 37 + s, s // 2 + 3]
@@ -1235,15 +1280,16 @@ def _abs_v(cache):
     return k_q, k_s, v_q.float().abs(), v_s
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("split_keys", [128, 512])
 def test_flash_decode_read_and_state_kernels_match_plain(dev, g, split_keys,
-                                                         monkeypatch):
+                                                         hd, monkeypatch):
     """K5a and K5b over lengths 0 (empty), ragged, on a span edge, S, and
     past S (clamped)."""
     from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
     monkeypatch.setattr(fdmod, "SPLIT_KEYS", split_keys)
-    b, kvh, s_max, hd = 5, 2, 320, 128
+    b, kvh, s_max = 5, 2, 320
     cache = _cache(b, kvh, s_max, hd, dev, 21)
     q = _decode_query(b, kvh, g, hd, dev, 22)
     lens = torch.tensor([0, 77, 256, s_max, s_max + 9], dtype=torch.int32,
@@ -1265,13 +1311,15 @@ def test_flash_decode_read_and_state_kernels_match_plain(dev, g, split_keys,
     assert state_close(state, ref_state, pv_state)
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("g", [1, 4])
-def test_flash_decode_read_and_state_agree_with_inplace(dev, g):
+def test_flash_decode_read_and_state_agree_with_inplace(dev, g, hd):
     """On the same cache: K5a over the cache with the new row already
-    written equals K2; K5b over the rows before it, merged with the new
-    token exactly (the JAX docstring's formula), equals K2 too."""
+    written equals K2 (route "live" at head size 128, "span" at 64); K5b
+    over the rows before it, merged with the new token exactly (the JAX
+    docstring's formula), equals K2 too."""
     from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
-    b, kvh, s_max, hd = 4, 2, 384, 128
+    b, kvh, s_max = 4, 2, 384
     k_q, k_s, v_q, v_s = _cache(b, kvh, s_max, hd, dev, 23)
     q = _decode_query(b, kvh, g, hd, dev, 24)
     gen = _gen(25, dev)
@@ -1295,13 +1343,14 @@ def test_flash_decode_read_and_state_agree_with_inplace(dev, g):
     assert float((merged - want).abs().max()) < 2e-3
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("g", PREFILL_GROUPS)
 @pytest.mark.parametrize("start", [0, 100, -8, -256, 256, 1000])
-def test_flash_prefill_stats_kernel_matches_plain(dev, g, start):
+def test_flash_prefill_stats_kernel_matches_plain(dev, g, start, hd):
     """K4-stats: acc / l equals K4's output, (acc, m, l) the plain state;
     rows before position 0 (start < 0) are exactly (0, -1e30, 0); a start
     at or past the cache length sees every valid key."""
-    b, kvh, s, s_max, hd = 2, 2, 64, 256, 128
+    b, kvh, s, s_max = 2, 2, 64, 256
     cache = _cache(b, kvh, s_max, hd, dev, 26)
     q = torch.randn(b, s, kvh * g, hd, generator=_gen(27, dev),
                     device=dev).to(torch.bfloat16)
@@ -1330,8 +1379,8 @@ def test_flash_prefill_stats_kernel_matches_plain(dev, g, start):
 
 def test_flash_kernels_refuse_an_unsupported_head_dim(dev):
     from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
-    cache = _cache(1, 1, 128, 64, dev, 28)
-    q = torch.zeros(1, 16, 1, 64, device=dev)
+    cache = _cache(1, 1, 128, 96, dev, 28)
+    q = torch.zeros(1, 16, 1, 96, device=dev)
     lens = torch.full((1,), 16, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill_gqa(q, *cache, lens * 0, lens, return_stats=True)
@@ -1385,3 +1434,170 @@ def test_timers_on_a_k1_call(dev):
     assert 1e-3 < cold < 100
     assert cold >= 0.5 * warm.seconds * 1e3
 
+
+
+# ---- serving on the card: the captured decode chunk, TINY_DENSE ----
+
+def _to(obj, dev):
+    """Parameters (dataclasses of tensors and lists) moved to ``dev``."""
+    import dataclasses
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, list):
+        return [_to(o, dev) for o in obj]
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _to(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def _state(eng):
+    """Clones of the engine's state: caches, lengths, last tokens."""
+    from deepgemm_ascend_tpu_torch.serving.engine import _CACHE_FIELDS
+    return ([[getattr(c, n).clone() for n in _CACHE_FIELDS]
+             for c in eng.caches],
+            eng.seq_lens.clone(), eng.last_tokens.clone())
+
+
+def _restore(eng, state):
+    from deepgemm_ascend_tpu_torch.serving.engine import _CACHE_FIELDS
+    caches, lens, last = state
+    for c, saved in zip(eng.caches, caches):
+        for n, t in zip(_CACHE_FIELDS, saved):
+            getattr(c, n).copy_(t)
+    eng.seq_lens.copy_(lens)
+    eng.last_tokens.copy_(last)
+
+
+def _served_chunk_engine(dev, **kw):
+    """TINY on the card at decode_chunk=4, after serving three requests
+    through four slots: its chunk is captured."""
+    from deepgemm_ascend_tpu_torch.models import TINY, init_params
+    from deepgemm_ascend_tpu_torch.serving import Engine
+    eng = Engine(init_params(0, TINY, device=dev), TINY, max_slots=4,
+                 max_seq_len=128, decode_chunk=4, device=dev, **kw)
+    out = eng.generate([[5, 17, 301, 2, 44], list(range(100, 120)),
+                        [7] * 17], max_new_tokens=10)
+    assert [len(o) for o in out] == [10, 10, 10]
+    assert eng.stats["graph_replays"] >= 1 and eng._graph is not None
+    return eng
+
+
+def test_chunk_graph_replay_equals_eager_chunk(dev):
+    """From one engine state, the chunk run eagerly and the captured graph
+    replayed give the same tokens and bit-equal caches, lengths and last
+    tokens (every slot active)."""
+    eng = _served_chunk_engine(dev)
+    eng._mask.fill_(True)
+    start = _state(eng)
+    eng._decode_chunk(eng._mask, eng._out)
+    eager_out, eager = eng._out.clone(), _state(eng)
+    _restore(eng, start)
+    eng._graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eng._out, eager_out)
+    graph = _state(eng)
+    for a, b in zip(eager[0], graph[0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(eager[1], graph[1]) and torch.equal(eager[2], graph[2])
+    assert torch.equal(graph[1], start[1] + 4)
+
+
+def test_chunk_graph_capture_launches_kernels_not_plain_versions(dev):
+    """The capture ran every kernel of the decode path once a layer a step
+    (K2) or more (K1, K3), and no plain version; a CUDA tensor never
+    takes a plain version."""
+    eng = _served_chunk_engine(dev)
+    launches = {n: c for n, c in eng.graph_launches.items() if any(c)}
+    assert set(launches) == {"fp8_gemm", "grouped_gemm", "flash_decode"}
+    assert all(calls == 0 for _, calls in launches.values())
+    assert launches["flash_decode"][0] == 4 * eng.cfg.num_layers
+    assert all(n % 4 == 0 for n, _ in launches.values())
+
+
+def test_chunk_graph_counters_count_the_replays(dev):
+    """Over a served run the counters keep the capture's launches apart
+    (``captured``: it ran nothing) and add one replay's launches at every
+    replay (``replayed``), so ``on_card`` is what the card launched."""
+    _kernels.reset_counters()
+    eng = _served_chunk_engine(dev)
+    reps = eng.stats["graph_replays"]
+    for n, (per_replay, _) in eng.graph_launches.items():
+        c = _kernels.COUNTERS[n]
+        assert c.captured == per_replay
+        assert c.replayed == reps * per_replay
+        assert c.on_card() == c.launches + (reps - 1) * per_replay
+
+
+def test_sampled_chunk_graph_draws_fresh_bits(dev):
+    """Sampled chunked decode: the engine's generator is registered with
+    the graph, so two replays from one state draw other tokens; every
+    token is in the vocabulary."""
+    eng = _served_chunk_engine(dev, temperature=1.0, seed=3)
+    eng._mask.fill_(True)
+    start = _state(eng)
+    draws = []
+    for _ in range(2):
+        _restore(eng, start)
+        eng._graph.replay()
+        draws.append(eng._out.clone())
+    assert not torch.equal(draws[0], draws[1])
+    assert all(bool(((d >= 0) & (d < eng.cfg.vocab_size)).all())
+               for d in draws)
+
+
+def test_tiny_dense_serves_on_the_card(dev):
+    """TINY_DENSE's head_dim 64 runs the attention kernels built for it
+    (K4's kernel on the CUDA cores, K2's route "span"), one launch a layer
+    and no plain version or fallback; the first decode logits lie within
+    the card-vs-CPU rel-L2 bound of chip_smoke.py's phase 3 (0.25), and
+    the engine serves through the same kernels."""
+    from deepgemm_ascend_tpu_torch.models import (TINY_DENSE, decode_step,
+                                                  forward, init_cache,
+                                                  init_params)
+    from deepgemm_ascend_tpu_torch.serving import Engine
+    from deepgemm_ascend_tpu_torch.utils.logging import metrics
+    cfg = TINY_DENSE
+    cpu_params = init_params(0, cfg, device="cpu")
+
+    def first_logits(d):
+        params = _to(cpu_params, d)
+        caches = init_cache(cfg, 1, 64, device=d)
+        prompt = torch.arange(1, 17, dtype=torch.int32, device=d)[None]
+        pos = torch.arange(16, dtype=torch.int32, device=d)[None]
+        lens = torch.full((1,), 16, dtype=torch.int32, device=d)
+        forward(params, prompt, caches, pos, lens, cfg,
+                prefill_start=torch.zeros(1, dtype=torch.int32, device=d))
+        logits, _ = decode_step(params, torch.tensor([7], dtype=torch.int32,
+                                                     device=d), caches, lens,
+                                cfg)
+        return logits.float().cpu()
+
+    def counts():
+        return {n: (c.launches, c.plain_calls)
+                for n, c in _kernels.COUNTERS.items()
+                if c.launches or c.plain_calls}
+
+    _kernels.reset_counters()
+    metrics.reset()
+    card = first_logits(dev)
+    on_card = counts()
+    plans = dict(_kernels.COUNTERS["flash_decode"].plans)
+    fallback = metrics.snapshot().get("attention.xla_fallback_trace", 0)
+    plain = first_logits("cpu")
+    rel = float((card - plain).norm() / plain.norm())
+    assert rel < 0.25, rel
+    assert on_card["flash_decode"] == (cfg.num_layers, 0), on_card
+    assert on_card["flash_prefill"] == (cfg.num_layers, 0), on_card
+    assert not any(p for _, p in on_card.values()), on_card
+    assert all(p.startswith("span/") for p in plans), plans
+    assert fallback == 0
+    _kernels.reset_counters()
+    out = Engine(_to(cpu_params, dev), cfg, max_slots=2, max_seq_len=64,
+                 device=dev).generate([[1, 2, 3], [4, 5]], max_new_tokens=4)
+    served = counts()
+    assert [len(o) for o in out] == [4, 4]
+    assert all(0 <= t < cfg.vocab_size for o in out for t in o)
+    assert served["flash_decode"][0] > 0 and served["flash_prefill"][0] > 0
+    assert not any(p for _, p in served.values()), served

@@ -5,8 +5,8 @@ fixed at full size (the probe's rows, the headline), the function the CLI
 calls with those shapes — runs the plain path and prints its line with the
 JAX script's keys. No number printed here is a device measurement; the
 tests check the lines' form, the counts of kernels reached (plain versions
-on the CPU), and that the serve_bench modes the port lacks raise
-``NotImplementedError`` rather than skip.
+on the CPU), and that the serve_bench mode the port lacks (``scaling``)
+raises ``NotImplementedError`` rather than skip.
 """
 
 import json
@@ -118,13 +118,53 @@ def test_serve_bench_modes(mode, quant, keys, capsys):
     assert experts in _plain_calls()
 
 
-@pytest.mark.parametrize("argv", [
-    ["--mode", "chunksweep"], ["--mode", "prefix"], ["--mode", "scaling"],
-    ["--mode", "engine", "--speculative-k", "2"]])
+@pytest.mark.parametrize("argv", [["--mode", "scaling"]])
 def test_serve_bench_unported_modes_raise(argv, capsys):
     with pytest.raises(NotImplementedError):
         serve_bench.main(argv + SERVE)
     assert not _json_lines(capsys.readouterr().out)
+
+
+def test_serve_bench_chunksweep(capsys):
+    """One line a chunk of serve_bench.CHUNKS; utilization ≤ 1, and 1 at
+    chunk 1 (no wasted step)."""
+    assert serve_bench.main(["--mode", "chunksweep"] + SERVE) == 0
+    lines = _json_lines(capsys.readouterr().out)
+    assert [ln["decode_chunk"] for ln in lines] == list(serve_bench.CHUNKS)
+    for ln in lines:
+        assert {"metric", "mode", "expert_quant", "model", "slots",
+                "decode_chunk", "tokens_per_s_decode", "tokens_per_s_wall",
+                "utilization", "decode_steps", "graph_capture_s"} <= set(ln)
+        assert 0 < ln["utilization"] <= 1 and ln["graph_capture_s"] == 0
+    assert lines[0]["utilization"] == 1
+
+
+def test_serve_bench_prefix(capsys):
+    """Two requests share a 32-token system prompt (--max-seq 64): the warm
+    wave hits the stored prefix for both."""
+    assert serve_bench.main(["--mode", "prefix", "--max-seq", "64"]
+                            + SERVE) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert {"metric", "mode", "model", "requests", "system_tokens",
+            "cold_admission_s", "warm_admission_s", "speedup",
+            "prefix_hits", "tokens_reused"} <= set(line)
+    assert (line["requests"], line["system_tokens"]) == (2, 32)
+    assert (line["prefix_hits"], line["tokens_reused"]) == (2, 64)
+
+
+@pytest.mark.parametrize("oracle", [False, True])
+def test_serve_bench_speculative(oracle, capsys):
+    """Engine mode with --speculative-k 2: the drafting and its accept
+    rate; the oracle drafts a speculative engine's own recording, so every
+    draft lands."""
+    argv = ["--mode", "engine", "--speculative-k", "2"] + SERVE
+    assert serve_bench.main(argv + (["--spec-oracle"] if oracle else [])) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert line["speculative_k"] == 2 and line["tokens_per_s"] > 0
+    assert line["spec_drafting"] == ("oracle" if oracle else "prompt_lookup")
+    assert 0 <= line["spec_accept_rate"] <= 1
+    if oracle:
+        assert line["spec_accept_rate"] == 1
 
 
 @pytest.mark.parametrize("quant", ["fp8", "int8"])

@@ -23,10 +23,14 @@ import torch
 
 from deepgemm_ascend_tpu import models as jmodels
 from deepgemm_ascend_tpu.serving import Engine as JEngine
+from deepgemm_ascend_tpu.serving import engine as jengine
 from deepgemm_ascend_tpu.serving import sample_logits as jsample_logits
+from deepgemm_ascend_tpu.utils.logging import metrics as jmetrics
 from deepgemm_ascend_tpu_torch import models as tmodels
 from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.serving import Engine, Scheduler, sample_logits
+from deepgemm_ascend_tpu_torch.serving import engine as engine_mod
+from deepgemm_ascend_tpu_torch.utils.logging import metrics as tmetrics
 from torch_bridge import tree_of
 
 PROMPTS = [[5, 17, 301, 2, 44], list(range(100, 120)), [7] * 17]
@@ -104,8 +108,8 @@ def test_sample_logits_seeded_draws_repeat():
 
 
 # Kept sets of top-k / top-p against JAX: each package's own draw is stubbed
-# out (jax.random.categorical, torch.multinomial) to expose the logits it
-# would sample from. Logits ~N(0, 3²), 16 × 32000 per seed, from numpy.
+# out (jax.random.categorical, the port's engine._categorical) to expose the
+# logits it would sample from. Logits ~N(0, 3²), 16 × 32000 per seed, from numpy.
 SAMPLING_MODES = [(0.7, 50, 1.0), (0.7, 0, 0.9), (1.3, 40, 0.95)]
 # Tokens a row may differ by. f32: the one boundary token that cumsum order
 # could flip (the port sums f32 with torch.cumsum, not in XLA's order).
@@ -132,11 +136,11 @@ def _kept_jax(x, dtype, monkeypatch, **kw):
 def _kept_torch(x, dtype, monkeypatch, **kw):
     seen = {}
 
-    def draw(probs, num_samples, generator=None):
+    def draw(probs, generator):
         seen["kept"] = (probs > 0).numpy()
-        return torch.argmax(probs, dim=-1, keepdim=True)
+        return torch.argmax(probs, dim=-1)
 
-    monkeypatch.setattr(torch, "multinomial", draw)
+    monkeypatch.setattr(engine_mod, "_categorical", draw)
     sample_logits(torch.from_numpy(x).to(dtype), **kw)
     return seen["kept"]
 
@@ -235,9 +239,7 @@ def test_engine_padding_rows_write_no_cache_row():
         assert bool((c.k_s[3, :, 1:] == 0.5).all())
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"decode_chunk": 4},
-                                    {"prefix_cache_slots": 2},
-                                    {"speculative_k": 2}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
 def test_engine_refuses_later_slice_features(kwargs):
     tp = tmodels.init_params(0, jmodels.TINY_DENSE, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -251,3 +253,124 @@ def test_engine_temperature_sampling_runs():
                  device="cpu").generate([[1, 2, 3], [4]], max_new_tokens=4)
     assert [len(o) for o in out] == [4, 4]
     assert all(0 <= t < jmodels.TINY_DENSE.vocab_size for o in out for t in o)
+
+
+# ---- the serving features against JAX's engine (same eager programs) ----
+
+def _margins(logits) -> np.ndarray:
+    top2 = np.sort(np.asarray(logits, np.float32), axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+def _record_margins(monkeypatch):
+    """Make the JAX engine record the top-1 margins of the rows that decide
+    its emitted tokens: every prefill row (padding rows too), the active
+    slots' rows of each decode step or chunk (wasted steps too), and rows
+    0..accepted of each active slot's verify window. Returns a function
+    that gives the margins recorded so far."""
+    seen, verifies, decisive = [], [], []
+    real_sample, real_forward = jengine.sample_logits, jengine.forward
+    real_emit = JEngine._emit_tokens
+
+    def sample(logits, key, **kw):
+        seen.append(_margins(logits))
+        return real_sample(logits, key, **kw)
+
+    def forward(*args, **kw):
+        logits, caches = real_forward(*args, **kw)
+        verifies.append(_margins(logits))
+        return logits, caches
+
+    def emit(self, out_rows, active, sched, emitted, row_limit=None):
+        if row_limit is None:
+            steps = seen[len(seen) - out_rows.shape[0]:]
+            del seen[len(seen) - out_rows.shape[0]:]
+            decisive.extend(x for m in steps for x in m[active])
+        else:
+            decisive.extend(x for slot in active
+                            for x in verifies[-1][slot, :row_limit[slot] + 1])
+        decisive.extend(x for m in seen for x in np.ravel(m))
+        seen.clear()
+        return real_emit(self, out_rows, active, sched, emitted, row_limit)
+
+    monkeypatch.setattr(jengine, "sample_logits", sample)
+    monkeypatch.setattr(jengine, "forward", forward)
+    monkeypatch.setattr(JEngine, "_emit_tokens", emit)
+    return lambda: decisive + [x for m in seen for x in np.ravel(m)]
+
+
+def test_chunked_decode_matches_jax_engine(fallback_pair, monkeypatch):
+    """The port at decode_chunk=4 emits the JAX Engine(decode_chunk=4)'s
+    greedy tokens with the same decode_steps and decode_slot_steps, and
+    its own decode_chunk=1 engine's tokens. Two 12-token prompts in an
+    18-token cache: the first chunk wastes three steps of the 2-token
+    request; a second would pass the cache's end, so the last token
+    decodes in a single step."""
+    cfg, jp, tp = fallback_pair
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=12).tolist()
+               for _ in range(2)]
+    budgets = [6, 2]
+
+    def serve(eng):
+        ids = [eng.scheduler.submit(p, n) for p, n in zip(prompts, budgets)]
+        while eng.scheduler.has_work:
+            eng.step()
+        return [eng.scheduler.pop_result(i).output for i in ids]
+
+    margins = _record_margins(monkeypatch)
+    with jax.disable_jit():
+        jeng = JEngine(jp, cfg, max_slots=2, max_seq_len=18, decode_chunk=4)
+        want = serve(jeng)
+    assert min(margins()) > MARGIN, min(margins())
+    eng = Engine(tp, cfg, max_slots=2, max_seq_len=18, decode_chunk=4,
+                 device="cpu")
+    got = serve(eng)
+    assert got == want and [len(o) for o in got] == budgets
+    assert (eng.stats["decode_steps"], eng.stats["decode_slot_steps"]) \
+        == (jeng.stats["decode_steps"], jeng.stats["decode_slot_steps"]) \
+        == (4 + 1, 4 * 2 + 1)
+    assert eng.stats["decode_tokens"] == jeng.stats["decode_tokens"]
+    assert eng.stats["graph_replays"] == 0 and eng.graph_launches is None
+    assert serve(Engine(tp, cfg, max_slots=2, max_seq_len=18,
+                        device="cpu")) == got
+
+
+SPEC_PROMPTS = [[5, 9, 2, 7], [3, 3, 8]]
+
+
+def test_spec_matches_jax_engine(fallback_pair, monkeypatch):
+    """The same drafts through the port's and JAX's speculative engines
+    give the same tokens, accepted and proposed counts and stats. The
+    drafts are the port's plain greedy continuation with every third
+    draft position wrong, so that verifies accept 0 to 3 drafts."""
+    cfg, jp, tp = fallback_pair
+    ref = Engine(tp, cfg, max_slots=2, max_seq_len=64, device="cpu").generate(
+        SPEC_PROMPTS, max_new_tokens=9)
+    plen = [len(p) for p in SPEC_PROMPTS]
+
+    def drafts(slot, hist, k):
+        pos = len(hist) - plen[slot]
+        cont = (ref[slot] + [0] * k)[pos:pos + k]
+        return [(t + 1) % cfg.vocab_size if (pos + i) % 3 == 2 else t
+                for i, t in enumerate(cont)]
+
+    margins = _record_margins(monkeypatch)
+    jmetrics.reset()
+    with jax.disable_jit():
+        jeng = JEngine(jp, cfg, max_slots=2, max_seq_len=64, speculative_k=3,
+                       draft_fn=drafts)
+        want = jeng.generate(SPEC_PROMPTS, max_new_tokens=9)
+    jsnap = jmetrics.snapshot()
+    assert min(margins()) > MARGIN, min(margins())
+    tmetrics.reset()
+    eng = Engine(tp, cfg, max_slots=2, max_seq_len=64, speculative_k=3,
+                 draft_fn=drafts, device="cpu")
+    got = eng.generate(SPEC_PROMPTS, max_new_tokens=9)
+    tsnap = tmetrics.snapshot()
+    assert got == want == ref
+    assert 0 < jsnap["engine.spec_accepted"] < jsnap["engine.spec_proposed"]
+    for key in ("engine.spec_accepted", "engine.spec_proposed"):
+        assert tsnap[key] == jsnap[key], key
+    for key in ("decode_steps", "decode_slot_steps", "decode_tokens"):
+        assert eng.stats[key] == jeng.stats[key], key
