@@ -60,7 +60,13 @@ Phases, each of which raises on failure (exit code ≠ 0):
    K6 row its route and tile (``ops.int8_gemm.masked_plan`` from the MoE
    layer's ``expected_m``: ring 16x64 at decode, wgmma 64x64 at a
    128-token prefill forward, wgmma 128x256 at a 2048-token chunk) and
-   ``prev_ms``; K6 also on the same weights stored (E, k, n), route
+   ``prev_ms``; every K8 and K9 row its route (``contiguous_route``: K8
+   wgmma16 128x128 for B stored K-major and a block_m that 64 divides, else
+   tile — the block_m=96 row; K9 wgmma 128x256) and, at the 2048-token
+   rows, the route before the redesign timed beside it in the same run
+   (``old_route_ms``, bit-equal), K8's rows also bit-equal to K3 on the
+   same rows (``equals_k3``) and its 16-bit bound beside the fp8 one; K6
+   also on the same weights stored (E, k, n), route
    int8_tile, at V2_LITE's decode shape, held bit for bit against the
    route the hint picks for the K-major weights (``ring_equals_tile``).
    The dispatch probe P0 bit for bit against its
@@ -119,9 +125,12 @@ Phases, each of which raises on failure (exit code ≠ 0):
    ``gemm_fp8_fp8_bf16_nt`` (V2_LITE_FULL's ragged dense w2 included), and
    one MoE prefill layer (2048 tokens, V2_LITE's experts) through the
    contiguous grouped alias, held bit for bit against the port's masked
-   MoE path, plus the masked alias at decode. The counters are zeroed
-   before and read after: exactly K10, K11, K8, K1 and K3 launched, no
-   plain version; then every output is checked against the plain path;
+   MoE path, the same layer with the experts re-quantized to W8A8
+   (``params_with_int8_experts``) through ``m_grouped_int8_gemm_contiguous``
+   (K9) held bit for bit against the masked int8 path (K6), plus the masked
+   alias at decode. The counters are zeroed before and read after: exactly
+   K10, K11, K8, K1, K3, K9 and K6 launched, no plain version; then every
+   output is checked against the plain path;
 6. context-parallel prefill at V2_LITE's attention width (16 q heads, 4 kv
    heads, head_dim 128) over a 16384-token prompt and its per-token int8
    cache: one K4 over the whole cache as the reference;
@@ -316,7 +325,8 @@ PREFILL_PATH = FP8_PATH - {"flash_decode"}
 SPEC_PATH = PREFILL_PATH
 # ... and the kernels of the compat API's run (phase 5).
 COMPAT_PATH = {"gemm", "gemm_ksplit", "grouped_gemm_contiguous", "fp8_gemm",
-               "grouped_gemm"}
+               "grouped_gemm", "int8_grouped_contiguous",
+               "int8_grouped_masked"}
 # ... and of the context-parallel prefill and the direct ops (phase 6).
 CP_PATH = {"flash_prefill", "flash_prefill_stats", "flash_decode_read",
            "flash_decode_state", "flash_decode", "fp8_gemm_folded",
@@ -575,7 +585,8 @@ def phase_device() -> dict:
 def sm90_instances(logs: dict) -> list:
     """Stack, spills and registers of every instance of the Hopper kernels
     (K10's and K11's wgmma route, K12, K7's wgmma route, K1's and K3's
-    ring, K6's ring and wgmma routes, K2's live route), from nvcc's
+    ring, K6's ring and wgmma routes, K2's live route, K8's wgmma16 route
+    and its probe, K9's wgmma route), from nvcc's
     -Xptxas -v, under
     their mangled names (the template arguments: tile, stages, layout
     flags, types)."""
@@ -586,7 +597,8 @@ def sm90_instances(logs: dict) -> list:
             if "Compiling entry function" in ln and any(
                     kern in ln for kern in ("gemm_sm90", "folded_sm90",
                                             "int8_sm90", "ring_kernel",
-                                            "masked_sm90", "live_kernel")):
+                                            "masked_sm90", "live_kernel",
+                                            "contiguous_sm90", "wgmma16")):
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 name = ln.split("'")[1]
                 out.append(f"{name}: {props}")
@@ -892,8 +904,12 @@ def check_int8_masked(e: int, tokens: int, n: int, k: int, seed: int,
 
 def check_int8_contiguous(e: int, tokens: int, n: int, k: int,
                           seed: int) -> dict:
-    """Expert loads from routing ``tokens`` × top-6 through a random router,
-    laid out by make_contiguous_layout at block_m = 128."""
+    """K9 on expert loads from routing ``tokens`` × top-6 through a random
+    router, laid out by make_contiguous_layout at block_m = 128: its route
+    as its wrapper counted it (``contiguous_route``: wgmma for B stored
+    K-major), bit for bit against its plain version and against the route
+    before the redesign, int8_tile, timed beside it in the same run
+    (``old_route_ms``)."""
     counts = _masked_m(e, tokens, 6, seed).tolist()
     m, gids, _ = ggmod.make_contiguous_layout(counts, 128)
     a_q, a_s, b_q, b_s = _int8_operands((m, k), (e, n, k), seed + 1)
@@ -902,15 +918,22 @@ def check_int8_contiguous(e: int, tokens: int, n: int, k: int,
                                                        ids, b_layout="t")
     plain = lambda: i8mod.grouped_contiguous_plain(a_q, a_s, b_q, b_s, ids,
                                                    b_t=True)
-    got, ref = run(), plain()
+    old = lambda: i8mod._launch_contiguous(a_q, a_s, b_q, b_s, ids, 128,
+                                           True, torch.bfloat16,
+                                           plan=("int8_tile", 0))
+    got, plan = launched_route(i8mod.K9, run)
+    ref, before = plain(), old()
     torch.cuda.synchronize()
+    equals_old = bool(torch.equal(got, before))
     active = sum(1 for c in counts if c)
     nbytes = m * (k + 4) + active * (n * k + n * 4) + m * n * 2 + gids.size * 4
     b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
     return {"shape": f"E={e} M_total={m} tokens={sum(counts)} n={n} k={k}",
-            "ok": torch.equal(got, ref),
+            "ok": torch.equal(got, ref) and equals_old, **plan,
+            "equals_old_route": equals_old,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
-            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
+            "ms": cold_ms(run), "old_route_ms": cold_ms(old),
+            "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library_note": "none: no PyTorch call runs a grouped int8 "
                             "product"}
@@ -1174,13 +1197,38 @@ def check_ksplit(m: int, n: int, k: int, splits: int, seed: int,
                             "operands; bf16 output"}
 
 
+def _equals_masked_k3(a_q, a_s, b_q, b_s, counts, block_m, got) -> bool:
+    """Whether K3 (its ring route, as serving runs it) gives the rows of
+    each expert of a contiguous layout the same bits as K8 did (``got``):
+    the layout's spans copied into a masked (E, max rows, k) buffer."""
+    e, k = len(counts), a_q.shape[1]
+    cap = max(counts)
+    starts = np.cumsum([0] + [-(-c // block_m) * block_m for c in counts])
+    a3 = torch.zeros((e, cap, k), dtype=a_q.dtype, device=DEV)
+    as3 = torch.zeros((e, cap, k // 128), device=DEV)
+    for ei, c in enumerate(counts):
+        a3[ei, :c] = a_q[starts[ei]:starts[ei] + c]
+        as3[ei, :c] = a_s[starts[ei]:starts[ei] + c]
+    mm = torch.tensor(counts, dtype=torch.int32, device=DEV)
+    masked = ggmod.m_grouped_gemm_masked(a3, as3, b_q, b_s, mm, b_layout="t",
+                                         expected_m=-(-sum(counts) // e))
+    torch.cuda.synchronize()
+    return all(torch.equal(masked[ei, :c], got[starts[ei]:starts[ei] + c])
+               for ei, c in enumerate(counts))
+
+
 def check_contiguous(e: int, tokens: int, n: int, k: int, seed: int,
-                     block_m: int = 128, counts=None) -> dict:
+                     block_m: int = 128, counts=None,
+                     old_route: bool = False) -> dict:
     """K8 on the layout of ``tokens`` × top-6 routed by a random router
     (the same loads as K3's check with the same seed) or of ``counts``
     rows per expert, laid out by make_contiguous_layout at ``block_m``,
     plus one padding tile (-1) at the end, which must come out exactly
-    zero."""
+    zero; its route as its wrapper counted it (``contiguous_route``:
+    wgmma16 for B stored K-major and a block_m that 64 divides, else
+    tile). ``old_route``: also bit-equal to the route before the redesign
+    (tile) timed beside it in the same run (``old_route_ms``), and each
+    expert's rows bit-equal to K3 on the same rows (``equals_k3``)."""
     if counts is None:
         counts = _masked_m(e, tokens, 6, seed).tolist()
     _, gids, _ = ggmod.make_contiguous_layout(counts, block_m)
@@ -1196,22 +1244,38 @@ def check_contiguous(e: int, tokens: int, n: int, k: int, seed: int,
                                                   b_layout="t")
     plain = lambda: ggmod.grouped_gemm_contiguous_plain(
         a_q, a_s, b_q, b_s.transpose(1, 2), ids, b_t=True)
-    got, ref = run(), plain()
+    got, plan = launched_route(ggmod.K8, run)
+    ref = plain()
     torch.cuda.synchronize()
     pad_zero = bool((got[-block_m:] == 0).all())
+    ok = within_one_bf16_ulp(got, ref) and pad_zero
+    extra = {}
+    if old_route:
+        old = lambda: ggmod._launch_contiguous(
+            a_q, a_s, b_q, b_s.transpose(1, 2), fp8mod._SHIFT, ids, block_m,
+            True, torch.bfloat16, plan=("tile", 0))
+        before = old()
+        torch.cuda.synchronize()
+        extra = {"equals_old_route": bool(torch.equal(got, before)),
+                 "equals_k3": _equals_masked_k3(a_q, a_s, b_q, b_s, counts,
+                                                block_m, got),
+                 "old_route_ms": cold_ms(old)}
+        ok &= extra["equals_old_route"] and extra["equals_k3"]
     rows = m - block_m                       # rows of expert tiles
     active = sum(1 for c in counts if c)
     kb = k // 128
     nbytes = (m * (k + kb * 4) + active * (n * k + (n // 128) * kb * 4)
               + m * n * 2 + gids.size * 4)
     b_ms, b_by = bound_ms(nbytes, 2.0 * rows * n * k, FP8_OPS_PER_S)
+    # The least time of a 16-bit route (wgmma16 runs the f16 tensor cores).
+    f16_ms, _ = bound_ms(nbytes, 2.0 * rows * n * k, BF16_OPS_PER_S)
     return {"shape": f"E={e} block_m={block_m} M_total={m} "
                      f"tokens={sum(counts)} n={n} k={k}",
-            "ok": within_one_bf16_ulp(got, ref) and pad_zero,
-            "padding_tile_zero": pad_zero,
+            "ok": ok, "padding_tile_zero": pad_zero, **plan, **extra,
             "max_abs_err": float((got.float() - ref.float()).abs().max()),
             "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_16bit_ms": f16_ms,
+            "library_ms": None,
             "library_note": "none: no PyTorch call runs a grouped product "
                             "with blockwise fp8 scales"}
 
@@ -1579,11 +1643,13 @@ def phase_kernels() -> dict:
         results["gemm_ksplit"].append(check_ksplit(
             16, 2048, 11008, splits, seed=52, why="explicit config"))
     # K8 at K3's prefill loads (same seeds), V2_LITE's 32 experts and
-    # V2_LITE_FULL's 64, and one layout tile that is not a multiple of 64.
+    # V2_LITE_FULL's 64 (each bit-equal to K3 and to route tile, timed
+    # beside it), and one layout tile that is not a multiple of 64.
     for e in (V2_LITE.num_experts, V2_LITE_FULL.num_experts):
         for n, k in ((2816, 2048), (2048, 1408)):
             results["grouped_gemm_contiguous"].append(
-                check_contiguous(e, 2048, n, k, seed=e + 2048 + n))
+                check_contiguous(e, 2048, n, k, seed=e + 2048 + n,
+                                 old_route=True))
     results["grouped_gemm_contiguous"].append(check_contiguous(
         V2_LITE.num_experts, 2048, 2816, 2048, seed=60, block_m=96))
     # K12 at K1's shapes (b_layout 't', the port's weights), and 'n' once;
@@ -1631,6 +1697,13 @@ def phase_kernels() -> dict:
                    else "")
                 + (f" ring_equals_tile={r['ring_equals_tile']}"
                    if "ring_equals_tile" in r else "")
+                + (f" old_route_ms(same run)={r['old_route_ms']:.4f}"
+                   f" equals_old_route={r['equals_old_route']}"
+                   if "old_route_ms" in r else "")
+                + (f" equals_k3={r['equals_k3']}" if "equals_k3" in r
+                   else "")
+                + (f" bound_16bit_ms={r['bound_16bit_ms']:.4f}"
+                   if "bound_16bit_ms" in r else "")
                 + (f" prev_ms(before the redesign, quoted)={r['prev_ms']}"
                    if r.get("prev_ms") else "")
                 + (f" bf16_out_ms={r['bf16_out_ms']:.4f}"
@@ -2511,6 +2584,32 @@ def _deepgemm_routed(mp, x: torch.Tensor, cfg, out_bufs: bool = True):
     return out, y, rows
 
 
+def _int8_routed_contiguous(mp, x: torch.Tensor, cfg):
+    """The routed experts of one MoE layer with W8A8 int8 experts on the
+    contiguous layout: the same routing, layout and combine as
+    :func:`_deepgemm_routed`, activations quantized per token as the MoE
+    layer quantizes them, ``m_grouped_int8_gemm_contiguous`` (K9) for w1
+    and w2. Returns (t, hidden) f32."""
+    t, hidden = x.shape
+    exp = mp.experts
+    weights, topk_idx = route_topk(mp.router(x), cfg.top_k)
+    slot, masked_m, _ = dispatch_masked(topk_idx, cfg.num_experts)
+    counts = masked_m.tolist()
+    _, gids, _ = ggmod.make_contiguous_layout(counts, 128)
+    spans = torch.tensor([-(-c // 128) * 128 for c in counts], device=DEV)
+    offset = torch.cumsum(spans, 0) - spans
+    rows = (offset[topk_idx.long()] + slot).reshape(-1)
+    buf = torch.zeros((int(spans.sum()), hidden), dtype=torch.bfloat16,
+                      device=DEV)
+    buf[rows] = torch.repeat_interleave(x, cfg.top_k, dim=0)
+    gemm = lambda a, w_q, w_s: i8mod.m_grouped_int8_gemm_contiguous(
+        *quant.quantize_int8(a, axis=-1), w_q, w_s, gids, b_layout="t")
+    y = gemm(moemod._swiglu(gemm(buf, exp.w1_q, exp.w1_s)), exp.w2_q,
+             exp.w2_s)
+    gathered = y[rows].reshape(t, cfg.top_k, hidden)
+    return torch.sum(gathered.to(torch.float32) * weights[:, :, None], dim=1)
+
+
 def phase_compat(device: dict) -> dict:
     """The compat API at V2_LITE's widths (module docstring, phase 5). The
     calls run first, between zeroing and reading the counters; every
@@ -2518,6 +2617,7 @@ def phase_compat(device: dict) -> dict:
     cfg = dataclasses.replace(V2_LITE, num_layers=2)   # layer 1: MoE
     params = init_params(0, cfg, device=DEV)
     mp = params.layers[1].ffn
+    mp8 = params_with_int8_experts(params).layers[1].ffn
     hidden, ffn = cfg.hidden_size, cfg.dense_intermediate
     g = _gen(70)
     bench_params = [1, 1, 4, 8, 6, 2]
@@ -2585,6 +2685,8 @@ def phase_compat(device: dict) -> dict:
                          is out))
     routed_dg, y_dg, rows_dg = _deepgemm_routed(mp, x_moe, cfg)
     routed_masked = moemod._moe_routed(mp, x_moe, cfg)
+    routed_i8 = _int8_routed_contiguous(mp8, x_moe, cfg)
+    routed_i8_masked = moemod._moe_routed(mp8, x_moe, cfg)
     out_dec = torch.empty((cfg.num_experts, cap_dec, mp.experts.w1_q.shape[1]),
                           dtype=torch.bfloat16, device=DEV)
     dec_same = deep_gemm.m_grouped_gemm_fp8_fp8_bf16_nt_masked(
@@ -2622,6 +2724,11 @@ def phase_compat(device: dict) -> dict:
     if not (moe_bit_equal or moe_ulp):
         failures.append(f"MoE prefill contiguous vs masked (rel-L2 "
                         f"{moe_rel:.3g})")
+    # int8: both sums exact and every other step row by row, so the
+    # contiguous path (K9) must equal the masked one (K6) bit for bit.
+    int8_bit_equal = bool(torch.equal(routed_i8, routed_i8_masked))
+    if not int8_bit_equal:
+        failures.append("int8 MoE prefill contiguous (K9) vs masked (K6)")
     pad_rows = torch.ones(y_dg.shape[0], dtype=torch.bool, device=DEV)
     pad_rows[rows_dg] = False
     if bool((y_dg[pad_rows] != 0).any()):
@@ -2638,7 +2745,11 @@ def phase_compat(device: dict) -> dict:
     moe_ms = {"contiguous_K8": cold_ms(lambda: _deepgemm_routed(
                   mp, x_moe, cfg), reps=5),
               "masked_K3": cold_ms(lambda: moemod._moe_routed(
-                  mp, x_moe, cfg), reps=5)}
+                  mp, x_moe, cfg), reps=5),
+              "contiguous_K9": cold_ms(lambda: _int8_routed_contiguous(
+                  mp8, x_moe, cfg), reps=5),
+              "masked_K6": cold_ms(lambda: moemod._moe_routed(
+                  mp8, x_moe, cfg), reps=5)}
     picked = {f"{label} bf16": _picked(x.shape[0], w.shape[1], w.shape[0],
                                        torch.bfloat16)
               for label, x, w in dense}
@@ -2647,7 +2758,8 @@ def phase_compat(device: dict) -> dict:
     log(f"compat API: {len(api)} run_mmad_* shapes x 3 calls, 2 batched, "
         f"gemm twice, {len(fp8_calls)} gemm_fp8_fp8_bf16_nt, one MoE "
         f"prefill layer ({PREFILL_TOKENS} tokens, E={cfg.num_experts}, "
-        f"top-{cfg.top_k}) and one decode masked call in {wall:.2f} s wall; "
+        f"top-{cfg.top_k}) with fp8 and with int8 experts each way and one "
+        f"decode masked call in {wall:.2f} s wall; "
         f"{device['smi']}")
     log(f"  select_config: {picked}")
     log(f"  MoE prefill, contiguous (K8) vs masked (K3) routed output: "
@@ -2656,6 +2768,10 @@ def phase_compat(device: dict) -> dict:
         f"planning and the alias's id check included): K8 path "
         f"{moe_ms['contiguous_K8']:.3f} ms, K3 path "
         f"{moe_ms['masked_K3']:.3f} ms")
+    log(f"  int8 MoE prefill (W8A8 experts), contiguous (K9) vs masked (K6) "
+        f"routed output: bit-equal={int8_bit_equal}; K9 path "
+        f"{moe_ms['contiguous_K9']:.3f} ms, K6 path "
+        f"{moe_ms['masked_K6']:.3f} ms")
     log(f"  counters (launches, plain calls): {counts}")
     log(f"  launches by plan: {launch_plans()}")
     if failures:
@@ -2664,6 +2780,7 @@ def phase_compat(device: dict) -> dict:
     check_path("compat", counts, COMPAT_PATH)
     return {"run": "compat", "wall_s": wall, "counts": counts,
             "select_config": picked, "moe_bit_equal": moe_bit_equal,
+            "int8_moe_bit_equal": int8_bit_equal,
             "moe_rel_l2": moe_rel, "moe_routed_ms": moe_ms}
 
 

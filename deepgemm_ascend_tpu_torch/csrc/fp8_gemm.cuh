@@ -25,8 +25,8 @@
 // one block of 4 warps per 64x64 output tile, synchronous 16-byte loads of
 // each 128-deep group into shared memory (144-byte row pitch), then the
 // math. Nothing is in flight while the math runs, so a block takes one
-// DRAM round trip per group. It stays for b_layout='n' (K1, K3) and for
-// K8's contiguous layout.
+// DRAM round trip per group. It stays for b_layout='n' (K1, K3, K8) and
+// for K8's layouts whose block_m 64 does not divide.
 //
 // ring_kernel, the "ring" route (B K-major, TMA-describable operands):
 //   * a ring of stages in shared memory, one 128-deep scale group each (a

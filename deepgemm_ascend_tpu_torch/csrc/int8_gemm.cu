@@ -50,9 +50,10 @@
 //     128 x 256 where those fill the card, else 64 x 64, two blocks an SM
 //     (m <= 64: 344 tiles at n = 22016). wgmma reads 8-bit operands
 //     K-major only, so B stored (k, n) cannot take this route.
-//   route 0, "int8_tile" (every layout and shape; K9 always, K6 with B
-//     stored (k, n)): the simple design below: 64 x 64 tiles, 4 warps of
-//     32 x 32, 128-deep K steps staged in shared memory through registers
+//   route 0, "int8_tile" (every layout and shape; K9 and K6 with B stored
+//     (k, n), K9 with a block_m that 64 does not divide): the simple
+//     design below: 64 x 64 tiles, 4 warps of 32 x 32, 128-deep K steps
+//     staged in shared memory through registers
 //     (the next step's global loads are in flight during this step's math;
 //     no cp.async/TMA ring), mma.sync at a fraction of the wgmma s8 rate.
 //     Idle masked tiles cost a block and a zero store each.
@@ -76,6 +77,16 @@
 //     from tile to tile of a CTA (produce / mma_loop from stage `it`).
 //     At prefill (6T rows an expert, ~T/E valid) the zero stores of the
 //     buffer and the operand reads together bound it (DRAM).
+// K9 (_int8_grouped_kernel, :217) with B stored K-major and a block_m that
+// 64 divides takes route 1, "wgmma" (ops/int8_gemm.py: contiguous_route):
+// K6's route 2 with the contiguous map in place of masked_m (a 2-D map over
+// the flat A, the 3-D B map whose batch is the tile's expert, read from
+// tile_gids before the tile's boxes are issued); 128 x 256 tiles where 128
+// divides block_m, else 64 x 64, so that no tile spans two experts;
+// persistent CTAs carry one ring across their tiles, and a padding tile
+// (-1) loads nothing and is zeroed by the consumers, which skip it in step
+// with the producer. Bound on the card: the operand bytes from L2 and the
+// int8 tensor cores.
 // The sums are exact, so every route equals the plain version bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -723,6 +734,112 @@ int run_masked(int route, int tile, const void* a, const void* b, long long b_e,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------- K9's route 1
+
+struct ContigArgs {
+  void* c;                // (m, n), row-major
+  const float* a_s;       // (m)
+  const float* b_s;       // (E, n)
+  const int* tile_gids;   // expert of each layout tile of block_m rows, -1: padding
+  int m, n, block_m;
+  int tiles_m, tiles_n;   // kernel tiles
+  int kb;                 // 128-deep K stages
+};
+
+// Route 1, "wgmma": K6's route 2 with the contiguous map in place of
+// masked_m. Persistent CTAs walk the kernel tiles b, b + G, ... (G CTAs, n
+// fastest, so that the CTAs in flight share an expert's weights in L2)
+// with one ring; BM divides block_m, so a tile lies in one layout tile,
+// whose expert the producer reads before it issues the tile's B boxes (the
+// 3-D map's batch). A padding tile (-1) loads nothing and is zeroed by the
+// consumers; producer and consumers skip it alike, so their stage counts
+// stay in step.
+template <int BM, int BN, int STAGES, typename OutT>
+__global__ void __launch_bounds__((BM / 64 + 1) * 128, BM == 64 ? 2 : 1)
+    int8_contiguous_sm90_kernel(const __grid_constant__ CUtensorMap ta,
+                                const __grid_constant__ CUtensorMap tb, ContigArgs p) {
+  constexpr int kConsumers = BM / 64;
+  using R = s9::Ring<BM, BN, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = s9::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::kBytes);
+  uint64_t* empty = full + STAGES;
+  const int tiles = p.tiles_m * p.tiles_n;
+  const int wg = threadIdx.x / 128;
+  auto expert = [&](int t) { return p.tile_gids[t / p.tiles_n * BM / p.block_m]; };
+  s9::init_ring<STAGES>(full, empty, kConsumers);
+  __syncthreads();
+  if (wg == kConsumers) {
+    if constexpr (kConsumers == 2) s9::regs_dec<40>();
+    if (threadIdx.x == kConsumers * 128) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int e = expert(t);
+        if (e < 0) continue;
+        s9::produce<int8_t, BM, BN, STAGES, false, false>(ring, full, empty, &ta, &tb,
+                                                          t / p.tiles_n * BM, t % p.tiles_n * BN,
+                                                          0, 0, p.kb, it, e);
+        it += p.kb;
+      }
+    }
+  } else {
+    if constexpr (kConsumers == 2) s9::regs_inc<232>();
+    const int tid = threadIdx.x & 127;
+    OutT* c = static_cast<OutT*>(p.c);
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / p.tiles_n * BM, n0 = t % p.tiles_n * BN;
+      const int e = expert(t);
+      if (e < 0) {
+        zero_block(c, p.n, m0 + wg * 64, m0 + wg * 64 + 64, n0, min(n0 + BN, p.n), tid, 128);
+        continue;
+      }
+      int acc[BN / 2];
+      s9::mma_loop<int8_t, BM, BN, STAGES, false, false>(acc, ring, full, empty, p.kb, wg,
+                                                         [](int) {}, it);
+      if (tid == 0) s9::mbar_arrive(&empty[(it + p.kb - 1) % STAGES]);
+      s9::store_tile_scaled<BN>(acc, c, p.a_s, p.b_s + (size_t)e * p.n, p.m, p.n, m0 + wg * 64,
+                                n0);
+      it += p.kb;
+    }
+  }
+}
+
+// Maps of A (m, k) and B (E, n, k, expert pitch b_e) as bytes, 128-byte
+// boxes of K; CTAs: `per_sm` a multiprocessor, at most one a tile.
+template <int BM, int BN, int STAGES, typename OutT>
+int run_contiguous_sm90(const void* a, const void* b, long long b_e, int e, int k, int per_sm,
+                        const ContigArgs& p, cudaStream_t s) {
+  if (p.block_m % BM) return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap ta, tb;
+  int rc = s9::make_map(&ta, u8, 1, a, k, p.m, 1, k, 0, 128, BM, sw);
+  if (rc) return rc;
+  rc = s9::make_map(&tb, u8, 1, b, k, p.n, e, k, b_e, 128, BN, sw);
+  if (rc) return rc;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
+  ContigArgs q = p;
+  q.tiles_m = p.m / BM;
+  q.tiles_n = (p.n + BN - 1) / BN;
+  const long long tiles = (long long)q.tiles_m * q.tiles_n;
+  const int grid = (int)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
+  return s9::launch<int8_contiguous_sm90_kernel<BM, BN, STAGES, OutT>>(
+      dim3(grid), (BM / 64 + 1) * 128, s9::Ring<BM, BN, STAGES>::kSmem, s, ta, tb, q);
+}
+
+// K9 on route 1, tile 0 (64 x 64, two CTAs an SM) or 1 (128 x 256).
+template <typename OutT>
+int run_contiguous(int tile, const void* a, const void* b, long long b_e, int e, int k,
+                   const ContigArgs& p, cudaStream_t s) {
+  if (tile == 0) return run_contiguous_sm90<64, 64, 6, OutT>(a, b, b_e, e, k, 2, p, s);
+  if (tile == 1) return run_contiguous_sm90<128, 256, 4, OutT>(a, b, b_e, e, k, 1, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // K7: c (m, n) = (a . b) * a_s * b_s, bf16 or f32 (out_f32); B's strides
@@ -744,13 +861,26 @@ extern "C" int dga_int8_gemm(const void* a, const void* a_s, const void* b, cons
   return (int)cudaGetLastError();
 }
 
+// K9 on route 0 (int8_tile) or 1 (wgmma, `tile` 0: 64 x 64 for block_m a
+// multiple of 64, 1: 128 x 256 for a multiple of 128); route 1 takes B
+// K-major (sbk == 1) over `e` experts only, and the tensor maps refuse what
+// TMA cannot describe (k not a multiple of 16, a pointer off 16 bytes).
 extern "C" int dga_int8_grouped_contiguous(const void* a, const void* a_s, const void* b,
                                            const void* b_s, const void* tile_gids, void* c,
                                            int m, int n, int k, int block_m, long long b_e,
-                                           long long sbk, long long sbn, int out_f32,
-                                           void* stream) {
+                                           long long sbk, long long sbn, int out_f32, int e,
+                                           int route, int tile, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || block_m <= 0 || m % block_m)
     return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    if (sbk != 1 || sbn != k || e <= 0) return (int)cudaErrorInvalidValue;
+    const ContigArgs p{c, static_cast<const float*>(a_s), static_cast<const float*>(b_s),
+                       static_cast<const int*>(tile_gids), m, n, block_m, 0, 0, (k + 127) / 128};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return out_f32 ? run_contiguous<float>(tile, a, b, b_e, e, k, p, s)
+                   : run_contiguous<__nv_bfloat16>(tile, a, b, b_e, e, k, p, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   const int n_tiles = m / block_m;
   if ((long long)n_tiles * ((block_m + kBM - 1) / kBM) > kMaxGridY)
     return (int)cudaErrorInvalidValue;

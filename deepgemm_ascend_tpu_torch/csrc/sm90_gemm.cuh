@@ -1,9 +1,10 @@
 // Hopper (sm_90a) GEMM main loop shared by the dense GEMM and split-K GEMM
 // (gemm.cu, K10 and K11), the folded-scale FP8 GEMM (fp8_gemm.cu, K12) and
-// the W8A8 int8 GEMMs (int8_gemm.cu: K7, and K6's wgmma route, whose CTAs
-// carry one ring across several tiles); its TMA, mbarrier and cp.async
-// pieces also serve the TMA rings of fp8_gemm.cuh (K1, K3), K6's ring
-// route and K2's live route (flash_decode.cu).
+// the W8A8 int8 GEMMs (int8_gemm.cu: K7, and K6's and K9's wgmma routes,
+// whose CTAs carry one ring across several tiles); its TMA, mbarrier and
+// cp.async pieces also serve the TMA rings of fp8_gemm.cuh (K1, K3), K6's
+// ring route, K2's live route (flash_decode.cu) and K8's wgmma16 route
+// (grouped_gemm.cu, with the f16 wgmma that takes A from registers).
 //
 // The pieces, each written once and generic in the element size:
 //   * TMA tensor maps (cuTensorMapEncodeTiled, reached through
@@ -332,6 +333,21 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
   }
 }
 
+// d (64 x 128 per warpgroup) = A (64 x 16) . B (16 x 128) (+ d where
+// accumulate), f16 operands: A from registers, in mma.m16n8k16's A
+// fragment per warp (warp w: rows 16w..16w+15; a0 row g, k 2t..2t+1; a1
+// row g+8; a2 row g, k 2t+8..2t+9; a3 row g+8), B K-major in shared
+// memory. The registers of `a` must stay unchanged until the wgmma is
+// waited for.
+__device__ __forceinline__ void wgmma_f16_ra(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " DGA_WGMMA_REGS_N128
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+               : DGA_WGMMA_OUTS_N128("f")
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d (64 x N per warpgroup, s32) += A (64 x 32) . B (32 x N), s8, both
 // operands K-major; exact (|d| stays far below 2^31 for k < 2^17).
 template <int N>
@@ -393,14 +409,16 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int c
 // stored K-major is one box (K inner); an MN-major one (16-bit only) is
 // 64-column panels (MN inner). `it0`: stages this ring has already
 // carried (a block that walks several tiles), which sets the first slot
-// and its phase.
+// and its phase. `b_batch`: B's batch element where it is not A's (K9's
+// flat A against the expert of the tile), else -1.
 template <typename T, int BM, int BN, int STAGES, bool A_MN, bool B_MN>
 __device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t* empty,
                                         const CUtensorMap* ta, const CUtensorMap* tb, int m0,
                                         int n0, int batch, int kb_begin, int kb_count,
-                                        int it0 = 0) {
+                                        int it0 = 0, int b_batch = -1) {
   using R = Ring<BM, BN, STAGES>;
   static_assert(sizeof(T) == 2 || !(A_MN || B_MN), "8-bit operands are K-major only");
+  const int bb = b_batch < 0 ? batch : b_batch;
   int s = it0 % STAGES;
   uint32_t phase = (it0 / STAGES) & 1;
   for (int kb = 0; kb < kb_count; ++kb) {
@@ -419,9 +437,9 @@ __device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full, uint64_t*
     if (B_MN) {
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j)
-        tma_load(b + j * kPanel, tb, &full[s], n0 + 64 * j, k0, batch);
+        tma_load(b + j * kPanel, tb, &full[s], n0 + 64 * j, k0, bb);
     } else {
-      tma_load(b, tb, &full[s], k0, n0, batch);
+      tma_load(b, tb, &full[s], k0, n0, bb);
     }
     if (++s == STAGES) {
       s = 0;

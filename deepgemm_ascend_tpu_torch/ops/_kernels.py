@@ -69,9 +69,10 @@ KERNELS = {
     "grouped_gemm": ("grouped_gemm", "dga_grouped_gemm_masked",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                       _L, _L, _I, _I, _I, _I, _P]),
+    # K8 also takes the experts, its route and tile.
     "grouped_gemm_contiguous": ("grouped_gemm", "dga_grouped_gemm_contiguous",
                                 [_P] * 6 + [_I] * 4 + [_L] * 6
-                                + [_I, _I, _P]),
+                                + [_I] * 5 + [_P]),
     "gemm": ("gemm", "dga_gemm", [_P, _P, _P] + [_I] * 10 + [_P]),
     "gemm_ksplit": ("gemm", "dga_gemm_ksplit", [_P, _P, _P] + [_I] * 8 + [_P]),
     # K2 also takes its arrival counts and its route.
@@ -88,12 +89,19 @@ KERNELS = {
                            [_P] * 10 + [_I] * 6 + [_F, _P]),
     "int8_gemm": ("int8_gemm", "dga_int8_gemm",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P]),
+    # K9 also takes the experts, its route and tile.
     "int8_grouped_contiguous": ("int8_gemm", "dga_int8_grouped_contiguous",
-                                _INT8_GROUPED),
+                                _INT8_GROUPED[:-1] + [_I, _I, _I, _P]),
     # K6 also takes its route and tile.
     "int8_grouped_masked": ("int8_gemm", "dga_int8_grouped_masked",
                             _INT8_GROUPED[:-1] + [_I, _I, _P]),
     "copy_probe": ("dispatch_probe", "dga_copy_probe", [_P, _P, _I, _P]),
+}
+# Test kernels built with the sources above, with no wrapper and no
+# counter: K8's probe of whether an f16 wgmma sums a scale group as
+# mma.sync does (csrc/grouped_gemm.cu, tests/test_torch_gpu.py).
+PROBES = {
+    "wgmma16_probe": ("grouped_gemm", "dga_wgmma16_probe", [_P, _P, _P, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))
 
@@ -193,7 +201,8 @@ class _Libraries:
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         fns = {}
-        for name, (source, symbol, argtypes) in KERNELS.items():
+        for name, (source, symbol, argtypes) in {**KERNELS,
+                                                 **PROBES}.items():
             fn = getattr(ctypes.CDLL(str(out / f"lib{source}.so")), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -217,14 +226,15 @@ def build_log() -> Dict[str, str]:
 
 
 def entry(kernel: str):
-    """The C entry point of the kernel named ``kernel`` (built at first
-    use)."""
+    """The C entry point of the kernel (or probe) named ``kernel`` (built
+    at first use)."""
     return _LIBS.get()[kernel]
 
 
 def check(rc: int, kernel: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{KERNELS[kernel][1]}: CUDA error {rc} at launch")
+        symbol = (KERNELS.get(kernel) or PROBES[kernel])[1]
+        raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
 
 
 def stream_ptr(device) -> int:

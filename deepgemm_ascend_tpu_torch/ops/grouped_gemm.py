@@ -19,7 +19,13 @@ On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 The masked kernel takes K1's routes (:func:`route`): "ring" (a TMA ring of
 scale groups, its tile from :func:`ring_tile`; never split, so that it
 stays bit-equal to the contiguous kernel) for B stored K-major, else
-"tile"; the contiguous kernel runs K1's 64×64 tile routine.
+"tile". The contiguous kernel takes :func:`contiguous_route`: "wgmma16"
+(f16 ``wgmma`` on the e4m3 operands converted exactly, each 128-deep
+group's partial from 0 promoted as K1 does — an f16 ``wgmma`` sums a group
+bit for bit as K1's ``mma.sync`` steps do, which ``tests/test_torch_gpu.py``
+probes on the card; 128×128 or 64×128 tiles by :func:`contiguous_tile`)
+for B stored K-major with a ``block_m`` that 64 divides, else K1's 64×64
+tile routine.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from .quant import BLOCK, FP8
 __all__ = ["m_grouped_gemm_masked", "grouped_gemm_masked_plain",
            "m_grouped_gemm_contiguous", "grouped_gemm_contiguous_plain",
            "make_contiguous_layout", "contiguous_tiles", "route",
-           "ring_tile"]
+           "ring_tile", "contiguous_route", "contiguous_tile"]
 
 COUNTER = _kernels.COUNTERS["grouped_gemm"]
 K8 = _kernels.COUNTERS["grouped_gemm_contiguous"]
@@ -52,6 +58,10 @@ K8 = _kernels.COUNTERS["grouped_gemm_contiguous"]
 # on routed loads over 32 experts: 16 rows ahead up to a mean of 12 rows
 # an expert, 64 rows from 24 on.
 SMALL_ROWS = 16
+# K8's routes, numbered as its C entry numbers them, and the tiles of its
+# wgmma16 route (rows, columns).
+CONTIGUOUS_ROUTES = ("tile", "wgmma16")
+CONTIGUOUS_TILES = ((64, 128), (128, 128))
 
 
 def route(a_q, b_q, b_layout: str = "n") -> str:
@@ -71,6 +81,36 @@ def ring_tile(m_max: int, expected_m: Optional[int] = None) -> int:
     else 64."""
     rows = m_max if expected_m is None else min(m_max, expected_m)
     return 0 if rows <= SMALL_ROWS else 1
+
+
+def contiguous_route(a_q, b_q, b_layout: str = "n",
+                     block_m: int = 128) -> str:
+    """K8's route for the stored operands ``a_q`` (M_total, k) and ``b_q``
+    laid out in ``block_m``-row tiles: ``"wgmma16"`` where TMA can read
+    them (:func:`~.fp8_gemm.ring_route_ok`: B stored K-major,
+    ``b_layout='t'``; k a multiple of 128; 16-byte-aligned pointers) and a
+    64-row tile divides ``block_m``, so that no tile spans two experts;
+    else ``"tile"`` (``b_layout='n'``, block_m 96, an offset view)."""
+    if b_layout not in ("n", "t"):
+        raise ValueError(f"b_layout must be 'n' or 't', got {b_layout!r}")
+    if not ring_route_ok(a_q, b_q, b_layout == "t") or block_m % 64:
+        return "tile"
+    return "wgmma16"
+
+
+def contiguous_tile(block_m: int) -> int:
+    """The tile of the contiguous kernels' Hopper routes (K8's wgmma16, K9's
+    wgmma), as an index into their tile lists: 1, the 128-row tile, where
+    128 divides ``block_m`` (the MoE prefill's and DeepGEMM's layout), else
+    0, the 64-row one."""
+    return int(block_m % 128 == 0)
+
+
+def contiguous_plan_label(rt: str, tile: int) -> str:
+    """A K8 launch's plan as its wrapper counts it (``Counter.plans``)."""
+    if rt == "wgmma16":
+        return "wgmma16 {}x{}".format(*CONTIGUOUS_TILES[tile])
+    return rt
 
 
 def make_contiguous_layout(
@@ -283,7 +323,11 @@ def grouped_gemm_contiguous_plain(a_q, a_scales, b_q, bs_view, tile_group_ids,
 
 
 def _launch_contiguous(a_q, a_scales, b_q, bs_view, shift, ids, block_m, b_t,
-                       out_dtype):
+                       out_dtype, plan=None):
+    """Run K8 on ``a_q``'s device: the kernel for CUDA, the plain version
+    for the CPU. ``plan``: (route, tile) in place of
+    :func:`contiguous_route` and :func:`contiguous_tile`'s (for tests and
+    sweeps; the C entry refuses what it cannot run)."""
     dev = a_q.device
     if dev.type == "cpu":
         return grouped_gemm_contiguous_plain(a_q, a_scales, b_q, bs_view, ids,
@@ -305,18 +349,25 @@ def _launch_contiguous(a_q, a_scales, b_q, bs_view, shift, ids, block_m, b_t,
         raise ValueError(f"m_grouped_gemm_contiguous: b_scales on "
                          f"{bs.device}")
     m, k = a_q.shape
+    e = b_q.shape[0]
     n = b_q.shape[1] if b_t else b_q.shape[2]
     gids = ids.to(device=dev, dtype=torch.int32)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     sbk, sbn = (1, k) if b_t else (n, 1)
-    check_tile_alignment("m_grouped_gemm_contiguous", a_q, b_q, b_t)
+    if plan is None:
+        rt = contiguous_route(a_q, b_q, "t" if b_t else "n", block_m)
+        plan = rt, contiguous_tile(block_m) if rt == "wgmma16" else 0
+    if plan[0] == "tile":
+        check_tile_alignment("m_grouped_gemm_contiguous", a_q, b_q, b_t)
     rc = _kernels.entry("grouped_gemm_contiguous")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), bs.data_ptr(),
         gids.data_ptr(), out.data_ptr(), m, n, k, block_m, b_q.stride(0), sbk,
         sbn, bs.stride(0), bs.stride(1), bs.stride(2), shift,
-        int(out_dtype == torch.float32), _kernels.stream_ptr(dev))
+        int(out_dtype == torch.float32), e, CONTIGUOUS_ROUTES.index(plan[0]),
+        plan[1], _kernels.stream_ptr(dev))
     _kernels.check(rc, "grouped_gemm_contiguous")
     K8.launches += 1
+    K8.count_plan(contiguous_plan_label(*plan))
     return out
 
 

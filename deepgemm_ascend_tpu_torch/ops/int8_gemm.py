@@ -18,7 +18,11 @@ the kernel, which refuses a route it cannot take: ``"wgmma"`` (the Hopper
 main loop of ``csrc/sm90_gemm.cuh`` with 8-bit stages: TMA and
 ``wgmma`` s8, 128 × 256 or 64 × 64 tiles; B stored K-major only) or
 ``"int8_tile"`` (``mma.sync`` on fixed 64 × 64 tiles: every layout and
-shape, and always K9).
+shape). K9 takes the same two routes (:func:`contiguous_route`): "wgmma"
+— K6's wgmma route with the contiguous map, the expert of each tile read
+by the producer, 128 × 256 or 64 × 64 tiles by
+``grouped_gemm.contiguous_tile`` — for B stored K-major with a ``block_m``
+that 64 divides, else ``"int8_tile"``.
 
 K6 with B stored K-major takes one of two routes by the rows an expert is
 expected to hold (:func:`masked_plan`; ``expected_m``, DeepGEMM's hint,
@@ -44,12 +48,12 @@ import torch
 from ..config import GemmConfig
 from . import _kernels
 from .fp8_gemm import _check_cuda_operands, check_config, exact_enabled
-from .grouped_gemm import contiguous_tiles
+from .grouped_gemm import contiguous_tile, contiguous_tiles
 
 __all__ = ["int8_gemm", "int8_gemm_with_config", "route",
            "m_grouped_int8_gemm_contiguous", "m_grouped_int8_gemm_masked",
            "int8_gemm_plain", "grouped_contiguous_plain",
-           "grouped_masked_plain", "masked_plan"]
+           "grouped_masked_plain", "masked_plan", "contiguous_route"]
 
 K7 = _kernels.COUNTERS["int8_gemm"]
 K9 = _kernels.COUNTERS["int8_grouped_contiguous"]
@@ -66,6 +70,9 @@ MASKED_ROUTES = ("int8_tile", "ring", "wgmma")
 MASKED_WGMMA_TILES = ((64, 64), (128, 256))
 SMALL_ROWS = 16
 MEDIUM_ROWS = 64
+# K9 takes K7's route codes (ROUTES) and K6's wgmma tiles
+# (MASKED_WGMMA_TILES, by grouped_gemm.contiguous_tile: the rows of a tile
+# divide block_m, so that no tile spans two experts).
 
 
 def _layout(b_layout: str) -> bool:
@@ -159,6 +166,17 @@ def route(a_q, b_q, b_layout: str = "n") -> str:
     return "wgmma"
 
 
+def contiguous_route(a_q, b_q, b_layout: str = "n", block_m: int = 128) -> str:
+    """K9's route for the stored operands ``a_q`` (M_total, k) and ``b_q``
+    laid out in ``block_m``-row tiles: ``"wgmma"`` where K7's wgmma route
+    takes the operands (:func:`route`: B stored K-major, k a multiple of
+    16, 16-byte aligned pointers) and a 64-row tile divides ``block_m``,
+    else ``"int8_tile"`` (``'n'``, block_m 96)."""
+    if route(a_q, b_q, b_layout) == "int8_tile" or block_m % 64:
+        return "int8_tile"
+    return "wgmma"
+
+
 def masked_plan(m_max: int, expected_m=None):
     """(route, tile) of K6 on operands that take the TMA routes, by the
     rows an expert is expected to hold — ``expected_m`` or, without it,
@@ -171,7 +189,8 @@ def masked_plan(m_max: int, expected_m=None):
 
 
 def masked_plan_label(rt: str, tile: int) -> str:
-    """A K6 launch's plan as its wrapper counts it (``Counter.plans``)."""
+    """A K6 (or K9) launch's plan as its wrapper counts it
+    (``Counter.plans``)."""
     if rt == "ring":
         return "ring 16x64"
     if rt == "wgmma":
@@ -345,21 +364,36 @@ def m_grouped_int8_gemm_contiguous(
             rows = torch.nonzero(row_gid == ei)[:, 0]
             y[rows] = torch.matmul(a[rows], b[ei])
         return y.to(out_dtype)
+    return _launch_contiguous(a_q, a_scales, b_q, b_scales, ids, block_m,
+                              b_t, out_dtype)
+
+
+def _launch_contiguous(a_q, a_scales, b_q, b_scales, ids, block_m, b_t,
+                       out_dtype, plan=None):
+    """K9 on ``a_q``'s device. ``plan``: (route, tile) in place of
+    :func:`contiguous_route` and ``grouped_gemm.contiguous_tile``'s (an
+    index into MASKED_WGMMA_TILES; for tests and sweeps; the C entry
+    refuses what it cannot run)."""
     if not _on_device("m_grouped_int8_gemm_contiguous", a_q):
         return grouped_contiguous_plain(a_q, a_scales, b_q, b_scales, ids,
                                         b_t=b_t, out_dtype=out_dtype)
     a_s, b_s = _cuda_operands("m_grouped_int8_gemm_contiguous", a_q,
                               a_scales, b_q, b_scales, out_dtype)
     dev = a_q.device
+    e, m, n, k, _ = _grouped_shapes(a_q, b_q, b_t)
     ids_dev = ids.to(device=dev, dtype=torch.int32)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if plan is None:
+        rt = contiguous_route(a_q, b_q, "t" if b_t else "n", block_m)
+        plan = rt, contiguous_tile(block_m) if rt == "wgmma" else 0
     rc = _kernels.entry("int8_grouped_contiguous")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
         ids_dev.data_ptr(), out.data_ptr(), m, n, k, block_m, n * k,
-        *_strides(b_t, n, k), int(out_dtype == torch.float32),
-        _kernels.stream_ptr(dev))
+        *_strides(b_t, n, k), int(out_dtype == torch.float32), e,
+        ROUTES.index(plan[0]), plan[1], _kernels.stream_ptr(dev))
     _kernels.check(rc, "int8_grouped_contiguous")
     K9.launches += 1
+    K9.count_plan(masked_plan_label(*plan))
     return out
 
 

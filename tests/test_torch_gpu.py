@@ -17,9 +17,10 @@ order than the plain version's f32 matmul: each f32 output lies within
 1e-5 of Σ|a·b| of it (the bound of a reordered f32 sum over K ≤ 11008 is
 K·2⁻²⁴ ≈ 6.6e-4 of Σ|a·b|; random rounding errors grow as √K, ~6e-6), and
 each bf16/fp16 output, rounded once from such a sum, within that plus one
-ulp of its type. K8 shares K1/K3's tile routine: one
-bf16 ulp from its plain version, and equal bit for bit to K3 on the same
-rows. Attention outputs agree
+ulp of its type. K8 keeps K1/K3's group arithmetic on both its routes
+(route wgmma16: f16 wgmma, which the probe test shows sums a group as
+mma.sync does): one bf16 ulp from its plain version, and equal bit for bit
+to K3 and to its tile route on the same rows. Attention outputs agree
 to 2e-3 absolute: the kernels' online softmax rounds p·v_s to bf16 against
 a running max where the plain version uses the final one. Cache writes are
 exact.
@@ -1200,6 +1201,260 @@ def test_grouped_contiguous_kernel_equals_masked_kernel(dev):
             b_layout="t")
         torch.cuda.synchronize()
         assert torch.equal(got[sl], masked[e])
+
+
+# ---- K8 on route wgmma16 and K9 on route wgmma (the contiguous layout on
+# the Hopper main loops)
+
+
+def _probe(a, b, dev):
+    """The probe kernel (csrc/grouped_gemm.cu) on a (64, 128) and b (128,
+    128) e4m3 bytes: the group partial by mma.sync, by wgmma with A from
+    registers in mma.sync's k order, and in natural k order."""
+    c = torch.empty(3, 64, 128, device=dev)
+    rc = _kernels.entry("wgmma16_probe")(a.data_ptr(), b.data_ptr(),
+                                        c.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check(rc, "wgmma16_probe")
+    torch.cuda.synchronize()
+    return c
+
+
+def test_wgmma16_probe_sums_a_group_as_mma_sync(dev):
+    """The premise of route wgmma16: an f16 wgmma m64n128k16 with A from
+    registers gives gemm_tile's group partial (eight mma.sync m16n8k16
+    steps from 0) bit for bit, in mma.sync's k order inside a step and in
+    natural order, on e4m3 bytes over the whole range (subnormals, the
+    largest values: 16-product sums that f32 cannot hold exactly) and on
+    quantized Gaussians. Each partial is also within f32 rounding of the
+    exact float64 product, so no fragment is misplaced."""
+    mismatches = [0, 0]
+    for trial in range(24):
+        g = _gen(trial, dev)
+        if trial % 2 == 0:
+            a, b = (torch.randint(0, 256, shape, generator=g, device=dev,
+                                  dtype=torch.uint8)
+                    for shape in ((64, 128), (128, 128)))
+            a[(a & 0x7F) == 0x7F] = 0       # no NaN bytes
+            b[(b & 0x7F) == 0x7F] = 0
+        else:
+            a = quant.quantize_fp8_act(torch.randn(
+                64, 128, generator=g, device=dev) * 10)[0].view(torch.uint8)
+            b = quant.quantize_fp8_weight(torch.randn(
+                128, 128, generator=g, device=dev))[0].view(torch.uint8)
+        c = _probe(a, b, dev)
+        a64 = a.view(torch.float8_e4m3fn).double()
+        b64 = b.view(torch.float8_e4m3fn).double()
+        exact = a64 @ b64.t()
+        scale = a64.abs() @ b64.abs().t()        # Σ|a·b| of each partial
+        assert bool(((c[0].double() - exact).abs() <= 1e-5 * scale).all())
+        mismatches[0] += int((c[1] != c[0]).sum())
+        mismatches[1] += int((c[2] != c[0]).sum())
+    assert mismatches == [0, 0]
+
+
+@pytest.mark.parametrize("block_m", [64, 128, 256])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_contiguous_wgmma16_matches_plain_and_tile(dev, block_m,
+                                                          out_dtype):
+    """K8 on route wgmma16 (B stored (E, n, k), block_m 64 | 128 | 256):
+    within one bf16 ulp of the plain version (f32 within the outlier
+    gate), bit-equal to route tile on the same operands, and a padding
+    tile in the middle of the layout and at its end exactly zero."""
+    a_q, a_s, b_q, b_s, gids = _contiguous_operands(block_m, True, dev, 21)
+    gids = torch.cat([gids[:1], torch.tensor([-1], dtype=torch.int32),
+                      gids[1:]])
+    m = gids.numel() * block_m
+    a_q, a_s = (torch.cat([t[:block_m], t[:block_m], t[block_m:]])[:m]
+                for t in (a_q, a_s))
+    k8 = _kernels.COUNTERS["grouped_gemm_contiguous"]
+    k8.plans.clear()
+    got = ggmod.m_grouped_gemm_contiguous(a_q, a_s, b_q, b_s, gids,
+                                          b_layout="t", out_dtype=out_dtype)
+    tile = ggmod._launch_contiguous(a_q, a_s, b_q, b_s.transpose(1, 2),
+                                    fp8mod._SHIFT, gids, block_m, True,
+                                    out_dtype, plan=("tile", 0))
+    ref = ggmod.grouped_gemm_contiguous_plain(
+        a_q, a_s, b_q, b_s.transpose(1, 2), gids, b_t=True,
+        out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    rows = ggmod.CONTIGUOUS_TILES[ggmod.contiguous_tile(block_m)][0]
+    assert k8.plans == {f"wgmma16 {rows}x128": 1, "tile": 1}
+    assert torch.equal(got, tile)
+    for pad in (slice(block_m, 2 * block_m), slice(m - block_m, m)):
+        assert bool((got[pad] == 0).all())
+    (assert_bf16_close if out_dtype == torch.bfloat16 else assert_f32_close)(
+        got, ref)
+
+
+def _routed_layout(e, tokens, block_m, dev, seed):
+    """Expert loads of ``tokens`` x top-6 routed at random over ``e``
+    experts, their contiguous layout, and its rows."""
+    g = _gen(seed, dev)
+    picks = torch.multinomial(torch.ones(e, device=dev), tokens * 6,
+                              replacement=True, generator=g)
+    counts = torch.bincount(picks, minlength=e).tolist()
+    _, gids, _ = ggmod.make_contiguous_layout(counts, block_m)
+    return counts, torch.from_numpy(gids.astype(np.int32)), gids.size * block_m
+
+
+def test_grouped_contiguous_wgmma16_walks_many_tiles(dev):
+    """More tiles than CTAs (a CTA walks several, its rings carried from
+    tile to tile) on both wgmma16 tiles: equal to route tile, and each
+    expert's rows equal to K3 (ring route) on the same rows."""
+    e, n, k = 8, 512, 512
+    counts, gids, m = _routed_layout(e, 1024, 128, dev, 22)
+    g = _gen(23, dev)
+    a_q, a_s = quant.quantize_fp8_act(torch.randn(m, k, generator=g,
+                                                  device=dev))
+    b_q, b_s = quant.quantize_fp8_weight(
+        torch.randn(e, n, k, generator=g, device=dev) / k ** 0.5)
+    bs = b_s.transpose(1, 2)
+    tile = ggmod._launch_contiguous(a_q, a_s, b_q, bs, fp8mod._SHIFT, gids,
+                                    128, True, torch.bfloat16,
+                                    plan=("tile", 0))
+    for plan in (("wgmma16", 0), ("wgmma16", 1)):
+        got = ggmod._launch_contiguous(a_q, a_s, b_q, bs, fp8mod._SHIFT,
+                                       gids, 128, True, torch.bfloat16,
+                                       plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tile), plan
+    cap = max(counts)
+    starts = np.cumsum([0] + [-(-c // 128) * 128 for c in counts])
+    a3 = torch.zeros(e, cap, k, dtype=a_q.dtype, device=dev)
+    as3 = torch.zeros(e, cap, k // 128, device=dev)
+    for ei, c in enumerate(counts):
+        a3[ei, :c] = a_q[starts[ei]:starts[ei] + c]
+        as3[ei, :c] = a_s[starts[ei]:starts[ei] + c]
+    mm = torch.tensor(counts, dtype=torch.int32, device=dev)
+    masked = ggmod.m_grouped_gemm_masked(a3, as3, b_q, b_s, mm, b_layout="t")
+    torch.cuda.synchronize()
+    for ei, c in enumerate(counts):
+        assert torch.equal(masked[ei, :c], got[starts[ei]:starts[ei] + c]), ei
+
+
+@pytest.mark.parametrize("block_m", [64, 128, 256])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_contiguous_wgmma_matches_plain_and_tile(dev, block_m,
+                                                      out_dtype):
+    """K9 on route wgmma (B stored (E, n, k), block_m 64 | 128 | 256):
+    bit-equal to the plain version and to int8_tile, a padding tile in the
+    middle and at the end zero; n and k end inside a tile and a stage."""
+    e, n, k = 3, 320, 208
+    _, gids, _ = ggmod.make_contiguous_layout([70, 0, 130], block_m)
+    gids = torch.from_numpy(np.concatenate(
+        [gids[:1], [-1], gids[1:], [-1]]).astype(np.int32))
+    m = gids.numel() * block_m
+    a_q, a_s, b_q, b_s = _int8_operands((m, k), (e, n, k), True, dev,
+                                        seed=block_m)
+    k9 = _kernels.COUNTERS["int8_grouped_contiguous"]
+    k9.plans.clear()
+    got = i8mod.m_grouped_int8_gemm_contiguous(a_q, a_s, b_q, b_s, gids,
+                                               b_layout="t",
+                                               out_dtype=out_dtype)
+    tile = i8mod._launch_contiguous(a_q, a_s, b_q, b_s, gids, block_m, True,
+                                    out_dtype, plan=("int8_tile", 0))
+    ref = i8mod.grouped_contiguous_plain(a_q, a_s, b_q, b_s, gids, b_t=True,
+                                         out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    label = i8mod.masked_plan_label("wgmma",
+                                        ggmod.contiguous_tile(block_m))
+    assert k9.plans == {label: 1, "int8_tile": 1}
+    assert torch.equal(got, ref) and torch.equal(got, tile)
+    for pad in (slice(block_m, 2 * block_m), slice(m - block_m, m)):
+        assert bool((got[pad] == 0).all())
+
+
+def test_int8_contiguous_wgmma_equals_masked_kernel(dev):
+    """K9 (route wgmma, both tiles, more tiles than CTAs) and K6 (its
+    wgmma route) on the same rows: the same bits (both sums exact)."""
+    e, n, k = 8, 512, 512
+    counts, gids, m = _routed_layout(e, 1024, 128, dev, 24)
+    a_q, a_s, b_q, b_s = _int8_operands((m, k), (e, n, k), True, dev,
+                                        seed=25)
+    cap = max(counts)
+    starts = np.cumsum([0] + [-(-c // 128) * 128 for c in counts])
+    a6 = torch.zeros(e, cap, k, dtype=torch.int8, device=dev)
+    as6 = torch.ones(e, cap, 1, device=dev)
+    for ei, c in enumerate(counts):
+        a6[ei, :c] = a_q[starts[ei]:starts[ei] + c]
+        as6[ei, :c] = a_s[starts[ei]:starts[ei] + c]
+    mm = torch.tensor(counts, dtype=torch.int32, device=dev)
+    masked = i8mod.m_grouped_int8_gemm_masked(a6, as6, b_q, b_s, mm,
+                                              b_layout="t", expected_m=cap)
+    for tile in (0, 1):
+        got = i8mod._launch_contiguous(a_q, a_s, b_q, b_s, gids, 128, True,
+                                       torch.bfloat16, plan=("wgmma", tile))
+        torch.cuda.synchronize()
+        for ei, c in enumerate(counts):
+            assert torch.equal(masked[ei, :c],
+                               got[starts[ei]:starts[ei] + c]), (tile, ei)
+
+
+def test_contiguous_entries_refuse_what_they_cannot_run(dev):
+    """K8's and K9's C entries refuse their Hopper route for B stored
+    (E, k, n), for a tile that does not divide block_m, an unknown route
+    or tile and an operand TMA cannot describe (K8: a scale per column
+    too); the wrappers then raise, with no fallback. The old routes take
+    B stored (E, k, n)."""
+    stream = _kernels.stream_ptr(dev)
+    a_q, a_s, b_q, b_s, gids = _contiguous_operands(64, True, dev, 26)
+    e, n, k = b_q.shape
+    m = a_q.shape[0]
+    gd = gids.to(dev)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    bs = b_s.transpose(1, 2)
+    b_kn = b_q.transpose(1, 2).contiguous()
+    bs_kn = bs.contiguous()
+    k8 = _kernels.entry("grouped_gemm_contiguous")
+
+    def args8(a, b, block_m, strides, scales, shift=fp8mod._SHIFT):
+        return (a.data_ptr(), a_s.data_ptr(), b.data_ptr(), scales.data_ptr(),
+                gd.data_ptr(), out.data_ptr(), m, n, k, block_m,
+                b.stride(0), *strides, scales.stride(0), scales.stride(1),
+                scales.stride(2), shift, 0, e)
+
+    kmajor = args8(a_q, b_q, 64, (1, k), bs)
+    assert k8(*kmajor, 1, 0, stream) == 0
+    for bad in ((1, 1), (2, 0), (1, 2)):          # 128 rows in block_m 64
+        assert k8(*kmajor, *bad, stream) != 0, bad
+    assert k8(*args8(a_q, b_kn, 64, (n, 1), bs_kn), 1, 0, stream) != 0
+    assert k8(*args8(a_q, b_kn, 64, (n, 1), bs_kn), 0, 0, stream) == 0
+    panel = fp8mod.expand_weight_scales(b_s.transpose(1, 2), n).contiguous()
+    assert k8(*args8(a_q, b_q, 64, (1, k), panel, shift=0), 1, 0,
+              stream) != 0
+    flat = torch.zeros(a_q.numel() + 16, dtype=torch.uint8, device=dev)
+    a_off = flat[1:1 + a_q.numel()].view(a_q.shape).view(a_q.dtype)
+    a_off.copy_(a_q)
+    assert k8(*args8(a_off, b_q, 64, (1, k), bs), 1, 0, stream) != 0
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ggmod._launch_contiguous(a_q, a_s, b_q, bs, fp8mod._SHIFT, gids, 64,
+                                 True, torch.bfloat16, plan=("wgmma16", 1))
+    # K9: the same refusals, and k not a multiple of 16 on route wgmma.
+    k9 = _kernels.entry("int8_grouped_contiguous")
+    for kk in (256, 200):
+        a8, as8, b8, bs8 = _int8_operands((m, kk), (e, n, kk), True, dev,
+                                          seed=kk)
+        b8_kn = b8.transpose(1, 2).contiguous()
+
+        def args9(b, strides, block_m=64):
+            return (a8.data_ptr(), as8.data_ptr(), b.data_ptr(),
+                    bs8.data_ptr(), gd.data_ptr(), out.data_ptr(), m, n, kk,
+                    block_m, n * kk, *strides, 0, e)
+
+        if kk == 256:
+            assert k9(*args9(b8, (1, kk)), 1, 0, stream) == 0
+            for bad in ((1, 1), (2, 0), (1, 2)):
+                assert k9(*args9(b8, (1, kk)), *bad, stream) != 0, bad
+            assert k9(*args9(b8_kn, (n, 1)), 1, 0, stream) != 0
+            assert k9(*args9(b8_kn, (n, 1)), 0, 0, stream) == 0
+        else:
+            assert k9(*args9(b8, (1, kk)), 1, 0, stream) != 0
+            assert i8mod.contiguous_route(a8, b8, "t", 64) == "int8_tile"
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        i8mod._launch_contiguous(a8, as8, b8, bs8, gids, 64, True,
+                                 torch.bfloat16, plan=("wgmma", 0))
 
 
 # ---- K12 (folded-scale fp8 GEMM), K5a/K5b (read-only decode), K4-stats

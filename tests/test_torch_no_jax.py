@@ -56,6 +56,7 @@ def test_importing_the_port_loads_no_jax():
         "import deepgemm_ascend_tpu_torch.scripts.serve_bench\n"
         "import deepgemm_ascend_tpu_torch.scripts.layer_bench\n"
         "import deepgemm_ascend_tpu_torch.scripts.k12_fold_ablation\n"
+        "import deepgemm_ascend_tpu_torch.scripts.k8_ablation\n"
         "import deepgemm_ascend_tpu_torch.scripts.ksplit_sweep\n"
         "import deepgemm_ascend_tpu_torch.scripts.ring_sweep\n"
         "import deepgemm_ascend_tpu_torch.scripts.decode_sweep\n"

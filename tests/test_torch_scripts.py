@@ -16,6 +16,7 @@ import torch
 
 from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.scripts import (decode_sweep, headline,
+                                               k8_ablation,
                                                k12_fold_ablation,
                                                ksplit_sweep, layer_bench,
                                                phase2_ab, prefill_sweep,
@@ -198,6 +199,8 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         k12_fold_ablation.main([])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        k8_ablation.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         ksplit_sweep.main(["--m", "16", "--nk", "512x2048"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ring_sweep.main(["--k1", "16x512x2048", "--k3"])
@@ -303,6 +306,16 @@ def test_phase2_ab_summary(tmp_path, capsys):
     step = next(ln for ln in lines if "change1" in ln and "device_ms" in ln
                 and ln.startswith("serving"))
     assert "live_kernel 0.125 ms/8" in step and "elementwise" not in step
+
+
+def test_k8_ablation_swaps_only_k8_entry():
+    """K8's ablation runs its variants through the package's K8 wrapper by
+    swapping that one C entry for the duration, then puts it back."""
+    real = _kernels.entry
+    variant = object()
+    with k8_ablation.k8_entry(variant):
+        assert _kernels.entry("grouped_gemm_contiguous") is variant
+    assert _kernels.entry is real
 
 
 def test_k12_ablation_swaps_only_k12_entry():
