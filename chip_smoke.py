@@ -19,8 +19,14 @@ Phases, each of which raises on failure (exit code ≠ 0):
    time (``torch._int_mm`` for K7's integer product; ``torch._scaled_mm``
    with blockwise scales for K1, where this torch accepts them;
    ``torch.matmul`` for the dense GEMMs K10 and K11). Every K10 and K11
-   row shows its route (``ops.gemm.route``: wgmma where TMA can describe
-   the operands, else mma_tile), every K7 row its own
+   row shows the route its wrapper counted (``ops.gemm.route``: wgmma
+   where TMA can describe 16-bit operands, ffma for f32 ones that 16-byte
+   loads can read, else mma_tile); the f32 rows (2048³ in nn/nt/tn/tt,
+   m=16 n=22016 k=2048, a batch of 4 at 2048³, K11 at m=16 n=2048
+   k=11008 on the split gate's count, and 33×97×1000, which stays on
+   mma_tile) time route mma_tile beside ffma in the same run
+   (``old_route_ms``) and must equal it bit for bit (``equals_old_route``);
+   every K7 row its own
    (``ops.int8_gemm.route``: wgmma for B stored K-major with k a multiple
    of 16, else int8_tile), every K1 and K3 row the plan its wrapper
    counted for the launch (``Counter.plans``: route ring for B stored
@@ -42,9 +48,14 @@ Phases, each of which raises on failure (exit code ≠ 0):
    K1's shapes, against its plain version (f32 sum order plus one bf16
    ulp) and within 5e-3 rel-L2 of K1, beside ``torch.matmul`` of the
    operands folded in PyTorch; the read-only decode attentions (K5a, K5b)
-   at K2's shapes, per element within 2⁻⁷·Σ w·|v| of their plain versions
-   (``flash_common``), and on one cache K5a, and K5b merged exactly with
-   the current token, against K2; K4 and the prefill state (K4-stats)
+   at K2's shapes and at phase 4's lengths with an empty sequence, on
+   their own route (``flash_decode.read_route``: "live" at head size 128)
+   with route "span" timed beside it (``old_route_ms``), per element
+   within 2⁻⁷·Σ w·|v| of their plain versions (``flash_common``) and
+   within ATTN_TOL of route span; K5a over the cache K2 wrote equal to K2
+   bit for bit (``equals_k2_live``), K5b's acc / l equal to K5a
+   (``acc_over_l_equals_k5a``), and K5b merged exactly with the current
+   token against K2; K4 and the prefill state (K4-stats)
    per element the same way (``output_close`` / ``state_close``) at phase
    2's shapes and phase 4's largest prefill bucket (b=8, s=1024 over a
    4096-key cache, ``BUCKET_1024_LENS``), K4-stats also at a start before
@@ -143,8 +154,9 @@ Phases, each of which raises on failure (exit code ≠ 0):
    transport would deliver it (the transport is the only part not run),
    and the f32 ring over the dequantized cache in the zigzag and
    contiguous schedules the same way (``_attn_ring``); then the decode of
-   the last prompt token through ``flash_decode_gqa`` (K5a),
-   ``flash_decode_gqa_state`` (K5b) merged with that token, and K2, and
+   the last prompt token through ``flash_decode_gqa`` (K5a, equal to K2
+   bit for bit: route "live" on K2's grid), ``flash_decode_gqa_state``
+   (K5b) merged with that token, and K2, and
    the attention output's o-projection through
    ``fp8_gemm(scale_mode="folded")`` (K12) beside K1. Exactly K4,
    K4-stats, K5a, K5b, K2, K12 and K1 must launch, no plain version. Then
@@ -221,7 +233,7 @@ from deepgemm_ascend_tpu_torch.ops.flash_common import (PV_ROUNDING,
 from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8mod
 from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm,
                                                 gemm_ksplit_plain, gemm_plain,
-                                                gemm_with_config, route)
+                                                gemm_with_config)
 from deepgemm_ascend_tpu_torch.parallel import (ring_attention_prefill,
                                                 ring_flash_prefill,
                                                 zigzag_inverse, zigzag_order)
@@ -584,9 +596,9 @@ def phase_device() -> dict:
 
 def sm90_instances(logs: dict) -> list:
     """Stack, spills and registers of every instance of the Hopper kernels
-    (K10's and K11's wgmma route, K12, K7's wgmma route, K1's and K3's
-    ring, K6's ring and wgmma routes, K2's live route, K8's wgmma16 route
-    and its probe, K9's wgmma route), from nvcc's
+    (K10's and K11's wgmma and ffma routes, K12, K7's wgmma route, K1's and
+    K3's ring, K6's ring and wgmma routes, K2's, K5a's and K5b's live
+    route, K8's wgmma16 route and its probe, K9's wgmma route), from nvcc's
     -Xptxas -v, under
     their mangled names (the template arguments: tile, stages, layout
     flags, types)."""
@@ -598,7 +610,8 @@ def sm90_instances(logs: dict) -> list:
                     kern in ln for kern in ("gemm_sm90", "folded_sm90",
                                             "int8_sm90", "ring_kernel",
                                             "masked_sm90", "live_kernel",
-                                            "contiguous_sm90", "wgmma16")):
+                                            "contiguous_sm90", "wgmma16",
+                                            "gemm_ffma")):
                 props = " ".join(x.strip() for x in lines[i + 2:i + 4])
                 name = ln.split("'")[1]
                 out.append(f"{name}: {props}")
@@ -1125,29 +1138,41 @@ def check_gemm(m: int, n: int, k: int, seed: int, dtype=torch.bfloat16,
                layout: str = "nn", batch: int = 0) -> dict:
     """K10 (forced with the COMMON config) against its plain version;
     ``batch`` > 0 runs ``bgemm`` over that many products in one launch.
-    Its route (wgmma where TMA can describe the operands, else mma_tile),
-    its time before the Hopper redesign, and for 16-bit inputs its time
-    with bf16 output: the like-for-like yardstick of torch.matmul
-    (cuBLAS), which stores 16-bit outputs, half of K10's f32 store."""
+    Its route as its wrapper counted it (``ops.gemm.route``: wgmma where
+    TMA can describe 16-bit operands, ffma for f32 ones that 16-byte loads
+    can read, else mma_tile), its time before the Hopper redesign, and for
+    16-bit inputs its time with bf16 output: the like-for-like yardstick of
+    torch.matmul (cuBLAS), which stores 16-bit outputs, half of K10's f32
+    store. On route ffma also the f32 route before it, mma_tile, timed in
+    the same run and equal bit for bit (``equals_old_route``)."""
     lead = (batch,) if batch else ()
     a_in, b_in, a, b = _dense_operands(lead, m, n, k, dtype, layout, seed)
     a_t, b_t = layout[0] == "t", layout[1] == "t"
 
-    def run(out_dtype=torch.float32):
+    def run(out_dtype=torch.float32, plan=None):
         if batch:
-            return bgemm(a_in, b_in, config=COMMON, out_dtype=out_dtype)
+            return bgemm(a_in, b_in, config=COMMON, out_dtype=out_dtype,
+                         plan=plan)
         return gemm_with_config(a_in, b_in, config=COMMON, layout=layout,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, plan=plan)
 
     plain = lambda: gemm_plain(a_in, b_in, a_t=a_t, b_t=b_t)
-    got, ref = run(), plain()
+    got, plan = launched_route(_kernels.COUNTERS["gemm"], run)
+    ref = plain()
+    extra = {}
+    if plan["route"] == "ffma":
+        old = lambda: run(plan="mma_tile")
+        before = old()
+        torch.cuda.synchronize()
+        extra = {"equals_old_route": bool(torch.equal(got, before)),
+                 "old_route_ms": cold_ms(old)}
     torch.cuda.synchronize()
     b_ms, b_by = _gemm_bound(max(batch, 1), m, n, k, dtype)
     name = {torch.bfloat16: "bf16", torch.float16: "fp16",
             torch.float32: "f32"}[dtype]
     shape = (f"batch={batch} " if batch else "") + \
         f"m={m} n={n} k={k} {name} {layout}"
-    ok = gemm_close(got, ref, a, b)
+    ok = gemm_close(got, ref, a, b) and extra.get("equals_old_route", True)
     bf16_ms = None
     if dtype != torch.float32:
         got16 = run(torch.bfloat16)
@@ -1156,9 +1181,8 @@ def check_gemm(m: int, n: int, k: int, seed: int, dtype=torch.bfloat16,
         torch.cuda.synchronize()
         ok = ok and gemm_close(got16, ref16, a, b)
         bf16_ms = cold_ms(lambda: run(torch.bfloat16))
-    return {"shape": shape,
-            "picked": _picked(m, n, k, dtype),
-            "route": route(a_in, b_in, layout),
+    return {"shape": shape, "dtype": dtype,
+            "picked": _picked(m, n, k, dtype), **plan, **extra,
             "ok": ok,
             "max_abs_err": float((got - ref).abs().max()),
             "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
@@ -1172,29 +1196,45 @@ def check_gemm(m: int, n: int, k: int, seed: int, dtype=torch.bfloat16,
 
 
 def check_ksplit(m: int, n: int, k: int, splits: int, seed: int,
-                 why: str) -> dict:
-    """K11 with ``splits`` splits against its plain version, its route and
-    time before the Hopper redesign (``PREV_MS``, quoted), and K10 (the
-    COMMON config) timed at the same shape."""
-    a, b, _, _ = _dense_operands((), m, n, k, torch.bfloat16, "nn", seed)
+                 why: str, dtype=torch.bfloat16) -> dict:
+    """K11 with ``splits`` splits against its plain version, its route as
+    its wrapper counted it and its time before the Hopper redesign
+    (``PREV_MS``, quoted), and K10 (the COMMON config) timed at the same
+    shape. The bound counts the f32 partials K11 writes. On route ffma
+    also route mma_tile timed in the same run, its output equal bit for
+    bit (``equals_old_route``)."""
+    a, b, _, _ = _dense_operands((), m, n, k, dtype, "nn", seed)
     cfg = GemmConfig(block_m=64, block_n=64, block_k=64,
                      kernel_type=KernelType.KSPLIT, k_split=splits)
     run = lambda: gemm_with_config(a, b, config=cfg)
     plain = lambda: gemm_ksplit_plain(a, b, splits)
-    got, ref = run(), plain()
+    got, plan = launched_route(_kernels.COUNTERS["gemm_ksplit"], run)
+    ref = plain()
+    extra = {}
+    if plan["route"] == "ffma":
+        old = lambda: gemm_with_config(a, b, config=cfg, plan="mma_tile")
+        before = old()
+        torch.cuda.synchronize()
+        extra = {"equals_old_route": bool(torch.equal(got, before)),
+                 "old_route_ms": cold_ms(old)}
     torch.cuda.synchronize()
-    b_ms, b_by = _gemm_bound(1, m, n, k, torch.bfloat16)
-    shape = f"m={m} n={n} k={k} bf16 k_split={splits}"
-    return {"shape": shape, "why": why, "route": route(a, b),
+    item = _ITEMSIZE[dtype]
+    b_ms, b_by = bound_ms((m * k + k * n) * item + splits * m * n * 4,
+                          2.0 * m * n * k, F32_OPS_PER_S
+                          if dtype == torch.float32 else BF16_OPS_PER_S)
+    name = "f32" if dtype == torch.float32 else "bf16"
+    shape = f"m={m} n={n} k={k} {name} k_split={splits}"
+    return {"shape": shape, "why": why, **plan, **extra,
             "prev_ms": PREV_MS["gemm_ksplit"].get(shape),
-            "ok": gemm_close(got, ref, a, b),
+            "ok": gemm_close(got, ref, a, b)
+                  and extra.get("equals_old_route", True),
             "max_abs_err": float((got - ref).abs().max()),
             "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
             "k10_ms": cold_ms(lambda: gemm_with_config(a, b, config=COMMON)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cold_ms(lambda: torch.matmul(a, b)),
-            "library_note": "torch.matmul (cuBLAS) on the same bf16 "
-                            "operands; bf16 output"}
+            "library_note": f"torch.matmul (cuBLAS) on the same {name} "
+                            f"operands; {name} output"}
 
 
 def _equals_masked_k3(a_q, a_s, b_q, b_s, counts, block_m, got) -> bool:
@@ -1329,69 +1369,111 @@ def abs_v(cache):
     return k_q, k_s, v_q.float().abs(), v_s
 
 
-def check_flash_decode_variants(kvh: int, g: int, seed: int):
-    """K5a and K5b at K2's shapes (lengths 0, 1, S and random) against their
-    plain versions, per element (``flash_common.output_close`` /
-    ``state_close``); then, on one cache, K5a over the cache with the new
-    row written and K5b over the rows before it merged with the new token,
-    each against K2. Returns the K5a and the K5b result."""
+def check_flash_decode_variants(kvh: int, g: int, seed: int,
+                                lengths=None):
+    """K5a and K5b at K2's shapes (lengths 0, 1, S and random; or
+    ``lengths="serving"``: phase 4's, with one empty sequence) on their
+    own route (``flash_decode.read_route``: "live" on the grid of
+    ``live_blocks``), against their plain versions, per element
+    (``flash_common.output_close`` / ``state_close``), and against route
+    "span" (the design before, timed on the same inputs: ``old_route_ms``)
+    within ATTN_TOL. K5a over the cache K2 (route "live") wrote, at K2's
+    lengths, must equal K2's output bit for bit (``equals_k2_live``: the
+    same plan and arithmetic), and K5b's acc / l K5a's output where l > 0
+    (``acc_over_l_equals_k5a``); on one cache, K5b over the rows before
+    the new one merged with the new token must match K2 within ATTN_TOL.
+    Returns the K5a and the K5b result."""
     b, s_max, hd = 16, 4096, 128
     heads = kvh * g
     cache = _int8_cache(b, kvh, s_max, seed)
     gen = _gen(seed + 1)
     q = torch.randn(b, heads, hd, generator=gen, device=DEV).to(
         torch.bfloat16)
-    lens_np = np.random.default_rng(seed).integers(1, s_max + 1, size=b)
-    lens_np[:3] = [0, 1, s_max]          # an empty, a fresh and a full slot
+    rng = np.random.default_rng(seed)
+    if lengths == "serving":
+        lens_np = rng.integers(*SERVING_LENGTHS, endpoint=True, size=b)
+        lens_np[0] = 0                   # an empty slot
+    else:
+        lens_np = rng.integers(1, s_max + 1, size=b)
+        lens_np[:3] = [0, 1, s_max]      # an empty, a fresh and a full slot
     lens = torch.from_numpy(lens_np.astype(np.int32)).to(DEV)
+    span = ("span", fdmod.SPLIT_KEYS)
     read = lambda: fdmod.flash_decode_gqa(q, *cache, lens)
     state = lambda: fdmod.flash_decode_gqa_state(q, *cache, lens)
+    read_span = lambda: fdmod.flash_decode_gqa(q, *cache, lens, plan=span)
+    state_span = lambda: fdmod.flash_decode_gqa_state(q, *cache, lens,
+                                                      plan=span)
     read_plain = lambda: fdmod.flash_decode_plain(q, *cache, lens)
     state_plain = lambda: fdmod.flash_decode_state_plain(q, *cache, lens)
-    got_r, ref_r = read(), read_plain().reshape(b, heads, hd)
-    got_s = state()
+    got_r, plan_r = launched_route(fdmod.READ_COUNTER, read)
+    got_s, plan_s = launched_route(fdmod.STATE_COUNTER, state)
+    ref_r = read_plain().reshape(b, heads, hd)
     ref_s = [x.reshape(b, heads, *x.shape[3:]) for x in state_plain()]
+    by_span, state_by_span = read_span(), state_span()
     pv_r = fdmod.flash_decode_plain(q, *abs_v(cache), lens).reshape(
         b, heads, hd)
     pv_s = fdmod.flash_decode_state_plain(q, *abs_v(cache), lens)[0].reshape(
         b, heads, hd)
-    # The cross-check against K2 on one cache: the new token at len-1.
+    # The new token at len-1: K2 over a copy of the cache, then K5a over
+    # the cache it wrote; K5b over the rows before it, merged exactly.
     k_new = torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=DEV,
                           dtype=torch.int8)
     v_new = torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=DEV,
                           dtype=torch.int8)
     ks_new = torch.rand(b, kvh, generator=gen, device=DEV) * 0.02 + 1e-3
     vs_new = torch.rand(b, kvh, generator=gen, device=DEV) * 0.02 + 1e-3
+    new = (k_new, v_new, ks_new, vs_new)
+    written = [t.clone() for t in cache]
+    k2, k2_plan = launched_route(fdmod.COUNTER, lambda: (
+        fdmod.flash_decode_gqa_inplace(q, *written, *new, lens)[0]))
+    read_written = fdmod.flash_decode_gqa(q, *written, lens)
     lens1 = lens.clamp(min=1)
     before = fdmod.flash_decode_gqa_state(q, *cache, lens1 - 1)
-    written = [t.clone() for t in cache]
-    want = fdmod.flash_decode_gqa_inplace(q, *written, k_new, v_new, ks_new,
-                                          vs_new, lens1)[0]
-    read_written = fdmod.flash_decode_gqa(q, *written, lens1)
+    written1 = [t.clone() for t in cache]
+    want = fdmod.flash_decode_gqa_inplace(q, *written1, *new, lens1)[0]
     merged = fdmod.merge_current_token(before, q, k_new, ks_new, v_new,
                                        vs_new)
     torch.cuda.synchronize()
-    err_read_k2 = float((read_written - want).abs().max())
+    equals_k2 = (k2_plan["route"] == plan_r["route"]
+                 and bool(torch.equal(read_written, k2)))
+    acc, _, l = got_s
+    live = l > 0
+    normalized = acc / torch.where(live, l, torch.ones_like(l))[..., None]
+    acc_over_l = bool(torch.equal(normalized[live], got_r[live]))
+    span_l = state_by_span[2]
+    span_out = state_by_span[0] / torch.where(
+        span_l > 0, span_l, torch.ones_like(span_l))[..., None]
+    err_span = {"read": float((got_r - by_span).abs().max()),
+                "state": float((normalized - span_out).abs().max())}
+    span_close = (output_close(by_span, ref_r, pv_r)
+                  and state_close(state_by_span, ref_s, pv_s))
     err_merge_k2 = float((merged - want).abs().max())
-    cross_ok = err_read_k2 < ATTN_TOL and err_merge_k2 < ATTN_TOL
+    cross_ok = (err_merge_k2 < ATTN_TOL and span_close
+                and max(err_span.values()) < ATTN_TOL)
     total = int(lens_np.sum())
-    shape = f"b={b} kvh={kvh} g={g} S={s_max} sum_len={total}"
+    shape = (f"b={b} kvh={kvh} g={g} S={s_max} sum_len={total}"
+             + (" lengths=serving" if lengths == "serving" else ""))
     in_bytes = q.numel() * 2 + kvh * total * (2 * hd + 8) + b * 4
     ops = 4.0 * kvh * g * hd * total
     results = []
-    for name, run, plain, out_bytes, ok, err in (
-            ("read", read, read_plain, b * heads * hd * 4,
-             output_close(got_r, ref_r, pv_r),
-             float((got_r - ref_r).abs().max())),
-            ("state", state, state_plain, b * heads * (hd + 2) * 4,
-             state_close(got_s, ref_s, pv_s),
-             float((got_s[0] - ref_s[0]).abs().max()))):
+    for name, run, old, plain, plan, out_bytes, ok, err, equal in (
+            ("read", read, read_span, read_plain, plan_r,
+             b * heads * hd * 4, output_close(got_r, ref_r, pv_r),
+             float((got_r - ref_r).abs().max()),
+             {"equals_k2_live": equals_k2}),
+            ("state", state, state_span, state_plain, plan_s,
+             b * heads * (hd + 2) * 4, state_close(got_s, ref_s, pv_s),
+             float((got_s[0] - ref_s[0]).abs().max()),
+             {"acc_over_l_equals_k5a": acc_over_l})):
         b_ms, b_by = bound_ms(in_bytes + out_bytes, ops, BF16_OPS_PER_S)
         results.append({
-            "shape": shape, "ok": ok and cross_ok, "max_abs_err": err,
-            "vs_k2": {"read_written_cache": err_read_k2,
-                      "state_merged_with_token": err_merge_k2},
-            "ms": cold_ms(run), "plain_ms": cold_ms(plain, reps=3),
+            "shape": shape, **plan, **equal,
+            "ok": ok and cross_ok and all(equal.values()),
+            "max_abs_err": err,
+            "vs_k2": {"state_merged_with_token": err_merge_k2},
+            "vs_span": err_span[name],
+            "ms": cold_ms(run), "old_route_ms": cold_ms(old),
+            "plain_ms": cold_ms(plain, reps=3),
             "bound_ms": b_ms, "bound_by": b_by})
     return results
 
@@ -1630,18 +1712,36 @@ def phase_kernels() -> dict:
                                           layout=layout))
     results["gemm"].append(check_gemm(33, 97, 1000, seed=49))
     results["gemm"].append(check_gemm(2048, 2048, 2048, seed=50, batch=4))
+    # f32 (route ffma, each beside route mma_tile): the other layouts, a
+    # decode row, a batch, and a ragged shape that stays on mma_tile.
+    f32 = torch.float32
+    for layout in ("nt", "tn", "tt"):
+        results["gemm"].append(check_gemm(2048, 2048, 2048, seed=53,
+                                          dtype=f32, layout=layout))
+    results["gemm"].append(check_gemm(16, 22016, 2048, seed=54, dtype=f32))
+    results["gemm"].append(check_gemm(2048, 2048, 2048, seed=55, dtype=f32,
+                                      batch=4))
+    results["gemm"].append(check_gemm(33, 97, 1000, seed=56, dtype=f32))
     check_script_shapes(results)
-    # Split-K wherever select_config picks it among those shapes, and at
-    # the decode shape of the dense FFN's down projection with 4 and 3.
+    # Split-K wherever select_config picks it among those shapes (in their
+    # input type), and at the decode shape of the dense FFN's down
+    # projection with 4 and 3 splits, and in f32 with the gate's.
+    split = {}
     for r in results["gemm"]:
         if r["picked"].startswith("KSPLIT") and "batch" not in r["shape"]:
             m, n, k = (int(f.split("=")[1]) for f in r["shape"].split()[:3])
-            results["gemm_ksplit"].append(check_ksplit(
-                m, n, k, int(r["picked"].split("/")[1]), seed=51,
-                why="select_config"))
+            split[m, n, k, int(r["picked"].split("/")[1]), r["dtype"]] = 1
+    for m, n, k, splits, dtype in split:
+        results["gemm_ksplit"].append(check_ksplit(
+            m, n, k, splits, seed=51, why="select_config", dtype=dtype))
     for splits in (4, 3):
         results["gemm_ksplit"].append(check_ksplit(
             16, 2048, 11008, splits, seed=52, why="explicit config"))
+    gate = select_config(16, 2048, 11008, f32, f32, device=DEV)
+    if (16, 2048, 11008, gate.k_split, f32) not in split:
+        results["gemm_ksplit"].append(check_ksplit(
+            16, 2048, 11008, max(gate.k_split, 2), seed=57,
+            why="the gate's splits, f32", dtype=f32))
     # K8 at K3's prefill loads (same seeds), V2_LITE's 32 experts and
     # V2_LITE_FULL's 64 (each bit-equal to K3 and to route tile, timed
     # beside it), and one layout tile that is not a multiple of 64.
@@ -1665,6 +1765,11 @@ def phase_kernels() -> dict:
             cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, seed=i + 11)
         results["flash_decode_read"].append(read)
         results["flash_decode_state"].append(state)
+    read, state = check_flash_decode_variants(
+        V2_LITE.num_kv_heads, V2_LITE.num_heads // V2_LITE.num_kv_heads,
+        seed=1, lengths="serving")
+    results["flash_decode_read"].append(read)
+    results["flash_decode_state"].append(state)
     for start in (0, 1000, -256, 4096):
         results["flash_prefill_stats"].append(
             check_flash_prefill_stats(start, seed=13))
@@ -1698,8 +1803,13 @@ def phase_kernels() -> dict:
                 + (f" ring_equals_tile={r['ring_equals_tile']}"
                    if "ring_equals_tile" in r else "")
                 + (f" old_route_ms(same run)={r['old_route_ms']:.4f}"
-                   f" equals_old_route={r['equals_old_route']}"
                    if "old_route_ms" in r else "")
+                + (f" equals_old_route={r['equals_old_route']}"
+                   if "equals_old_route" in r else "")
+                + (f" equals_k2_live={r['equals_k2_live']}"
+                   if "equals_k2_live" in r else "")
+                + (f" acc_over_l_equals_k5a={r['acc_over_l_equals_k5a']}"
+                   if "acc_over_l_equals_k5a" in r else "")
                 + (f" equals_k3={r['equals_k3']}" if "equals_k3" in r
                    else "")
                 + (f" bound_16bit_ms={r['bound_16bit_ms']:.4f}"
@@ -3067,6 +3177,10 @@ def phase_cp(device: dict) -> dict:
         errs[name], limits[name] = err(a, b), tol
         if not errs[name] < tol:
             failures.append(f"{name} {errs[name]:.3g} >= {tol:.3g}")
+    # K5a over the cache (its last row the one K2 takes as new, on K2's
+    # grid): K2's output bit for bit.
+    if not torch.equal(read, k2):
+        failures.append("k5a_equals_k2 (route live, bit for bit)")
     rel_folded = float((y_folded.float() - y_k1).norm() / y_k1.norm())
     finite = all(bool(torch.isfinite(t).all())
                  for t in (ref, ring1, ring4, zig4, cont4, read, y_folded))

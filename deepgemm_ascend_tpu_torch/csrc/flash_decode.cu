@@ -20,9 +20,9 @@
 // bytes per kv head), at decode a few to tens of MB: at the phase-2 V2_LITE
 // shape 0.0111 ms at 3.35 TB/s.
 //
-// Two routes (ops/flash_decode.py: ROUTES):
-//   "span" (K5a, K5b; K2 where the caches are off 16 bytes or the head
-//     size is 64; head sizes 64 and 128): the keys
+// Two routes (ops/flash_decode.py: ROUTES), the same for the three:
+//   "span" (where the caches, or K2's new rows, are off 16 bytes, or the
+//     head size is 64; head sizes 64 and 128): the keys
 //     of each (batch, kv head) split into spans of split_len keys, one
 //     block of 128 threads per span, however many keys are live; per chunk
 //     of 128 keys thread j scores key j against the G rows on the CUDA
@@ -33,10 +33,12 @@
 //     e^(m_i-M), and out = acc / l (K5a) or (acc, M, l) (K5b). One span
 //     kernel, templated on WRITE and the head size, and one merge kernel,
 //     on STATE and the head size.
-//   "live" (K2's decode path at head size 128): the live keys of all sequences dealt over a
-//     grid fixed by the shapes, a TMA ring, and both products on the
-//     tensor cores, with the merge done by the last block of each (batch,
-//     kv head) to finish. Its design note is at namespace live below.
+//   "live" (head size 128, K2's decode path and K5a/K5b's default): the
+//     live keys of all sequences dealt over a grid fixed by the shapes, a
+//     TMA ring, and both products on the tensor cores, with the merge done
+//     by the last block of each (batch, kv head) to finish. One kernel,
+//     templated on WRITE and STATE as the span route is; its design note
+//     is at namespace live below.
 
 #include "flash_common.cuh"
 #include "sm90_gemm.cuh"
@@ -204,7 +206,8 @@ flash_decode_merge_kernel(const float* __restrict__ part,
 // ------------------------------------------------------------ route "live"
 //
 // K2's route for the decode path (ops/flash_decode.py: route, live_blocks,
-// live_plan). The grid is fixed by (b, kvh, S) alone, so the wrapper reads
+// live_plan), and K5a's and K5b's at head size 128 (read_route). The grid
+// is fixed by (b, kvh, S) alone, so the wrapper reads
 // nothing back: one block per (batch, kv head) and LIVE_BLOCKS_PER_SM per
 // SM more. Every block reads all the lengths on the card (plan_scan) and
 // finds its (batch, kv head) and its share of that head's live keys: the
@@ -242,13 +245,21 @@ flash_decode_merge_kernel(const float* __restrict__ part,
 //   PV      acc (rows x hd) += W . V: S's accumulator fragments are W's A
 //           fragments as they stand; V's B fragments are 16 bytes of four
 //           key rows a thread, paired across rows with byte_perm.
-// The new token's row (seq_len - 1) is read from k_new / v_new / k_snew /
-// v_snew by the thread that would read it from the stage, and written into
-// the cache by the merging block, after every block of its (batch, kv
-// head) has read that cache: no TMA read can race with that store.
+// K2 (WRITE): the new token's row (seq_len - 1) is read from k_new / v_new
+// / k_snew / v_snew by the thread that would read it from the stage, and
+// written into the cache by the merging block, after every block of its
+// (batch, kv head) has read that cache: no TMA read can race with that
+// store. K5a and K5b read that row from the ring like every other, so K5a
+// over the cache K2 wrote, at K2's lengths and grid, runs the same plan
+// and arithmetic: K2's output bit for bit. K5b writes the merged acc and
+// l that K5a divides (finalize) and m converted from the log2 domain (one
+// more rounding), so acc / l is K5a's output bit for bit; an empty
+// sequence's state is (0, -1e30, 0).
 // Registers cap the block at 136 (three blocks an SM, 3 x kStages x 16 KB
-// in flight); the score k steps run in two chains of four, and acc is
-// rescaled only where a row's max moved.
+// in flight): ptxas gives every instance 119-123, no spill (K2's before
+// WRITE and STATE were template arguments: 126-127); the score k steps
+// run in two chains of four, and acc is rescaled only where a row's max
+// moved.
 namespace live {
 
 namespace s9 = dga::sm90;
@@ -287,11 +298,13 @@ struct Args {
   const float* vs_new;
   const int* seq_lens;
   float* part;
-  float* out;
+  float* out;        // acc with STATE
   int* arrivals;     // per (batch, kv head), zero between launches
   int b, kvh, S;
   int blocks;        // the grid: at least b * kvh + 1
   float scale;
+  float* m_out;      // STATE: the merged m and l, (b, kvh, G)
+  float* l_out;
 };
 
 __device__ __forceinline__ int clamp_len(const int* seq_lens, int b, int S) {
@@ -368,6 +381,23 @@ __device__ __forceinline__ void block_range(int len, int split, int splits, int&
   nc = base + (split < rem ? 1 : 0);
 }
 
+// One query row's merged state (a the acc of column d, m in the log2
+// domain, l) to the outputs: acc / l, or with STATE (acc, m in natural
+// units, l).
+template <bool STATE>
+__device__ __forceinline__ void write_row(const Args& p, size_t row, int d, float a, float m,
+                                          float l) {
+  if constexpr (STATE) {
+    p.out[row * kHD + d] = a;
+    if (d == 0) {
+      p.m_out[row] = m / kLog2e;
+      p.l_out[row] = l;
+    }
+  } else {
+    p.out[row * kHD + d] = dga::finalize(a, l);
+  }
+}
+
 // Writes the new token's row of (batch, kv head) bh into the cache: every
 // block that reads this cache has read it (the row itself came from
 // k_new / v_new), so nothing races with these stores.
@@ -386,8 +416,11 @@ __device__ __forceinline__ void write_new_row(const Args& p, int bh, int len) {
 // Grid (blocks). Each block with keys leaves its unnormalized state, per
 // query row [acc (kHD), m, l], at part[blockIdx.x]; the last block of a
 // (batch, kv head) to finish (an arrival count that it resets) merges the
-// states into out and writes the new row.
-template <int G>
+// states into out and, with WRITE (K2), writes the new row.
+// WRITE = false (K5a, K5b): the caches are only read, and row seq_len - 1
+// comes through the ring like every other row (k_new .. vs_new are null
+// and never read). STATE (K5b): the outputs are (acc, m, l) (write_row).
+template <int G, bool WRITE, bool STATE>
 __global__ void __launch_bounds__(kThreads, 3)
     live_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 Args p) {
@@ -409,11 +442,18 @@ __global__ void __launch_bounds__(kThreads, 3)
   int c0, nc;
   block_range(len, split, nb, c0, nc);
   if (nc == 0) {
-    // An empty sequence (its one block) attends nothing: zeros.
+    // An empty sequence (its one block) attends nothing: zeros, with STATE
+    // the state (0, -1e30, 0).
     for (int i = threadIdx.x; i < G * kHD; i += kThreads) p.out[(size_t)bh * G * kHD + i] = 0.f;
+    if constexpr (STATE) {
+      if (threadIdx.x < G) {
+        p.m_out[(size_t)bh * G + threadIdx.x] = dga::kNegInf;
+        p.l_out[(size_t)bh * G + threadIdx.x] = 0.f;
+      }
+    }
     return;
   }
-  const int pos = len - 1;
+  const int pos = WRITE ? len - 1 : -1;   // the row taken from k_new .. (none: -1)
   const int t_end = min(len, (c0 + nc) * kChunk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, t = lane & 3;
@@ -486,9 +526,9 @@ __global__ void __launch_bounds__(kThreads, 3)
     for (int jj = 0; jj < 16; ++jj)
 #pragma unroll
       for (int v = 0; v < 4; ++v) o[jj][v] = 0.f;
-    const int8_t* kn = p.k_new + (size_t)bh * kHD;
-    const int8_t* vn = p.v_new + (size_t)bh * kHD;
-    const float k_snew = p.ks_new[bh], v_snew = p.vs_new[bh];
+    const int8_t* kn = WRITE ? p.k_new + (size_t)bh * kHD : nullptr;
+    const int8_t* vn = WRITE ? p.v_new + (size_t)bh * kHD : nullptr;
+    const float k_snew = WRITE ? p.ks_new[bh] : 0.f, v_snew = WRITE ? p.vs_new[bh] : 0.f;
     const float scale2 = p.scale * kLog2e;
 
     for (int j = 0; j < nc; ++j) {
@@ -510,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int rel = 8 * nt + 2 * t + e;
-          const bool cur = kb + rel == pos;
+          const bool cur = WRITE && kb + rel == pos;
           kscale[nt][e] = cur ? k_snew : ss[rel];
           vscale[nt][e] = cur ? v_snew : ss[kChunk + rel];
         }
@@ -521,7 +561,7 @@ __global__ void __launch_bounds__(kThreads, 3)
       for (int nt = 0; nt < 2; ++nt) {
         const int rel = 8 * nt + gid;
         uint4 k0, k1;
-        if (kb + rel == pos) {
+        if (WRITE && kb + rel == pos) {
           k0 = reinterpret_cast<const uint4*>(kn)[2 * t];
           k1 = reinterpret_cast<const uint4*>(kn)[2 * t + 1];
         } else {
@@ -549,8 +589,8 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int rel = 2 * t + (i & 1) + 8 * (i >> 1);
-        vw[i] = kb + rel == pos ? reinterpret_cast<const uint4*>(vn)[gid]
-                                : ld_tile(vt, 16 * warp + rel, gid);
+        vw[i] = WRITE && kb + rel == pos ? reinterpret_cast<const uint4*>(vn)[gid]
+                                         : ld_tile(vt, 16 * warp + rel, gid);
       }
       __syncwarp();
       if (lane == 0) s9::mbar_arrive(&empty[s]);
@@ -653,7 +693,7 @@ __global__ void __launch_bounds__(kThreads, 3)
         l += st[kHD + 1] * e;
       }
       if (alone) {
-        p.out[((size_t)bh * G + r) * kHD + d] = dga::finalize(a, l);
+        write_row<STATE>(p, (size_t)bh * G + r, d, a, mm, l);
         continue;
       }
       out[r * (kHD + 2) + d] = a;
@@ -664,7 +704,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     }
   }
   if (alone) {
-    write_new_row(p, bh, len);
+    if constexpr (WRITE) write_new_row(p, bh, len);
     return;
   }
 
@@ -709,9 +749,9 @@ __global__ void __launch_bounds__(kThreads, 3)
     float a = 0.f;
 #pragma unroll 4
     for (int s = 0; s < n_live; ++s) a += __ldcg(base + (s * G + r) * (kHD + 2) + d) * sm[s * G + r];
-    p.out[((size_t)bh * G + r) * kHD + d] = dga::finalize(a, srow[G + r]);
+    write_row<STATE>(p, (size_t)bh * G + r, d, a, srow[r], srow[G + r]);
   }
-  write_new_row(p, bh, len);
+  if constexpr (WRITE) write_new_row(p, bh, len);
 }
 
 }  // namespace live
@@ -740,9 +780,10 @@ void launch(const Args& a, cudaStream_t stream) {
       static_cast<float*>(a.m), static_cast<float*>(a.l), n_split);
 }
 
-// K2 on route "live": maps of the K and V caches ((b * kvh) x S rows of
-// kHD bytes, boxes of kChunk rows), then the launch.
-template <int G>
+// Route "live" (K2: WRITE; K5a; K5b: STATE): maps of the K and V caches
+// ((b * kvh) x S rows of kHD bytes, boxes of kChunk rows), then the
+// launch.
+template <int G, bool WRITE, bool STATE>
 int launch_live(const Args& a, int blocks, void* arrivals, cudaStream_t s) {
   namespace s9 = dga::sm90;
   const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
@@ -761,22 +802,24 @@ int launch_live(const Args& a, int blocks, void* arrivals, cudaStream_t s) {
                      static_cast<const int8_t*>(a.v_new), static_cast<const float*>(a.ks_new),
                      static_cast<const float*>(a.vs_new), static_cast<const int*>(a.seq_lens),
                      static_cast<float*>(a.part), static_cast<float*>(a.out),
-                     static_cast<int*>(arrivals), a.b, a.kvh, a.S, blocks, a.scale};
-  return s9::launch<live::live_kernel<G>>(dim3(blocks), live::kThreads, live::kSmem, s, tk, tv,
-                                          p);
+                     static_cast<int*>(arrivals), a.b, a.kvh, a.S, blocks, a.scale,
+                     static_cast<float*>(a.m), static_cast<float*>(a.l)};
+  return s9::launch<live::live_kernel<G, WRITE, STATE>>(dim3(blocks), live::kThreads, live::kSmem,
+                                                        s, tk, tv, p);
 }
 
+template <bool WRITE, bool STATE>
 int dispatch_live(const Args& a, int g, int hd, int blocks, void* arrivals, void* stream) {
   if (hd != kHD || a.b <= 0 || a.b > 65535 || a.kvh <= 0 || a.kvh > 65535 || a.S <= 0 ||
-      blocks <= (long long)a.b * a.kvh || !arrivals)
+      blocks <= (long long)a.b * a.kvh || !arrivals || (STATE && (!a.m || !a.l)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (g) {
-    case 1: return launch_live<1>(a, blocks, arrivals, s);
-    case 2: return launch_live<2>(a, blocks, arrivals, s);
-    case 4: return launch_live<4>(a, blocks, arrivals, s);
-    case 8: return launch_live<8>(a, blocks, arrivals, s);
-    case 16: return launch_live<16>(a, blocks, arrivals, s);
+    case 1: return launch_live<1, WRITE, STATE>(a, blocks, arrivals, s);
+    case 2: return launch_live<2, WRITE, STATE>(a, blocks, arrivals, s);
+    case 4: return launch_live<4, WRITE, STATE>(a, blocks, arrivals, s);
+    case 8: return launch_live<8, WRITE, STATE>(a, blocks, arrivals, s);
+    case 16: return launch_live<16, WRITE, STATE>(a, blocks, arrivals, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -807,16 +850,15 @@ int dispatch(const Args& a, int g, int hd, void* stream) {
 
 }  // namespace
 
-// part (K5a, K5b, K2 on route 0): scratch of b * kvh * ceil(S / split_len)
-// * g * (hd + 2) floats.
-// K2: out (b, kvh, g, hd) f32; writes the new rows into the caches. Route
-// 0, "span": `split` is the span's keys, as K5a/K5b. Route 1, "live": a
-// grid of `split` blocks (more than b * kvh), part holds
-// split * g * (hd + 2) floats, `arrivals` b * kvh ints that are zero,
-// that the launch leaves zero and that no launch running beside it uses
-// (the wrapper keeps one buffer per stream), and the caches and k_new /
-// v_new must be 16-byte aligned (TMA and 16-byte loads; the map refuses a
-// cache that is not).
+// Every entry takes a route: 0, "span", where `split` is the span's keys
+// and part holds b * kvh * ceil(S / split) * g * (hd + 2) floats; or 1,
+// "live" (head size 128), where `split` is the grid's blocks (more than
+// b * kvh), part holds split * g * (hd + 2) floats, `arrivals` b * kvh ints
+// that are zero, that the launch leaves zero and that no launch running
+// beside it uses (the wrappers keep one buffer per stream), and the caches
+// must be 16-byte aligned (TMA; the map refuses a cache that is not).
+// K2: out (b, kvh, g, hd) f32; writes the new rows into the caches; on
+// route "live" k_new / v_new must be 16-byte aligned too (16-byte loads).
 extern "C" int dga_flash_decode_inplace(
     const void* q, void* kq, void* ks, void* vq, void* vs, const void* k_new,
     const void* v_new, const void* ks_new, const void* vs_new,
@@ -824,7 +866,7 @@ extern "C" int dga_flash_decode_inplace(
     int g, int S, int hd, int route, int split, float scale, void* stream) {
   const Args a{q, kq, ks, vq, vs, k_new, v_new, ks_new, vs_new, seq_lens,
                part, out, nullptr, nullptr, b, kvh, S, split, scale};
-  if (route == 1) return dispatch_live(a, g, hd, split, arrivals, stream);
+  if (route == 1) return dispatch_live<true, false>(a, g, hd, split, arrivals, stream);
   if (route != 0) return (int)cudaErrorInvalidValue;
   return dispatch<true, false>(a, g, hd, stream);
 }
@@ -832,21 +874,25 @@ extern "C" int dga_flash_decode_inplace(
 // K5a: out (b, kvh, g, hd) f32; the caches are only read.
 extern "C" int dga_flash_decode_read(
     const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-    const void* seq_lens, void* part, void* out, int b, int kvh, int g, int S,
-    int hd, int split_len, float scale, void* stream) {
+    const void* seq_lens, void* part, void* out, void* arrivals, int b, int kvh, int g, int S,
+    int hd, int route, int split, float scale, void* stream) {
   const Args a{q, const_cast<void*>(kq), const_cast<void*>(ks), const_cast<void*>(vq),
                const_cast<void*>(vs), nullptr, nullptr, nullptr, nullptr, seq_lens,
-               part, out, nullptr, nullptr, b, kvh, S, split_len, scale};
+               part, out, nullptr, nullptr, b, kvh, S, split, scale};
+  if (route == 1) return dispatch_live<false, false>(a, g, hd, split, arrivals, stream);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   return dispatch<false, false>(a, g, hd, stream);
 }
 
 // K5b: acc (b, kvh, g, hd), m and l (b, kvh, g), all f32; read only.
 extern "C" int dga_flash_decode_state(
     const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-    const void* seq_lens, void* part, void* acc, void* m, void* l, int b, int kvh,
-    int g, int S, int hd, int split_len, float scale, void* stream) {
+    const void* seq_lens, void* part, void* acc, void* m, void* l, void* arrivals, int b,
+    int kvh, int g, int S, int hd, int route, int split, float scale, void* stream) {
   const Args a{q, const_cast<void*>(kq), const_cast<void*>(ks), const_cast<void*>(vq),
                const_cast<void*>(vs), nullptr, nullptr, nullptr, nullptr, seq_lens,
-               part, acc, m, l, b, kvh, S, split_len, scale};
+               part, acc, m, l, b, kvh, S, split, scale};
+  if (route == 1) return dispatch_live<false, true>(a, g, hd, split, arrivals, stream);
+  if (route != 0) return (int)cudaErrorInvalidValue;
   return dispatch<false, true>(a, g, hd, stream);
 }

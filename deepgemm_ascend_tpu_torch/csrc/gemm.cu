@@ -8,7 +8,7 @@
 // (n, k). The accumulator is rounded once to the output type (RN), as
 // acc_ref[:].astype(out_dtype) does (:90).
 //
-// Two routes, chosen by the caller (ops/gemm.py:route) and passed in; an
+// Three routes, chosen by the caller (ops/gemm.py:route) and passed in; an
 // entry refuses (cudaErrorInvalidValue) a route it cannot take, so no call
 // switches routes silently.
 //
@@ -33,14 +33,14 @@
 // SM, which is what lets the splits fill the card where K10's few tiles
 // leave most SMs idle.
 //
-// Both routes split K the same way: K11 gives block (s, tile) the 64-deep
+// Every route splits K the same way: K11 gives block (s, tile) the 64-deep
 // K blocks [s*per, min(nk, (s+1)*per)) and stores its f32 sum into slice s
 // of a (k_split, m, n) partials buffer; a range past K stores zeros (the
 // buffer comes from torch.empty). The wrapper sums the slices, as jnp.sum
 // does outside the TPU kernel (:285).
 //
-// Route 0, "mma_tile" (every shape: f32 inputs, and 16-bit operands TMA
-// cannot describe, such as an odd leading dimension): a block owns one
+// Route 0, "mma_tile" (every shape: f32 and 16-bit operands that routes 2
+// and 1 cannot take, such as an odd leading dimension): a block owns one
 // 64 x 64 output tile and one K range [k_begin, k_end); K10 gives every
 // block all of K.
 //
@@ -55,9 +55,18 @@
 // is aligned, staged in registers one K step ahead (the next step's loads
 // are in flight during this step's math); else element by element.
 //
-// f32 inputs (route 0): FFMA on the CUDA cores in full f32, each output a
-// running fmaf over k. Not TF32, which keeps ~3 decimal digits where the
-// JAX package holds its f32 GEMM to 1e-4 (tests/test_gemm.py:51-67).
+// f32 inputs (route 0, and route 2 below): FFMA on the CUDA cores in full
+// f32, each output one running fmaf over k in ascending order from the
+// block's k_begin, rounded once to the output type. Not TF32, which keeps
+// ~3 decimal digits where the JAX package holds its f32 GEMM to 1e-4
+// (tests/test_gemm.py:51-67). Both f32 designs zero-fill the K tail to
+// whole 16-deep steps and sum in that one order, so route 2 equals route
+// 0 bit for bit at every shape, layout and K range.
+//
+// Route 2, "ffma" (K10 and K11, f32 operands with 16-byte aligned bases
+// and stored row pitches that are multiples of 4 elements): the classic
+// register-blocked SIMT GEMM, for the 67 TFLOP/s of FFMA that bound it
+// at prefill sizes (namespace ffma below).
 //
 // Ragged edges on route 0: the K tail of both operands is zero-filled in
 // shared memory (garbage times zero can be NaN, gemm.py:72-83); rows past
@@ -69,9 +78,10 @@
 //
 // Bound on the card: the operand bytes at decode (m = 16), the tensor
 // cores (989 TFLOP/s bf16/fp16) or the CUDA cores (67 TFLOP/s f32) at
-// prefill. Route 0 is the simple design (mma.sync, no TMA or cp.async
-// ring, 64 x 64 tiles); route 1 runs at the wgmma rate with loads
-// overlapped with math.
+// prefill. Route 0 is the simple design (mma.sync or FFMA, no TMA or
+// cp.async ring, 64 x 64 tiles); route 1 runs at the wgmma rate with loads
+// overlapped with math; route 2 keeps the FFMA pipes fed from registers
+// with the next stage's loads in flight.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -554,6 +564,337 @@ int launch(const void* a, const void* b, void* c, int batch, int m, int n, int k
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- route 2
+//
+// "ffma": f32 on the CUDA cores, bound by FFMA issue at prefill sizes
+// (67 TFLOP/s; 2048^3 takes 0.256 ms at that rate) and by the operand
+// bytes at decode. Route 0 reached a quarter of that rate: 4 x 4 outputs a
+// thread, element loads, no load in flight during the math.
+//
+// A block of T threads owns a BM x BN output tile; thread (ty, tx) owns
+// QM x QN quadrants of 4 x 4 outputs, rows q * BM / QM + 4 ty + i and
+// columns q * BN / QN + 4 tx + j: every fragment read from shared memory is
+// one float4 that the warp's threads of one ty (A) share as a broadcast,
+// and its tx read as one contiguous run (B). The 128 x 128 tile (8 x 8
+// outputs a thread, 256 threads, two blocks an SM) where m > 64 and its
+// grid fills the card (sm90::large_tile, splits and batch counted); else
+// 64 x 64 (4 x 4, 256 threads), and at m <= 16 a 16 x 128 tile (4 x 4,
+// 128 threads) that spends no FMA on padding rows.
+//
+// Shared memory (dynamic) holds a ring of S 16-deep stages of both
+// operands in the [k][mn] layout the fragment reads need, with a pitch of
+// mn + 4 floats (4 mod 8, see KMajor): two stages for the 64- and
+// 128-row tiles, six for the bytes-bound 16-row tile. Every load is a
+// 16-byte cp.async. The operand that is MN-major in memory (A stored (k,
+// m), B stored (k, n)) lands in its stage as it lies. The K-major one (A
+// stored (m, k), B stored (n, k)) must be transposed (TMA cannot
+// transpose 32-bit elements): it lands in a raw buffer, and the thread
+// that copied a chunk stores it transposed once it has landed, so no
+// staged load holds registers across the math (held in registers, they
+// made the 128 x 128 instances spill). One __syncthreads a stage: while
+// the block multiplies stage s, stages s + 1 .. s + S - 1 are in flight;
+// the fragments of step kk + 1 are read from shared memory while step
+// kk's FMAs run.
+//
+// Registers (-Xptxas -v, f32 output): the 128 x 128 instances 119-128 (64
+// accumulators, two fragment sets of 16), under the 128 that two blocks an
+// SM leave a thread, with no spill; 64 x 64 79-80; 16 x 128 91-109.
+// chip_smoke.py's phase 1 prints every instance's figures.
+namespace ffma {
+
+constexpr int kBK = 16;   // K step of a stage
+
+__device__ __forceinline__ void copy16_async(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A tile shape: BM x BN outputs, QM x QN quadrants of 4 x 4 a thread, T
+// threads, a ring of S stages.
+template <int BM_, int BN_, int QM_, int QN_, int T_, int S_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, QM = QM_, QN = QN_, T = T_, S = S_;
+  static constexpr int TM = 4 * QM, TN = 4 * QN;   // outputs a thread
+  static constexpr int TX = BN / TN;               // threads along n
+  static_assert((BM / TM) * TX == T, "one thread a 4QM x 4QN microtile");
+  static constexpr int PA = BM + 4, PB = BN + 4;   // stage pitches, floats
+};
+
+using Large = Tile<128, 128, 2, 2, 256, 2>;
+using Mid = Tile<64, 64, 1, 1, 256, 2>;
+using Thin = Tile<16, 128, 1, 1, 128, 6>;   // bytes bound: more stages in flight
+
+// Stage rows [k0, k0 + kBK) x columns [r0, r0 + R) of an MN-major operand
+// (stored (k, ld)) into S[kBK][R + 4] by cp.async; zeros past k_end or
+// r_lim (a multiple of 4: a chunk lies wholly inside or outside).
+template <int R, int T>
+__device__ __forceinline__ void stage_mn(float* S, const float* X, long long ld, int k0, int k_end,
+                                         int r0, int r_lim) {
+  constexpr int kC = R / 4, kN = kBK * kC;
+#pragma unroll
+  for (int it = 0; it < (kN + T - 1) / T; ++it) {
+    const int idx = threadIdx.x + it * T;
+    if (kN % T == 0 || idx < kN) {
+      const int kk = idx / kC, c = (idx % kC) * 4;
+      const bool ok = k0 + kk < k_end && r0 + c < r_lim;
+      copy16_async(S + kk * (R + 4) + c, ok ? X + (size_t)(k0 + kk) * ld + r0 + c : X, ok);
+    }
+  }
+}
+
+// A K-major operand (stored (mn, ld = k)): the stage [r0, r0 + R) x
+// [k0, k0 + kBK) as 16-byte chunks, copied by cp.async as they lie into a
+// raw buffer (chunk idx at raw[4 idx]), then, once landed, read back by
+// the thread that copied it and stored transposed into S[kBK][R + 4]: no
+// registers held across the math, no barrier between copy and transpose.
+// A warp's 32 chunks are 16 rows x 32 bytes (a whole sector a row); its
+// stores of one k land on rows r..r+15 at column chunks kc and kc + 4, and
+// a pitch of 4 mod 8 floats puts those two halves 16 banks apart: no
+// conflict.
+template <int R, int T>
+struct KMajor {
+  static constexpr int kN = R * kBK / 4;
+  static constexpr int kPer = (kN + T - 1) / T;
+
+  __device__ __forceinline__ static void at(int idx, int& row, int& kc) {
+    row = (idx >> 1) % R;
+    kc = ((idx & 1) + 2 * (idx / (2 * R))) * 4;
+  }
+
+  __device__ __forceinline__ static void copy(float* raw, const float* X, long long ld, int k0,
+                                              int k_end, int r0, int r_lim) {
+#pragma unroll
+    for (int it = 0; it < kPer; ++it) {
+      const int idx = threadIdx.x + it * T;
+      if (kN % T == 0 || idx < kN) {
+        int row, kc;
+        at(idx, row, kc);
+        const bool ok = r0 + row < r_lim && k0 + kc < k_end;
+        copy16_async(raw + 4 * idx, ok ? X + (size_t)(r0 + row) * ld + k0 + kc : X, ok);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void transpose(float* S, const float* raw) {
+#pragma unroll
+    for (int it = 0; it < kPer; ++it) {
+      const int idx = threadIdx.x + it * T;
+      if (kN % T == 0 || idx < kN) {
+        int row, kc;
+        at(idx, row, kc);
+        const float4 v = *reinterpret_cast<const float4*>(raw + 4 * idx);
+        float* s = S + kc * (R + 4) + row;
+        s[0] = v.x;
+        s[R + 4] = v.y;
+        s[2 * (R + 4)] = v.z;
+        s[3 * (R + 4)] = v.w;
+      }
+    }
+  }
+};
+
+// The fragments of K step kk: a thread's TM rows of A and TN columns of B.
+template <class C>
+__device__ __forceinline__ void fragments(const float* As, const float* Bs, int kk, int ty, int tx,
+                                          float (&a)[C::TM], float (&b)[C::TN]) {
+#pragma unroll
+  for (int q = 0; q < C::QM; ++q) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(As + kk * C::PA + q * (C::BM / C::QM) + 4 * ty);
+    a[4 * q] = v.x;
+    a[4 * q + 1] = v.y;
+    a[4 * q + 2] = v.z;
+    a[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int q = 0; q < C::QN; ++q) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(Bs + kk * C::PB + q * (C::BN / C::QN) + 4 * tx);
+    b[4 * q] = v.x;
+    b[4 * q + 1] = v.y;
+    b[4 * q + 2] = v.z;
+    b[4 * q + 3] = v.w;
+  }
+}
+
+// One stage's kBK steps: every output one fmaf a step, k ascending; the
+// next step's fragments read while this step's FMAs run.
+template <class C>
+__device__ __forceinline__ void fma_stage(float (&acc)[C::TM][C::TN], const float* As,
+                                          const float* Bs, int ty, int tx) {
+  float a[2][C::TM], b[2][C::TN];
+  fragments<C>(As, Bs, 0, ty, tx, a[0], b[0]);
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    if (kk + 1 < kBK) fragments<C>(As, Bs, kk + 1, ty, tx, a[(kk + 1) & 1], b[(kk + 1) & 1]);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(a[kk & 1][i], b[kk & 1][j], acc[i][j]);
+  }
+}
+
+// The block's ring in dynamic shared memory (floats): S stages of A's and
+// B's [kBK][mn + 4] tiles, then S - 1 raw buffers of the K-major
+// operands' chunks (stage s's in buffer s % (S - 1)).
+template <class C, bool A_T, bool B_T>
+struct Ring {
+  static constexpr int kA = kBK * C::PA, kB = kBK * C::PB;
+  static constexpr int kRawA = A_T ? 0 : C::BM * kBK;   // A stored (m, k)
+  static constexpr int kRawB = B_T ? C::BN * kBK : 0;   // B stored (n, k)
+  static constexpr int kStage = kA + kB, kRaw = kRawA + kRawB;
+  static constexpr int kBytes = (C::S * kStage + (C::S - 1) * kRaw) * 4;
+
+  float* base;
+  const float* A;
+  const float* B;
+  int k_begin, k_end, m0, n0;
+
+  __device__ __forceinline__ float* a(int s) const { return base + (s % C::S) * kStage; }
+  __device__ __forceinline__ float* b(int s) const { return a(s) + kA; }
+  __device__ __forceinline__ float* raw(int s) const {
+    return base + C::S * kStage + (s % (C::S - 1)) * kRaw;
+  }
+
+  // Stage s's copies: into its tiles (MN-major) or its raw buffer.
+  __device__ __forceinline__ void issue(const Args& p, int s) const {
+    const int k0 = k_begin + s * kBK;
+    if constexpr (A_T) stage_mn<C::BM, C::T>(a(s), A, p.m, k0, k_end, m0, p.m);
+    else KMajor<C::BM, C::T>::copy(raw(s), A, p.k, k0, k_end, m0, p.m);
+    if constexpr (B_T) KMajor<C::BN, C::T>::copy(raw(s) + kRawA, B, p.k, k0, k_end, n0, p.n);
+    else stage_mn<C::BN, C::T>(b(s), B, p.n, k0, k_end, n0, p.n);
+  }
+
+  // Stage s landed (this thread's copies): its raw chunks into its tiles.
+  __device__ __forceinline__ void transpose(int s) const {
+    if constexpr (!A_T) KMajor<C::BM, C::T>::transpose(a(s), raw(s));
+    if constexpr (B_T) KMajor<C::BN, C::T>::transpose(b(s), raw(s) + kRawA);
+  }
+};
+
+// A_T: A stored (k, m) (MN-major), else (m, k); B_T: B stored (n, k)
+// (K-major), else (k, n). The grid: x the output tiles in sm90::tile_of's
+// bands (p.n_major: the raster), z batch x splits as route 0's.
+// Stage s: wait for its copies, transpose its raw chunks, one barrier
+// (stage s visible; stage s - 1's tiles free), start stage s + S - 1's
+// copies into them, multiply stage s.
+template <class C, bool A_T, bool B_T, typename OutT>
+__global__ void __launch_bounds__(C::T, 2) gemm_ffma_kernel(Args p) {
+  extern __shared__ float4 ffma_smem[];
+  int tm, tn;
+  dga::sm90::tile_of((p.m + C::BM - 1) / C::BM, (p.n + C::BN - 1) / C::BN, p.n_major, tm, tn);
+  const int m0 = tm * C::BM, n0 = tn * C::BN;
+  const int batch = blockIdx.z / p.splits;
+  const int k_begin = (blockIdx.z % p.splits) * p.k_per;
+  const int k_end = min(p.k, k_begin + p.k_per);
+  const Ring<C, A_T, B_T> ring{reinterpret_cast<float*>(ffma_smem),
+                               static_cast<const float*>(p.a) + (size_t)batch * p.m * p.k,
+                               static_cast<const float*>(p.b) + (size_t)batch * p.k * p.n,
+                               k_begin, k_end, m0, n0};
+  OutT* C_ = static_cast<OutT*>(p.c) + (size_t)blockIdx.z * p.m * p.n;
+  const int ty = threadIdx.x / C::TX, tx = threadIdx.x % C::TX;
+
+  float acc[C::TM][C::TN];
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) acc[i][j] = 0.f;
+
+  const int steps = k_begin < k_end ? (k_end - k_begin + kBK - 1) / kBK : 0;
+#pragma unroll
+  for (int s = 0; s < C::S - 1; ++s) {
+    if (s < steps) ring.issue(p, s);
+    copies_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    copies_wait<C::S - 2>();
+    ring.transpose(s);
+    __syncthreads();
+    if (s + C::S - 1 < steps) ring.issue(p, s + C::S - 1);
+    copies_commit();
+    fma_stage<C>(acc, ring.a(s), ring.b(s), ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int r = m0 + (i / 4) * (C::BM / C::QM) + 4 * ty + i % 4;
+    if (r >= p.m) continue;
+    OutT* row = C_ + (size_t)r * p.n;
+#pragma unroll
+    for (int q = 0; q < C::QN; ++q) {
+      const int col = n0 + q * (C::BN / C::QN) + 4 * tx;
+      store_cols(row, col, p.n, acc[i][4 * q], acc[i][4 * q + 1]);
+      store_cols(row, col + 2, p.n, acc[i][4 * q + 2], acc[i][4 * q + 3]);
+    }
+  }
+}
+
+template <class C, bool AT, bool BT>
+struct Launch {
+  template <typename OutT>
+  struct Out {
+    static void run(const Args& p, dim3 grid, cudaStream_t s, int* rc) {
+      *rc = dga::sm90::launch<gemm_ffma_kernel<C, AT, BT, OutT>>(
+          grid, C::T, Ring<C, AT, BT>::kBytes, s, p);
+    }
+  };
+};
+
+template <class C>
+int launch_tile(const Args& p, int batch, int out_code, cudaStream_t s) {
+  const dim3 grid(((p.m + C::BM - 1) / C::BM) * ((p.n + C::BN - 1) / C::BN), 1, batch * p.splits);
+  int rc = 0;
+  if (p.a_t && p.b_t) by_out<Launch<C, true, true>::template Out>(out_code, p, grid, s, &rc);
+  else if (p.a_t) by_out<Launch<C, true, false>::template Out>(out_code, p, grid, s, &rc);
+  else if (p.b_t) by_out<Launch<C, false, true>::template Out>(out_code, p, grid, s, &rc);
+  else by_out<Launch<C, false, false>::template Out>(out_code, p, grid, s, &rc);
+  return rc;
+}
+
+}  // namespace ffma
+
+// Route 2: f32 operands with 16-byte aligned bases and stored row pitches
+// (the stored last dims) that are multiples of 4; the tile from the whole
+// grid, splits and batch counted. K10 passes one split over all of K.
+int launch_ffma(const void* a, const void* b, void* c, int batch, int m, int n, int k, int a_t,
+                int b_t, int in_code, int out_code, int n_major, int splits, int k_per,
+                void* stream) {
+  const long long tiles128 = (long long)((m + 127) / 128) * ((n + 127) / 128);
+  if (batch <= 0 || m <= 0 || n <= 0 || k < 0 || splits <= 0 || k_per < 0 ||
+      (long long)batch * splits > kMaxGridYZ || tiles128 > (1 << 29) || in_code != 0 ||
+      out_code < 0 || out_code > 2 || (splits > 1 && (k_per == 0 || k_per % kBK)) ||
+      !aligned16(a) || !aligned16(b) || (a_t ? m : k) % 4 || (b_t ? k : n) % 4)
+    return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.a = a;
+  p.b = b;
+  p.c = c;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.k_per = k_per;
+  p.splits = splits;
+  p.n_major = n_major;
+  p.a_t = a_t;
+  p.b_t = b_t;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= 16) return ffma::launch_tile<ffma::Thin>(p, batch, out_code, s);
+  if (dga::sm90::large_tile(m, tiles128 * batch * splits))
+    return ffma::launch_tile<ffma::Large>(p, batch, out_code, s);
+  return ffma::launch_tile<ffma::Mid>(p, batch, out_code, s);
+}
+
 // Route 1: 16-bit inputs, K > 0, operands TMA can describe (the maps
 // refuse the rest).
 int launch_sm90(const void* a, const void* b, void* c, int batch, int m, int n, int k, int a_t,
@@ -586,24 +927,30 @@ int ksplit_sm90(const void* a, const void* b, void* partials, int batch, int m, 
 }  // namespace
 
 // K10: c (batch, m, n) of out type out_code = a . b per batch element, on
-// route 0 (mma_tile) or 1 (wgmma).
+// route 0 (mma_tile), 1 (wgmma) or 2 (ffma).
 extern "C" int dga_gemm(const void* a, const void* b, void* c, int batch, int m, int n, int k,
                         int a_t, int b_t, int in_code, int out_code, int n_major, int route,
                         void* stream) {
   if (route == 1)
     return launch_sm90(a, b, c, batch, m, n, k, a_t, b_t, in_code, out_code, n_major, stream);
+  if (route == 2)
+    return launch_ffma(a, b, c, batch, m, n, k, a_t, b_t, in_code, out_code, n_major, 1, k,
+                       stream);
   if (route != 0) return (int)cudaErrorInvalidValue;
   return launch(a, b, c, batch, m, n, k, a_t, b_t, in_code, out_code, n_major, 1, k, stream);
 }
 
 // K11: f32 partials (batch, splits, m, n), nn layout; split s sums K range
 // [s * k_per, min(k, (s + 1) * k_per)), k_per a multiple of 64, and a
-// split past K writes zeros; on route 0 (mma_tile) or 1 (wgmma).
+// split past K writes zeros; on route 0 (mma_tile), 1 (wgmma) or 2 (ffma).
 extern "C" int dga_gemm_ksplit(const void* a, const void* b, void* partials, int batch, int m,
                                int n, int k, int splits, int k_per, int in_code, int route,
                                void* stream) {
   if (route == 1)
     return ksplit_sm90(a, b, partials, batch, m, n, k, splits, k_per, in_code, stream);
+  if (route == 2)
+    return launch_ffma(a, b, partials, batch, m, n, k, 0, 0, in_code, 0, 0, splits, k_per,
+                       stream);
   if (route != 0) return (int)cudaErrorInvalidValue;
   return launch(a, b, partials, batch, m, n, k, 0, 0, in_code, 0, 0, splits, k_per, stream);
 }

@@ -83,10 +83,11 @@ KERNELS = {
                        _F, _P]),
     "flash_prefill_stats": ("flash_prefill", "dga_flash_prefill_stats",
                             [_P] * 10 + [_I] * 6 + [_F, _P]),
+    # K5a and K5b also take K2's arrival counts and route.
     "flash_decode_read": ("flash_decode", "dga_flash_decode_read",
-                          [_P] * 8 + [_I] * 6 + [_F, _P]),
+                          [_P] * 9 + [_I] * 7 + [_F, _P]),
     "flash_decode_state": ("flash_decode", "dga_flash_decode_state",
-                           [_P] * 10 + [_I] * 6 + [_F, _P]),
+                           [_P] * 11 + [_I] * 7 + [_F, _P]),
     "int8_gemm": ("int8_gemm", "dga_int8_gemm",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P]),
     # K9 also takes the experts, its route and tile.

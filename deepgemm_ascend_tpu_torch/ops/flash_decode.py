@@ -14,18 +14,21 @@ per sequence each op attends cache rows [0, seq_len) of its kv head, with
   terms exactly (an empty sequence gives m = NEG_INF, l = 0).
 
 On a CUDA tensor the wrappers launch ``csrc/flash_decode.cu``; on a CPU
-tensor they run the plain versions beside them. K5a and K5b take route
-"span": one block per span of :data:`SPLIT_KEYS` keys of each (batch, kv
-head), then a merge of the spans that normalizes, or for K5b writes the
-merged state. K2 takes route "live" at head size 128 (:func:`route`; at
-64 it takes route "span"): a grid of
-:func:`live_blocks` blocks, fixed by the shapes, which read the lengths on
-the card and share the live keys of all sequences out in proportion to
-their lengths (:func:`live_plan`, :func:`live_block_range`), each through
-a TMA ring and the tensor cores; the last block of each (batch, kv head)
-to finish merges its blocks and writes the new row. Nothing is read back
-to the host. K2 updates the caches passed in and returns them
-(the JAX package returns new arrays through aliased outputs).
+tensor they run the plain versions beside them. All three take route
+"live" at head size 128 where TMA can read the caches (:func:`route` for
+K2, which also needs its new rows aligned; :func:`read_route` for K5a and
+K5b): a grid of :func:`live_blocks` blocks, fixed by the shapes, which
+read the lengths on the card and share the live keys of all sequences
+out in proportion to their lengths (:func:`live_plan`,
+:func:`live_block_range`), each through a TMA ring and the tensor cores;
+the last block of each (batch, kv head) to finish merges its blocks, and
+K2's writes the new row. Elsewhere (head size 64, caches off 16 bytes)
+they take route "span": one block per span of :data:`SPLIT_KEYS` keys of
+each (batch, kv head), then a merge of the spans. A ``plan`` argument
+forces either (for tests and measurements). Nothing is read back to the
+host. K2 updates the caches passed in and returns them (the JAX package
+returns new arrays through aliased outputs). Each launch is counted under
+its plan too (``Counter.plans``: "live/<blocks>" or "span/<keys>").
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ from .flash_common import (NEG_INF, check_cuda_geometry, softmax_pv,
 __all__ = ["flash_decode_gqa", "flash_decode_gqa_state",
            "flash_decode_gqa_inplace", "flash_decode_plain",
            "flash_decode_state_plain", "flash_decode_inplace_plain",
-           "merge_current_token", "route", "live_blocks", "live_plan",
-           "live_block_range"]
+           "merge_current_token", "route", "read_route", "live_blocks",
+           "live_plan", "live_block_range"]
 
 COUNTER = _kernels.COUNTERS["flash_decode"]
 READ_COUNTER = _kernels.COUNTERS["flash_decode_read"]
@@ -52,7 +55,7 @@ STATE_COUNTER = _kernels.COUNTERS["flash_decode_state"]
 # 16 slots x 4 kv heads alone would give 64 blocks to 132 SMs, so longer
 # caches are split into spans that run in parallel and are merged after.
 SPLIT_KEYS = 512
-# K2's routes, as the C entry numbers them.
+# The routes, as the C entries number them.
 ROUTES = ("span", "live")
 # Route "live": keys a stage of its ring (a chunk), the blocks an SM its
 # grid gives the live chunks beyond one per (batch, kv head)
@@ -64,12 +67,21 @@ LIVE_BLOCKS_PER_SM = 3
 LIVE_MAX_SPLITS = 256
 
 
-def route(k_q, v_q, k_new, v_new) -> str:
-    """K2's route: ``"live"`` at head size LIVE_HEAD_DIM where TMA and
-    16-byte loads can read the caches and the new rows (16-byte-aligned
-    ``data_ptr``s; the wrapper makes them contiguous), else ``"span"``."""
+def read_route(k_q, v_q) -> str:
+    """K5a's and K5b's route: ``"live"`` at head size LIVE_HEAD_DIM where
+    TMA can read the caches (16-byte-aligned ``data_ptr``s; the caches are
+    contiguous), else ``"span"``."""
     return ("live" if k_q.shape[-1] == LIVE_HEAD_DIM
-            and all(t.data_ptr() % 16 == 0 for t in (k_q, v_q, k_new, v_new))
+            and all(t.data_ptr() % 16 == 0 for t in (k_q, v_q))
+            else "span")
+
+
+def route(k_q, v_q, k_new, v_new) -> str:
+    """K2's route: :func:`read_route`'s, where 16-byte loads can read the
+    new rows too (16-byte-aligned ``data_ptr``s; the wrapper makes them
+    contiguous), else ``"span"``."""
+    return ("live" if read_route(k_q, v_q) == "live"
+            and all(t.data_ptr() % 16 == 0 for t in (k_new, v_new))
             else "span")
 
 
@@ -213,12 +225,27 @@ def _prepare(name, q, k_q, k_s, v_q, v_s, seq_lens):
             q.to(torch.bfloat16).contiguous())
 
 
-def _span_scratch(b, kvh, g, s_max, hd, dev, split_keys=None):
-    """Route "span"'s partial states: one per span of ``split_keys``
-    (SPLIT_KEYS if None) keys of each (batch, kv head)."""
-    n_split = -(-s_max // (split_keys or SPLIT_KEYS))
-    return torch.empty((b * kvh * n_split * g * (hd + 2),),
-                       dtype=torch.float32, device=dev)
+def _plan_scratch(rt, plan, b, kvh, g, s_max, hd, dev):
+    """The plan (route, split) of a launch — ``plan``, or route ``rt`` with
+    :func:`live_blocks`'s grid or SPLIT_KEYS keys a span — and its scratch
+    of partial states: one per grid block (route "live"), or one per span
+    of each (batch, kv head) (route "span")."""
+    rt, split = plan or (rt, live_blocks(b, kvh, s_max,
+                                         platform.detect(dev).num_cores)
+                         if rt == "live" else SPLIT_KEYS)
+    states = split if rt == "live" else b * kvh * -(-s_max // split)
+    return rt, split, torch.empty((states * g * (hd + 2),),
+                                  dtype=torch.float32, device=dev)
+
+
+def _launched(counter, name, rc, dev, stream, rt, split):
+    """Check a launch's return code (a failed one drops its stream's
+    arrival counts, which it may have left non-zero) and count it."""
+    if rc:
+        _ARRIVALS.pop((dev, stream), None)
+    _kernels.check(rc, name)
+    counter.launches += 1
+    counter.count_plan(f"{rt}/{split}")
 
 
 def flash_decode_gqa_inplace(
@@ -265,16 +292,9 @@ def _launch_inplace(q, k_q, k_s, v_q, v_s, k_new, v_new, k_snew, v_snew,
         if t.device != dev:
             raise ValueError(f"flash_decode_gqa_inplace: {label} must be on "
                              f"{dev}")
-    if plan is None:
-        rt = route(k_q, v_q, kn, vn)
-        plan = rt, (live_blocks(b, kvh, s_max, platform.detect(dev).num_cores)
-                    if rt == "live" else SPLIT_KEYS)
-    rt, split = plan
+    rt, split, part = _plan_scratch(route(k_q, v_q, kn, vn), plan, b, kvh, g,
+                                    s_max, hd, dev)
     out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
-    # Partial states: one per span, or one per block of the grid.
-    part = (_span_scratch(b, kvh, g, s_max, hd, dev, split) if rt == "span"
-            else torch.empty((split * g * (hd + 2),), dtype=torch.float32,
-                             device=dev))
     stream = _kernels.stream_ptr(dev)
     rc = _kernels.entry("flash_decode")(
         qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
@@ -282,11 +302,7 @@ def _launch_inplace(q, k_q, k_s, v_q, v_s, k_new, v_new, k_snew, v_snew,
         vsn.data_ptr(), lens.data_ptr(), part.data_ptr(), out.data_ptr(),
         _arrivals(b * kvh, dev, stream).data_ptr(), b, kvh, g, s_max, hd,
         ROUTES.index(rt), split, 1.0 / math.sqrt(hd), stream)
-    if rc:
-        _ARRIVALS.pop((dev, stream), None)
-    _kernels.check(rc, "flash_decode")
-    COUNTER.launches += 1
-    COUNTER.count_plan(f"{rt}/{split}")
+    _launched(COUNTER, "flash_decode", rc, dev, stream, rt, split)
     return out.reshape(b, heads, hd), k_q, v_q, k_s, v_s
 
 
@@ -297,25 +313,14 @@ def flash_decode_gqa(
     v_q: torch.Tensor,
     v_s: torch.Tensor,
     seq_lens: torch.Tensor,  # (b,) int32 — tokens [0, len) are attended
+    plan=None,
 ) -> torch.Tensor:
     """Single-token GQA attention over the int8 cache, read only. Returns
-    (b, heads, hd) f32 (zeros for an empty sequence)."""
-    b, heads, hd, kvh, g, s_max, lens, qb = _prepare(
-        "flash_decode_gqa", q, k_q, k_s, v_q, v_s, seq_lens)
-    dev = q.device
-    if dev.type == "cpu":
-        out = flash_decode_plain(q, k_q, k_s, v_q, v_s, lens)
-        return out.reshape(b, heads, hd)
-    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
-    part = _span_scratch(b, kvh, g, s_max, hd, dev)
-    rc = _kernels.entry("flash_decode_read")(
-        qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-        v_s.data_ptr(), lens.data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, kvh, g, s_max, hd, SPLIT_KEYS, 1.0 / math.sqrt(hd),
-        _kernels.stream_ptr(dev))
-    _kernels.check(rc, "flash_decode_read")
-    READ_COUNTER.launches += 1
-    return out.reshape(b, heads, hd)
+    (b, heads, hd) f32 (zeros for an empty sequence). ``plan``: (route,
+    split) in place of :func:`read_route` and :func:`live_blocks`'s (for
+    tests and measurements): the span's keys for "span", the grid's blocks
+    for "live"."""
+    return _launch_read(q, k_q, k_s, v_q, v_s, seq_lens, False, plan)
 
 
 def flash_decode_gqa_state(
@@ -325,6 +330,7 @@ def flash_decode_gqa_state(
     v_q: torch.Tensor,
     v_s: torch.Tensor,
     seq_lens: torch.Tensor,
+    plan=None,
 ):
     """Like :func:`flash_decode_gqa` but returns the raw online-softmax
     state ``(acc, m, l)`` — acc (b, heads, hd) UNNORMALIZED, m/l
@@ -335,26 +341,43 @@ def flash_decode_gqa_state(
 
     Empty sequences yield m = −1e30, l = 0 → the merge degenerates to the
     extra term alone (:func:`merge_current_token` writes it out for one
-    token of the int8 cache)."""
+    token of the int8 cache). ``plan`` as for :func:`flash_decode_gqa`."""
+    return _launch_read(q, k_q, k_s, v_q, v_s, seq_lens, True, plan)
+
+
+def _launch_read(q, k_q, k_s, v_q, v_s, seq_lens, state: bool, plan):
+    """K5a (``state`` False) or K5b on ``q``'s device."""
+    name = "flash_decode_gqa_state" if state else "flash_decode_gqa"
     b, heads, hd, kvh, g, s_max, lens, qb = _prepare(
-        "flash_decode_gqa_state", q, k_q, k_s, v_q, v_s, seq_lens)
+        name, q, k_q, k_s, v_q, v_s, seq_lens)
     dev = q.device
     if dev.type == "cpu":
+        if not state:
+            return flash_decode_plain(q, k_q, k_s, v_q, v_s, lens).reshape(
+                b, heads, hd)
         acc, m, l = flash_decode_state_plain(q, k_q, k_s, v_q, v_s, lens)
-    else:
-        acc = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
-        m = torch.empty((b, kvh, g), dtype=torch.float32, device=dev)
-        l = torch.empty_like(m)
-        part = _span_scratch(b, kvh, g, s_max, hd, dev)
-        rc = _kernels.entry("flash_decode_state")(
-            qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-            v_s.data_ptr(), lens.data_ptr(), part.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, kvh, g, s_max, hd, SPLIT_KEYS,
-            1.0 / math.sqrt(hd), _kernels.stream_ptr(dev))
-        _kernels.check(rc, "flash_decode_state")
-        STATE_COUNTER.launches += 1
-    return (acc.reshape(b, heads, hd), m.reshape(b, heads),
-            l.reshape(b, heads))
+        return (acc.reshape(b, heads, hd), m.reshape(b, heads),
+                l.reshape(b, heads))
+    rt, split, part = _plan_scratch(read_route(k_q, v_q), plan, b, kvh, g,
+                                    s_max, hd, dev)
+    acc = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
+    stream = _kernels.stream_ptr(dev)
+    head = (qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), lens.data_ptr(), part.data_ptr(), acc.data_ptr())
+    tail = (_arrivals(b * kvh, dev, stream).data_ptr(), b, kvh, g, s_max, hd,
+            ROUTES.index(rt), split, 1.0 / math.sqrt(hd), stream)
+    if not state:
+        rc = _kernels.entry("flash_decode_read")(*head, *tail)
+        _launched(READ_COUNTER, "flash_decode_read", rc, dev, stream, rt,
+                  split)
+        return acc.reshape(b, heads, hd)
+    m = torch.empty((b, kvh, g), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    rc = _kernels.entry("flash_decode_state")(*head, m.data_ptr(),
+                                              l.data_ptr(), *tail)
+    _launched(STATE_COUNTER, "flash_decode_state", rc, dev, stream, rt,
+              split)
+    return acc.reshape(b, heads, hd), m.reshape(b, heads), l.reshape(b, heads)
 
 
 def merge_current_token(state, q, k_new, k_snew, v_new, v_snew):

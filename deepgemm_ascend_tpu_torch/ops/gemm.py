@@ -10,14 +10,20 @@ On a CUDA tensor the wrappers launch ``csrc/gemm.cu``: K10, or K11 when
 the config is ``KernelType.KSPLIT`` with ``k_split > 1``, at least
 ``k_split`` K blocks and the nn layout (JAX :171-173); K11's f32 partials
 are summed and cast here, as ``jnp.sum`` does outside the TPU kernel. Both
-take one of two routes, decided here by :func:`route` and passed to the
+take one of three routes, decided here by :func:`route` and passed to the
 kernel, which refuses a route it cannot take: ``"wgmma"`` (bf16/fp16
 operands that TMA can describe: the Hopper main loop of
 ``csrc/sm90_gemm.cuh``, 128 × 256 tiles, or 64 × 64 for m ≤ 64 and where
-128 × 256 tiles would leave most SMs idle, K11's splits counted) or
-``"mma_tile"`` (everything else: fixed 64 × 64 output tiles with 64-deep K
-blocks, :data:`TILE_M`, ...). Either way K11 splits K in whole 64-deep
-blocks (:func:`_split_depth`). Of a ``GemmConfig`` the kernels
+128 × 256 tiles would leave most SMs idle, K11's splits counted),
+``"ffma"`` (f32 operands with 16-byte aligned data and row pitches that
+are multiples of 4: FFMA on the CUDA cores, 128 × 128 tiles of 8 × 8
+outputs a thread fed by a two-stage shared-memory ring, 64 × 64 where
+those leave most SMs idle, 16 × 128 at m ≤ 16; bit-equal to the f32
+``"mma_tile"``) or ``"mma_tile"`` (everything else: fixed 64 × 64 output
+tiles with 64-deep K blocks, :data:`TILE_M`, ...). Either way K11 splits
+K in whole 64-deep blocks (:func:`_split_depth`). Each launch is counted
+under its route too (``Counter.plans``); the wrappers' ``plan`` argument
+forces a route. Of a ``GemmConfig`` the kernels
 read ``kernel_type``, ``k_split``, ``swizzle`` (the raster order of the
 output tiles) and ``pad_k`` (nn: K padded with zeros to a multiple of the
 64-deep block); the block sizes are fixed.
@@ -50,7 +56,7 @@ K10 = _kernels.COUNTERS["gemm"]
 K11 = _kernels.COUNTERS["gemm_ksplit"]
 # The C interface's type codes, and K10's and K11's route codes.
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-ROUTES = ("mma_tile", "wgmma")
+ROUTES = ("mma_tile", "wgmma", "ffma")
 
 
 def _check_layout(layout: str):
@@ -108,16 +114,22 @@ def gemm_ksplit_plain(a, b, k_split: int, *, out_dtype=torch.float32):
 
 def route(a, b, layout: str = "nn") -> str:
     """K10's and K11's route for the stored operands ``a``, ``b``
-    (contiguous, any leading dims the batch) in ``layout``: ``"wgmma"``
-    where TMA can describe both — bf16/fp16, k > 0, 16-byte aligned
-    ``data_ptr``s and row pitches (the stored last dims) that are multiples
-    of 8 elements (16 bytes; a batch's matrix pitch then is too) — else
-    ``"mma_tile"``."""
+    (contiguous, any leading dims the batch) in ``layout``, where both have
+    16-byte aligned ``data_ptr``s: ``"wgmma"`` where TMA can describe both
+    — bf16/fp16, k > 0, row pitches (the stored last dims) that are
+    multiples of 8 elements (16 bytes; a batch's matrix pitch then is too);
+    ``"ffma"`` for f32 operands whose row pitches are multiples of 4
+    elements (16-byte loads); else ``"mma_tile"``."""
     a_t, _ = _check_layout(layout)
     k = a.shape[-2] if a_t else a.shape[-1]
-    if (a.dtype not in (torch.bfloat16, torch.float16) or b.dtype != a.dtype
-            or k == 0 or a.shape[-1] % 8 or b.shape[-1] % 8
-            or a.data_ptr() % 16 or b.data_ptr() % 16):
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    if b.dtype != a.dtype or not aligned:
+        return "mma_tile"
+    if a.dtype == torch.float32:
+        return ("ffma" if a.shape[-1] % 4 == 0 and b.shape[-1] % 4 == 0
+                else "mma_tile")
+    if (a.dtype not in (torch.bfloat16, torch.float16) or k == 0
+            or a.shape[-1] % 8 or b.shape[-1] % 8):
         return "mma_tile"
     return "wgmma"
 
@@ -133,12 +145,14 @@ def _cuda_checks(a, b, out_dtype):
                          f"CUDA, got {out_dtype}")
 
 
-def _run(a, b, config: GemmConfig, layout: str, out_dtype):
+def _run(a, b, config: GemmConfig, layout: str, out_dtype, plan=None):
     """``a @ b`` over the leading dims shared by ``a`` and ``b``; shapes are
-    validated by the callers."""
+    validated by the callers. ``plan`` as for :func:`gemm_with_config`."""
     a_t, b_t = _check_layout(layout)
     if not isinstance(config, GemmConfig):
         raise TypeError(f"config must be a GemmConfig, got {type(config)}")
+    if plan is not None and plan not in ROUTES:
+        raise ValueError(f"gemm: plan must be one of {ROUTES}, got {plan!r}")
     if config.kernel_type == KernelType.XLA:
         return _f32_product(a, b, a_t, b_t).to(out_dtype)
     if config.pad_k and layout == "nn" and a.shape[-1] % TILE_K:
@@ -159,15 +173,17 @@ def _run(a, b, config: GemmConfig, layout: str, out_dtype):
     a, b = a.contiguous(), b.contiguous()
     batch = math.prod(lead)
     stream = _kernels.stream_ptr(dev)
-    rt = ROUTES.index(route(a, b, layout))
+    rt = plan or route(a, b, layout)
     if ksplit:
         parts = torch.empty((*lead, s, m, n), dtype=torch.float32, device=dev)
         if parts.numel():
             rc = _kernels.entry("gemm_ksplit")(
                 a.data_ptr(), b.data_ptr(), parts.data_ptr(), batch, m, n, k,
-                s, _split_depth(k, s), _CODES[a.dtype], rt, stream)
+                s, _split_depth(k, s), _CODES[a.dtype], ROUTES.index(rt),
+                stream)
             _kernels.check(rc, "gemm_ksplit")
             K11.launches += 1
+            K11.count_plan(rt)
         return parts.sum(dim=-3).to(out_dtype)
     out = torch.empty((*lead, m, n), dtype=out_dtype, device=dev)
     if out.numel() == 0:
@@ -175,9 +191,10 @@ def _run(a, b, config: GemmConfig, layout: str, out_dtype):
     rc = _kernels.entry("gemm")(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, m, n, k, int(a_t),
         int(b_t), _CODES[a.dtype], _CODES[out_dtype],
-        int(config.swizzle == SwizzleDir.N_MAJOR), rt, stream)
+        int(config.swizzle == SwizzleDir.N_MAJOR), ROUTES.index(rt), stream)
     _kernels.check(rc, "gemm")
     K10.launches += 1
+    K10.count_plan(rt)
     return out
 
 
@@ -202,11 +219,15 @@ def gemm_with_config(
     config: GemmConfig,
     out_dtype=torch.float32,
     layout: str = "nn",
+    plan: Optional[str] = None,
 ) -> torch.Tensor:
     """``a @ b`` with an explicit config (layouts and knobs as in the module
-    docstring)."""
+    docstring). ``plan``: one of ``ROUTES`` in place of :func:`route`'s
+    choice, for tests and measurements; the kernel refuses a route it
+    cannot take, and a CPU tensor runs the plain version whatever the
+    plan."""
     _check_2d(a, b, layout)
-    return _run(a, b, config, layout, out_dtype)
+    return _run(a, b, config, layout, out_dtype, plan)
 
 
 def gemm(
@@ -216,16 +237,18 @@ def gemm(
     out_dtype=torch.float32,
     config: Optional[GemmConfig] = None,
     layout: str = "nn",
+    plan: Optional[str] = None,
 ) -> torch.Tensor:
     """Dense ``a @ b`` with the config from ``select_config`` (the kernel
-    family for ``a``'s device), unless ``config`` is given. The public
-    analogue of the reference's ``run_mmad_rtc``."""
+    family for ``a``'s device), unless ``config`` is given; ``plan`` as for
+    :func:`gemm_with_config`. The public analogue of the reference's
+    ``run_mmad_rtc``."""
     m, n, k = _check_2d(a, b, layout)
     op = "gemm" if layout == "nn" else f"gemm_{layout}"
     cfg = select_config(m, n, k, a.dtype, out_dtype, op=op, override=config,
                         device=a.device)
     return gemm_with_config(a, b, config=cfg, out_dtype=out_dtype,
-                            layout=layout)
+                            layout=layout, plan=plan)
 
 
 def bgemm(
@@ -234,10 +257,12 @@ def bgemm(
     *,
     out_dtype=torch.float32,
     config: Optional[GemmConfig] = None,
+    plan: Optional[str] = None,
 ) -> torch.Tensor:
-    """Batched GEMM (…, M, K) @ (…, K, N), nn, one launch for the batch."""
+    """Batched GEMM (…, M, K) @ (…, K, N), nn, one launch for the batch;
+    ``plan`` as for :func:`gemm_with_config`."""
     if a.dim() == 2:
-        return gemm(a, b, out_dtype=out_dtype, config=config)
+        return gemm(a, b, out_dtype=out_dtype, config=config, plan=plan)
     if a.dim() != b.dim():
         raise ValueError(f"rank mismatch: {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
@@ -247,4 +272,4 @@ def bgemm(
                          f"{tuple(b.shape)}")
     cfg = select_config(m, n, k, a.dtype, out_dtype, op="bgemm",
                         override=config, device=a.device)
-    return _run(a, b, cfg, "nn", out_dtype)
+    return _run(a, b, cfg, "nn", out_dtype, plan)

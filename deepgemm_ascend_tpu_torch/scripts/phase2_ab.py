@@ -12,7 +12,11 @@ one card. ``--serving`` also runs that checkout's serving phase (phase 4:
 fp8 experts, then int8) after phase 2 and keeps each run's profiled decode
 step (device and wall ms, launches), launch counts and profiled prefill
 forward of the 1024 bucket (``bench.prefill_profile``: this checkout's,
-for a tree from before it). The card only.
+for a tree from before it). The card only. Each run also keeps the
+sha256 of K2's output and updated caches on fixed inputs (``k2_digests``:
+V2_LITE's decode row and phase 4's lengths, through that checkout's
+package), so that the summary shows whether the two commits' K2 give the
+same bits.
 
 After the runs (or, given no ``--run``, alone) it prints the summary of
 ``OUT``'s files: runs whose labels differ only in their trailing digits
@@ -85,7 +89,45 @@ def _child(tree: str, label: str, out: str, serving: bool) -> None:
     with open(os.path.join(out, f"phase2_{label}.json"), "w") as f:
         json.dump({"label": label, "tree": tree, "device": device,
                    "checks": checks, "serving": runs,
+                   "k2_digests": _k2_digests(),
                    "seconds": time.perf_counter() - t0}, f, default=str)
+
+
+def _k2_digests() -> dict:
+    """sha256 (16 hex digits) of K2's output and the four caches it
+    updates, on inputs made from seed 7 on the card: V2_LITE's decode row
+    (16 sequences of 1..4096 keys, 4 kv heads, group 4) and phase 4's
+    lengths (16..1056), through the package this process imported."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fd
+    b, kvh, g, s_max, hd = 16, 4, 4, 4096, 128
+    digests = {}
+    for label, (lo, hi) in (("v2_lite", (1, s_max)), ("serving", (16, 1056))):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        ints = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                            device="cuda", dtype=torch.int8)
+        scales = lambda *shape: torch.rand(*shape, generator=gen,
+                                           device="cuda") * 0.02 + 1e-3
+        cache = (ints(b, kvh, s_max, hd), scales(b, kvh, s_max),
+                 ints(b, kvh, s_max, hd), scales(b, kvh, s_max))
+        q = torch.randn(b, kvh * g, hd, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        new = (ints(b, kvh, hd), ints(b, kvh, hd), scales(b, kvh),
+               scales(b, kvh))
+        lens = np.random.default_rng(7).integers(lo, hi, endpoint=True,
+                                                 size=b)
+        out = fd.flash_decode_gqa_inplace(
+            q, *cache, *new, torch.from_numpy(lens.astype(np.int32)).cuda())
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        digests[label] = h.hexdigest()[:16]
+    return digests
 
 
 def _side(label: str) -> str:
@@ -118,6 +160,13 @@ def summary(out: str) -> list:
                 for r in checks:
                     rows.setdefault((name, r["shape"]), {}).setdefault(
                         side, []).append(r)
+    digests = {d["label"]: d.get("k2_digests") for side in sides
+               for d in runs[side]}
+    if all(digests.values()):
+        same = len({json.dumps(v, sort_keys=True)
+                    for v in digests.values()}) == 1
+        lines.append(f"K2 digests {'equal' if same else 'DIFFER'}: "
+                     f"{digests}")
     for (name, shape), by_side in rows.items():
         if len(by_side) < len(sides):
             continue

@@ -111,6 +111,59 @@ def test_live_route_needs_aligned_tensors():
     assert td.route(cache, cache, off, new) == "span"
 
 
+@pytest.mark.parametrize("hd,k_off,v_off,want", [
+    (128, 0, 0, "live"),
+    (128, 16, 0, "live"),       # 16 bytes into the buffer: still aligned
+    (128, 1, 0, "span"),        # TMA cannot read a cache off 16 bytes
+    (128, 0, 8, "span"),
+    (64, 0, 0, "span"),         # route "live" is built for head size 128
+])
+def test_read_route_by_head_size_and_alignment(hd, k_off, v_off, want):
+    """K5a's and K5b's route: "live" at head size 128 where TMA can read
+    both caches, else "span"; K2's adds its new rows' alignment."""
+    def cache(off):
+        n = 2 * 2 * 64 * hd
+        return torch.zeros(n + off, dtype=torch.int8)[off:].view(2, 2, 64, hd)
+    k_q, v_q = cache(k_off), cache(v_off)
+    assert td.read_route(k_q, v_q) == want
+    new = torch.zeros(2, 2, hd, dtype=torch.int8)
+    off = torch.zeros(2 * 2 * hd + 1, dtype=torch.int8)[1:].view(2, 2, hd)
+    assert td.route(k_q, v_q, new, new) == want
+    assert td.route(k_q, v_q, off, new) == "span"
+
+
+@pytest.mark.parametrize("plan", [None, ("live", 9), ("span", 128),
+                                  ("live", 4)])
+@pytest.mark.parametrize("state", [False, True])
+def test_read_plans_leave_a_cpu_tensor_on_the_plain_version(plan, state):
+    """``plan`` picks the kernel's route on the card; a CPU tensor runs
+    the plain version whatever the plan (even one the kernel would refuse):
+    one plain call, no launch, no plan counted, the plain result."""
+    rng = np.random.default_rng(7)
+    b, kvh, g, s_max, hd = 3, 2, 4, 64, 128
+    cache = [torch.from_numpy(x) for x in (
+        rng.integers(-127, 128, (b, kvh, s_max, hd), dtype=np.int8),
+        (rng.random((b, kvh, s_max)) * 0.02 + 1e-3).astype(np.float32),
+        rng.integers(-127, 128, (b, kvh, s_max, hd), dtype=np.int8),
+        (rng.random((b, kvh, s_max)) * 0.02 + 1e-3).astype(np.float32))]
+    q = torch.from_numpy(rng.normal(size=(b, kvh * g, hd)).astype(
+        np.float32)).to(torch.bfloat16)
+    lens = torch.tensor([0, 17, 64], dtype=torch.int32)
+    fn = td.flash_decode_gqa_state if state else td.flash_decode_gqa
+    plain = td.flash_decode_state_plain if state else td.flash_decode_plain
+    counter = td.STATE_COUNTER if state else td.READ_COUNTER
+    before = (counter.launches, counter.plain_calls, dict(counter.plans))
+    got = fn(q, *cache, lens, plan=plan)
+    assert (counter.launches, counter.plain_calls, counter.plans) == (
+        before[0], before[1] + 1, before[2])
+    want = plain(q, *cache, lens)
+    if state:
+        for x, y in zip(got, want):
+            assert torch.equal(x, y.reshape(x.shape))
+    else:
+        assert torch.equal(got, want.reshape(got.shape))
+
+
 def test_live_arrivals_are_kept_per_stream():
     """Route "live"'s arrival counts: one zeroed buffer per (device,
     stream), reused by the launches of that stream and grown when a launch

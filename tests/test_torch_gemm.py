@@ -250,12 +250,79 @@ def test_route_is_wgmma_where_tma_describes_both_operands(case, dtype,
     a = _stored((*lead, *((k, m) if a_t else (m, k))), td, off_a)
     b = _stored((*lead, *((n, k) if b_t else (k, n))), td, off_b)
     pitches = (m if a_t else k, k if b_t else n)
-    want = ("wgmma" if dtype != "f32" and k > 0 and off_a % 8 == 0
-            and off_b % 8 == 0 and all(p % 8 == 0 for p in pitches)
-            else "mma_tile")
+    # f32 takes route ffma where 16-byte loads can read both operands:
+    # aligned data and row pitches of whole 16-byte chunks (4 elements).
+    if dtype == "f32":
+        want = ("ffma" if off_a % 4 == 0 and off_b % 4 == 0
+                and all(p % 4 == 0 for p in pitches) else "mma_tile")
+    else:
+        want = ("wgmma" if k > 0 and off_a % 8 == 0 and off_b % 8 == 0
+                and all(p % 8 == 0 for p in pitches) else "mma_tile")
     assert route(a, b, layout) == want
     if case in ("aligned", "edges", "batch") and dtype != "f32":
         assert want == ("mma_tile" if case == "edges" and a_t else "wgmma")
+
+
+@pytest.mark.parametrize("offset,pitch,want", [
+    (0, 256, "ffma"),          # aligned, whole 16-byte row chunks
+    (4, 256, "ffma"),          # 16 bytes into the buffer: still aligned
+    (2, 256, "mma_tile"),      # 8 bytes off
+    (1, 256, "mma_tile"),
+    (0, 258, "mma_tile"),      # a row pitch of 1032 bytes
+    (0, 4, "ffma"),
+])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "tt"])
+def test_f32_route_is_ffma_where_16_byte_loads_read_both(offset, pitch,
+                                                         want, layout):
+    """f32 takes route ffma where 16-byte cp.async can read both stored
+    operands (16-byte aligned data, stored last dims that are multiples of
+    4), else mma_tile; the offset and the stored last dim here are A's (and
+    B's where it is stored (n, k)); 16-bit or mixed operands never take
+    it."""
+    a_t, b_t = layout[0] == "t", layout[1] == "t"
+    k = 64 if a_t else pitch
+    a = _stored((k, pitch) if a_t else (64, pitch), torch.float32, offset)
+    b = _stored((96, k) if b_t else (k, 96), torch.float32, 0)
+    assert route(a, b, layout) == want
+    assert route(a.to(torch.bfloat16), b.to(torch.bfloat16), layout) != "ffma"
+    assert route(a, b.to(torch.bfloat16), layout) == "mma_tile"
+
+
+@pytest.mark.parametrize("rt", [None, "mma_tile", "ffma", "wgmma"])
+@pytest.mark.parametrize("ksplit", [False, True])
+def test_a_cpu_tensor_runs_the_plain_version_whatever_the_route(rt, ksplit):
+    """On the CPU K10's and K11's wrappers run their plain versions
+    whatever route is asked for: no launch, no route counted."""
+    from deepgemm_ascend_tpu_torch.ops.gemm import (gemm_ksplit_plain,
+                                                    gemm_plain)
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.normal(size=(16, 640)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(640, 96)).astype(np.float32))
+    cfg = (GemmConfig(kernel_type=KernelType.KSPLIT, k_split=4) if ksplit
+           else GemmConfig())
+    counter = K11 if ksplit else K10
+    before = (counter.launches, counter.plain_calls, dict(counter.plans))
+    got = tdga.gemm_with_config(a, b, config=cfg, plan=rt)
+    assert (counter.launches, counter.plain_calls, counter.plans) == (
+        before[0], before[1] + 1, before[2])
+    want = gemm_ksplit_plain(a, b, 4) if ksplit else gemm_plain(a, b)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("entry", ["gemm", "gemm_with_config", "bgemm"])
+def test_an_unknown_plan_is_refused_before_any_product(entry):
+    """``plan`` names one of ``ROUTES``; another name raises, on the CPU
+    too, before the plain version runs."""
+    a = torch.ones(2, 16, 32)
+    b = torch.ones(2, 32, 8)
+    before = (K10.launches, K10.plain_calls)
+    call = {"gemm": lambda: tdga.gemm(a[0], b[0], plan="tf32"),
+            "gemm_with_config": lambda: tdga.gemm_with_config(
+                a[0], b[0], config=GemmConfig(), plan="tf32"),
+            "bgemm": lambda: tdga.bgemm(a, b, plan="tf32")}[entry]
+    with pytest.raises(ValueError, match="plan must be one of"):
+        call()
+    assert (K10.launches, K10.plain_calls) == before
 
 
 @pytest.mark.parametrize("m,n,k", [(16, 2048, 11008), (16, 512, 2048),

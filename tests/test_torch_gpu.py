@@ -35,13 +35,14 @@ from deepgemm_ascend_tpu_torch.ops import _kernels, quant
 from deepgemm_ascend_tpu_torch.ops import fp8_gemm as fp8mod
 from deepgemm_ascend_tpu_torch.ops import grouped_gemm as ggmod
 from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8mod
-from deepgemm_ascend_tpu_torch.ops.flash_common import (output_close,
+from deepgemm_ascend_tpu_torch.ops.flash_common import (PV_ROUNDING,
+                                                        output_close,
                                                         state_close)
 from deepgemm_ascend_tpu_torch.ops.flash_decode import (
     flash_decode_gqa_inplace, flash_decode_inplace_plain, merge_current_token)
 from deepgemm_ascend_tpu_torch.ops.flash_prefill import (
     flash_prefill_gqa, flash_prefill_plain)
-from deepgemm_ascend_tpu_torch.ops.gemm import (bgemm, gemm,
+from deepgemm_ascend_tpu_torch.ops.gemm import (ROUTES, bgemm, gemm,
                                                 gemm_ksplit_plain,
                                                 gemm_plain, gemm_with_config,
                                                 ksplit_partials_plain, route,
@@ -1149,6 +1150,167 @@ def test_bgemm_kernel_matches_plain(dev, ksplit):
             assert_gemm_close(got[i, j], ref[i, j], a[i, j], b[i, j])
 
 
+# ---- K10 and K11 on the ffma route (f32 on the CUDA cores)
+
+# Shapes of each ffma tile: m <= 16 (16 x 128), the 64 x 64 tile (m, n
+# off its edges; k = 1000 and 72 not whole 16-deep steps) and the 128 x 128
+# tile (108 of them: the grid fills the card), every stored pitch a
+# multiple of 4 (m too: A stored (k, m) in tn and tt).
+FFMA_SHAPES = [(4, 256, 512), (16, 2048, 1000), (200, 136, 1000),
+               (68, 260, 72), (1100, 1420, 516)]
+
+
+def _k10_route(a_in, b_in, layout, out_dtype, rt=None, config=None):
+    """K10 through its wrapper (``bgemm`` for a batch) on route ``rt``
+    (None: its own), and the route its counter counted for the launch."""
+    k10 = _kernels.COUNTERS["gemm"]
+    k10.plans.clear()
+    cfg = config or GemmConfig()
+    if a_in.dim() > 2:
+        got = bgemm(a_in, b_in, config=cfg, out_dtype=out_dtype, plan=rt)
+    else:
+        got = gemm_with_config(a_in, b_in, config=cfg, layout=layout,
+                               out_dtype=out_dtype, plan=rt)
+    return got, list(k10.plans)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn", "tt"])
+@pytest.mark.parametrize("mnk", FFMA_SHAPES)
+def test_gemm_ffma_route_equals_mma_tile_bit_for_bit(dev, mnk, layout,
+                                                     out_dtype):
+    """f32 operands that 16-byte loads can read take route ffma, which
+    sums every output in the f32 mma_tile route's one order: equal bit for
+    bit in every layout and output type, and within the plain product's
+    tolerance."""
+    m, n, k = mnk
+    a_in, b_in, a, b = _dense(m, n, k, torch.float32, layout, dev, seed=m + k)
+    assert route(a_in, b_in, layout) == "ffma"
+    got, plans = _k10_route(a_in, b_in, layout, out_dtype)
+    old, old_plans = _k10_route(a_in, b_in, layout, out_dtype, rt="mma_tile")
+    ref = gemm_plain(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (plans, old_plans) == (["ffma"], ["mma_tile"])
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, old)
+    assert_gemm_close(got, ref, a, b)
+
+
+@pytest.mark.parametrize("swizzle", [SwizzleDir.M_MAJOR, SwizzleDir.N_MAJOR])
+def test_gemm_ffma_route_batch_and_raster(dev, swizzle):
+    """bgemm over a batch of 3 (grid z) on route ffma, and both rasters
+    over the 128 x 128 tile's bands: bit-equal to route mma_tile."""
+    g = _gen(60, dev)
+    a = torch.randn(3, 200, 1000, generator=g, device=dev)
+    b = torch.randn(3, 1000, 136, generator=g, device=dev)
+    cfg = GemmConfig(swizzle=swizzle)
+    got, plans = _k10_route(a, b, "nn", torch.float32, config=cfg)
+    old, _ = _k10_route(a, b, "nn", torch.float32, rt="mma_tile", config=cfg)
+    a2 = torch.randn(17 * 128, 512, generator=g, device=dev)
+    b2 = torch.randn(512, 7 * 128 + 4, generator=g, device=dev)
+    got2, plans2 = _k10_route(a2, b2, "nn", torch.float32, config=cfg)
+    old2, _ = _k10_route(a2, b2, "nn", torch.float32, rt="mma_tile")
+    torch.cuda.synchronize()
+    assert plans == plans2 == ["ffma"]
+    assert torch.equal(got, old) and torch.equal(got2, old2)
+    for i in range(3):
+        assert_gemm_close(got[i], gemm_plain(a[i], b[i]), a[i], b[i])
+
+
+@pytest.mark.parametrize("k_split,k", [(4, 2048), (3, 1000), (4, 320),
+                                       (4, 576), (8, 11008)])
+@pytest.mark.parametrize("m,n", [(16, 2048), (200, 136)])
+def test_gemm_ksplit_ffma_route_equals_mma_tile(dev, k_split, k, m, n):
+    """K11 on route ffma: every f32 partial equal bit for bit to route
+    mma_tile's, an empty last split (k = 320: 5 blocks in 4 splits of 2;
+    k = 576: 9 in 4 of 3) all zeros, each written over a NaN-filled
+    buffer; through the wrapper the summed output equal too, and within
+    the plain version's tolerance."""
+    a, b, _, _ = _dense(m, n, k, torch.float32, "nn", dev, seed=k + m)
+    assert route(a, b) == "ffma"
+    ranges = split_ranges(k, k_split)
+    entry = _kernels.entry("gemm_ksplit")
+    stream = _kernels.stream_ptr(dev)
+    parts = {}
+    for rt in ("ffma", "mma_tile"):
+        parts[rt] = torch.full((k_split, m, n), float("nan"), device=dev)
+        rc = entry(a.data_ptr(), b.data_ptr(), parts[rt].data_ptr(), 1, m, n,
+                   k, k_split, ranges[0][1], 0, ROUTES.index(rt),
+                   stream)
+        _kernels.check(rc, "gemm_ksplit")
+    cfg = GemmConfig(kernel_type=KernelType.KSPLIT, k_split=k_split)
+    k11 = _kernels.COUNTERS["gemm_ksplit"]
+    k11.plans.clear()
+    got = gemm_with_config(a, b, config=cfg)
+    old = gemm_with_config(a, b, config=cfg, plan="mma_tile")
+    ref = gemm_ksplit_plain(a, b, k_split)
+    torch.cuda.synchronize()
+    assert k11.plans == {"ffma": 1, "mma_tile": 1}
+    assert torch.equal(parts["ffma"], parts["mma_tile"])
+    for s, (lo, hi) in enumerate(ranges):
+        if lo == hi:
+            assert bool((parts["ffma"][s] == 0).all())
+    assert torch.equal(got, old)
+    assert_gemm_close(got, ref, a, b)
+
+
+def test_bgemm_ksplit_ffma_route_equals_mma_tile(dev):
+    """bgemm with KSPLIT over a batch of 3 on route ffma: one launch,
+    grid z batch x splits, equal to route mma_tile bit for bit."""
+    g = _gen(61, dev)
+    a = torch.randn(3, 16, 1088, generator=g, device=dev)
+    b = torch.randn(3, 1088, 200, generator=g, device=dev)
+    cfg = GemmConfig(kernel_type=KernelType.KSPLIT, k_split=4)
+    k11 = _kernels.COUNTERS["gemm_ksplit"]
+    before = k11.launches
+    got = bgemm(a, b, config=cfg)
+    old = bgemm(a, b, config=cfg, plan="mma_tile")
+    torch.cuda.synchronize()
+    assert k11.launches == before + 2
+    assert torch.equal(got, old)
+    for i in range(3):
+        assert_gemm_close(got[i], gemm_ksplit_plain(a[i], b[i], 4), a[i],
+                          b[i])
+
+
+def test_gemm_entries_refuse_a_route_they_cannot_take(dev):
+    """Route ffma takes f32 alone, 16-byte aligned bases and row pitches of
+    whole 16-byte chunks; route wgmma 16-bit operands alone; no entry knows
+    route 3. Each refusal is cudaErrorInvalidValue (1) and launches
+    nothing; the wrapper raises, with no other route tried."""
+    g = _gen(62, dev)
+    a = torch.randn(64, 256, generator=g, device=dev)
+    b = torch.randn(256, 128, generator=g, device=dev)
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    off = torch.randn(64 * 256 + 1, generator=g, device=dev)[1:].view(64, 256)
+    odd = torch.randn(256, 130, generator=g, device=dev)
+    assert route(off, b) == route(a, odd) == "mma_tile"
+    out = torch.zeros(64, 130, device=dev)
+    k10 = _kernels.entry("gemm")
+    stream = _kernels.stream_ptr(dev)
+
+    def call(x, y, n, in_code, rt):
+        return k10(x.data_ptr(), y.data_ptr(), out.data_ptr(), 1, 64, n, 256,
+                   0, 0, in_code, 0, 0, rt, stream)
+
+    assert call(a16, b16, 128, 1, 2) == 1           # ffma: 16-bit
+    assert call(off, b, 128, 0, 2) == 1             # ffma: A off 16 bytes
+    assert call(a, odd, 130, 0, 2) == 1             # ffma: pitch 130
+    assert call(a, b, 128, 0, 1) == 1               # wgmma: f32
+    assert call(a, b, 128, 0, 3) == 1               # no route 3
+    k11 = _kernels.entry("gemm_ksplit")
+    parts = torch.zeros(4, 64, 128, device=dev)
+    assert k11(a16.data_ptr(), b16.data_ptr(), parts.data_ptr(), 1, 64, 128,
+               256, 4, 64, 1, 2, stream) == 1
+    assert k11(a.data_ptr(), b.data_ptr(), parts.data_ptr(), 1, 64, 128, 256,
+               4, 64, 0, 3, stream) == 1
+    torch.cuda.synchronize()
+    assert not out.any() and not parts.any()
+    with pytest.raises(RuntimeError, match="dga_gemm"):
+        gemm_with_config(off, b, config=GemmConfig(), plan="ffma")
+
+
 def _contiguous_operands(block_m, b_t, dev, seed):
     e, n, k = 3, 256, 384
     _, gids, _ = ggmod.make_contiguous_layout([70, 0, 130], block_m)
@@ -1539,18 +1701,18 @@ def _abs_v(cache):
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("split_keys", [128, 512])
 def test_flash_decode_read_and_state_kernels_match_plain(dev, g, split_keys,
-                                                         hd, monkeypatch):
-    """K5a and K5b over lengths 0 (empty), ragged, on a span edge, S, and
-    past S (clamped)."""
+                                                         hd):
+    """K5a and K5b on route "span" (spans of ``split_keys`` keys) over
+    lengths 0 (empty), ragged, on a span edge, S, and past S (clamped)."""
     from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
-    monkeypatch.setattr(fdmod, "SPLIT_KEYS", split_keys)
     b, kvh, s_max = 5, 2, 320
     cache = _cache(b, kvh, s_max, hd, dev, 21)
     q = _decode_query(b, kvh, g, hd, dev, 22)
     lens = torch.tensor([0, 77, 256, s_max, s_max + 9], dtype=torch.int32,
                         device=dev)
-    out = fdmod.flash_decode_gqa(q, *cache, lens)
-    state = fdmod.flash_decode_gqa_state(q, *cache, lens)
+    plan = ("span", split_keys)
+    out = fdmod.flash_decode_gqa(q, *cache, lens, plan=plan)
+    state = fdmod.flash_decode_gqa_state(q, *cache, lens, plan=plan)
     clamped = lens.clamp(max=s_max)
     ref = fdmod.flash_decode_plain(q, *cache, clamped).reshape(b, kvh * g, hd)
     ref_state = [x.reshape(b, kvh * g, *x.shape[3:]) for x in
@@ -1596,6 +1758,140 @@ def test_flash_decode_read_and_state_agree_with_inplace(dev, g, hd):
     torch.cuda.synchronize()
     assert float((read - want).abs().max()) < 2e-3
     assert float((merged - want).abs().max()) < 2e-3
+
+
+@pytest.mark.parametrize("blocks", [None, "heads+1", 64])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_flash_decode_read_live_equals_k2_live(dev, g, blocks):
+    """K5a and K5b on route "live" (their own at head size 128, on the
+    grid of live_blocks, on one spare block, or on 64 blocks): K5a over the
+    cache K2 just wrote, at K2's lengths and grid, equals K2's output bit
+    for bit; K5b's acc / l equals K5a's output bit for bit where l > 0,
+    and an empty sequence's state is exactly (0, -1e30, 0); both agree
+    with their plain versions per element, and with route "span" within
+    the two routes' contracts summed.
+    Lengths: empty, one token, a chunk's edges, ragged, S and past S."""
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
+    b, kvh, s_max, hd = 7, 2, 320, 128
+    cache = _cache(b, kvh, s_max, hd, dev, 63)
+    q = _decode_query(b, kvh, g, hd, dev, 64)
+    gen = _gen(65, dev)
+    new = (torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                         dtype=torch.int8),
+           torch.randint(-127, 128, (b, kvh, hd), generator=gen, device=dev,
+                         dtype=torch.int8),
+           torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3,
+           torch.rand(b, kvh, generator=gen, device=dev) * 0.02 + 1e-3)
+    lens = torch.tensor([0, 1, 64, 65, 200, s_max, s_max + 3],
+                        dtype=torch.int32, device=dev)
+    grid = {None: fdmod.live_blocks(b, kvh, s_max, 132),
+            "heads+1": b * kvh + 1, 64: 64}[blocks]
+    plan = None if blocks is None else ("live", grid)
+    written = [t.clone() for t in cache]
+    k2 = fdmod._launch_inplace(q, *written, *new, lens,
+                               plan=("live", grid))[0]
+    read_c, state_c = fdmod.READ_COUNTER, fdmod.STATE_COUNTER
+    read_c.plans.clear()
+    state_c.plans.clear()
+    read = fdmod.flash_decode_gqa(q, *written, lens, plan=plan)
+    acc, m, l = fdmod.flash_decode_gqa_state(q, *written, lens, plan=plan)
+    plans = (list(read_c.plans), list(state_c.plans))
+    span = fdmod.flash_decode_gqa(q, *written, lens, plan=("span", 128))
+    span_state = fdmod.flash_decode_gqa_state(q, *written, lens,
+                                              plan=("span", 128))
+    clamped = lens.clamp(max=s_max)
+    ref = fdmod.flash_decode_plain(q, *written, clamped).reshape(
+        b, kvh * g, hd)
+    ref_state = [x.reshape(b, kvh * g, *x.shape[3:]) for x in
+                 fdmod.flash_decode_state_plain(q, *written, clamped)]
+    pv = fdmod.flash_decode_plain(q, *_abs_v(written), clamped).reshape(
+        b, kvh * g, hd)
+    pv_state = fdmod.flash_decode_state_plain(q, *_abs_v(written), clamped)[
+        0].reshape(b, kvh * g, hd)
+    torch.cuda.synchronize()
+    assert plans == ([f"live/{grid}"], [f"live/{grid}"])
+    assert torch.equal(read, k2)
+    live = l > 0
+    assert torch.equal((acc / torch.where(live, l, torch.ones_like(l))[
+        ..., None])[live], read[live])
+    assert not live[0].any() and live[1:].all()
+    assert bool((m[0] == -1e30).all()) and not acc[0].any()
+    assert output_close(read, ref, pv)
+    assert state_close((acc, m, l), ref_state, pv_state)
+    # Against route "span": each route is within its per-element contract
+    # of the plain version (output_close), so the two are within the sum
+    # of both contracts of each other (a few keys' rows may pass 2e-3).
+    span_l = span_state[2]
+    span_out = span_state[0] / torch.where(span_l > 0, span_l,
+                                           torch.ones_like(span_l))[..., None]
+    both = 2 * (PV_ROUNDING * pv + 1e-4 * ref.abs())
+    assert bool(((read - span).abs() <= both).all())
+    assert bool(((read - span_out).abs() <= both).all())
+
+
+def test_flash_decode_read_routes_by_head_size(dev):
+    """K5a's and K5b's own route: "live" on its grid at head size 128,
+    "span" on SPLIT_KEYS keys at 64 and where a cache is off 16 bytes."""
+    from deepgemm_ascend_tpu_torch.ops import flash_decode as fdmod
+    b, kvh, g, s_max = 3, 2, 4, 256
+    lens = torch.tensor([5, 100, 256], dtype=torch.int32, device=dev)
+    for hd, want in ((128, f"live/{fdmod.live_blocks(b, kvh, s_max, 132)}"),
+                     (64, f"span/{fdmod.SPLIT_KEYS}")):
+        cache = _cache(b, kvh, s_max, hd, dev, 66)
+        q = _decode_query(b, kvh, g, hd, dev, 67)
+        for fn, counter in ((fdmod.flash_decode_gqa, fdmod.READ_COUNTER),
+                            (fdmod.flash_decode_gqa_state,
+                             fdmod.STATE_COUNTER)):
+            counter.plans.clear()
+            fn(q, *cache, lens)
+            assert list(counter.plans) == [want], hd
+    k_q, k_s, v_q, v_s = _cache(b, kvh, s_max, 128, dev, 68)
+    flat = torch.zeros(k_q.numel() + 1, dtype=torch.int8, device=dev)
+    off = flat[1:].view(k_q.shape)
+    off.copy_(k_q)
+    assert fdmod.read_route(off, v_q) == "span"
+    assert fdmod.read_route(k_q, v_q) == "live"
+
+
+def test_flash_decode_read_entries_refuse_what_they_cannot_run(dev):
+    """K5a's and K5b's entries: route "live" refuses head size 64, a grid
+    of no more blocks than (batch, kv head)s, no arrival counts, and (K5b)
+    no m or l; no entry knows route 2. Each refusal launches nothing."""
+    b, kvh, g, s_max = 2, 2, 4, 128
+    stream = _kernels.stream_ptr(dev)
+    lens = torch.full((b,), 100, dtype=torch.int32, device=dev)
+    arrivals = torch.zeros(b * kvh, dtype=torch.int32, device=dev)
+    outs = []
+    for hd in (128, 64):
+        k_q, k_s, v_q, v_s = _cache(b, kvh, s_max, hd, dev, 69)
+        q = _decode_query(b, kvh, g, hd, dev, 70)
+        part = torch.zeros(64 * g * (hd + 2), device=dev)
+        out = torch.zeros(b, kvh, g, hd, device=dev)
+        m = torch.zeros(b, kvh, g, device=dev)
+        l = torch.zeros_like(m)
+        outs += [out, m, l]
+        head = (q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+                v_s.data_ptr(), lens.data_ptr(), part.data_ptr(),
+                out.data_ptr())
+
+        def read(rt, split, arr=arrivals.data_ptr()):
+            return _kernels.entry("flash_decode_read")(
+                *head, arr, b, kvh, g, s_max, hd, rt, split, 0.1, stream)
+
+        def state(rt, split, m_ptr=m.data_ptr()):
+            return _kernels.entry("flash_decode_state")(
+                *head, m_ptr, l.data_ptr(), arrivals.data_ptr(), b, kvh, g,
+                s_max, hd, rt, split, 0.1, stream)
+
+        if hd == 64:
+            assert read(1, 16) == 1 and state(1, 16) == 1
+            continue
+        assert read(1, b * kvh) == 1 and state(1, b * kvh) == 1
+        assert read(1, 16, arr=None) == 1
+        assert state(1, 16, m_ptr=None) == 1
+        assert read(2, 16) == 1 and state(2, 16) == 1
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in outs) and not arrivals.any()
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)

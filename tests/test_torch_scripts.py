@@ -308,6 +308,27 @@ def test_phase2_ab_summary(tmp_path, capsys):
     assert "live_kernel 0.125 ms/8" in step and "elementwise" not in step
 
 
+@pytest.mark.parametrize("change_digest,want", [("ab", "equal"),
+                                                 ("cd", "DIFFER")])
+def test_phase2_ab_summary_compares_k2_digests(tmp_path, capsys,
+                                               change_digest, want):
+    """Where every run kept K2's digests, the summary says whether they
+    are all equal (the two commits' K2 gave the same bits); where one did
+    not, it prints no digest line."""
+    for label, digest in (("parent1", "ab"), ("change1", change_digest)):
+        run = _ab_run(label, 0.05, 0.08, 6.0, "live::live_kernel")
+        run["k2_digests"] = {"v2_lite": digest, "serving": "ef"}
+        (tmp_path / f"phase2_{label}.json").write_text(json.dumps(run))
+    assert phase2_ab.main(["--out", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[1].startswith(f"K2 digests {want}: ")
+    (tmp_path / "phase2_change2.json").write_text(json.dumps(
+        _ab_run("change2", 0.05, 0.08, 6.0, "live::live_kernel")))
+    assert phase2_ab.main(["--out", str(tmp_path)]) == 0
+    assert not any(ln.startswith("K2 digests")
+                   for ln in capsys.readouterr().out.splitlines())
+
+
 def test_k8_ablation_swaps_only_k8_entry():
     """K8's ablation runs its variants through the package's K8 wrapper by
     swapping that one C entry for the duration, then puts it back."""
