@@ -205,10 +205,40 @@ Phases, each of which raises on failure (exit code ≠ 0):
    through the selector's tier 2 as well; the C++ host core
    (``native.py``, built with g++) equal to the Python tiling on a grid;
    and the host µs of K1's selection at the decode path's shapes, the
-   tiers' and the wrapper's memoised one (``selection_host_cost``).
+   tiers' and the wrapper's memoised one (``selection_host_cost``);
+9. the loader, the golden and quality scripts, and sharded serving: (a)
+   ``models.load_params`` of a synthetic HF checkpoint (numpy, from a
+   seed) at V2_LITE's widths, cut to 2 layers for time, on the card and
+   byte-equal to the same loader on the CPU, its logits through the
+   kernels within the phase-3 bound of the same parameters under
+   ``exact_mode``, and the ``save_quantized`` / ``load_quantized`` round
+   trip bit for bit; (b) ``scripts/gen_golden`` at 2048³ in fp16 and
+   bf16, the inputs through K10 into a file that ``verify_output`` must
+   pass against the golden, and the ``torch_matmul`` cross-check; (c)
+   ``scripts/eval_quality --model v2_lite`` (24 steps, batch 4) with fp8
+   and int8 experts, ``ok`` required; (d) a 1-rank NCCL group joined
+   through a ``file://`` store in this process (destroyed at the end):
+   phase 4's requests through ``Engine(mesh=make_mesh(1, 1, 1))``, fp8 at
+   ``decode_chunk`` 1 and 8 and int8 at 1, tokens and final caches equal
+   to phase 4's bit for bit, exactly phase 4's kernels on their routes and
+   no plain call; then 16 of the requests (16 new tokens), the reference
+   of (e), and those tokens fed back through the sharded prefill and
+   decode steps (teacher-forced); (e) four ``spawn``ed processes joined
+   over gloo, their tensors on the one card, serving the same 16 requests
+   through the unmodified engine on the meshes (1,4,1), (1,1,4) (kv heads
+   sharded congruently) and (2,2,1): rank 0's decode step from empty
+   caches within 1e-6 rel-L2 of (d)'s (tp = dp = 1) or 0.02 (JAX's bounds
+   for that step), every rank's tokens identical, each rank's launches
+   (exactly the fp8 serving kernels, no plain call) and decode tok/s
+   (gloo ranks sharing one card: a harness check, not a scaling figure);
+   teacher-forced with (d)'s tokens, the prefill's logits and every decode
+   step's (which read the caches merged over "data") within the phase-3
+   bound of (d)'s, and rank 0's served tokens equal to (d)'s or parting
+   where those logits' differences explain it.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
-kernel's launches through its wrapper in phases 4 to 8 (``launches``), the
+kernel's launches through its wrapper in phases 4 to 9 (``launches``; in
+phase 9 (e) the four ranks' launches summed), the
 launches of its bare C entry there (``bare_launches``: P0's dispatch
 floor times ``raw_launch``'s entry, which no wrapper counts) and its
 phase-2 numbers, then one entry per compiled tile variant (``"<kernel>
@@ -221,16 +251,20 @@ report there as JSON.
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
+import multiprocessing as mp
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deepgemm_ascend_tpu_torch import compat, select_config
 from deepgemm_ascend_tpu_torch.bench import prefill_profile
@@ -243,7 +277,9 @@ from deepgemm_ascend_tpu_torch.models import (V2_LITE, V2_LITE_FULL,
                                               V3_STYLE, KVCache,
                                               decode_step, forward,
                                               init_cache, init_params,
-                                              params_with_int8_experts)
+                                              load_params, load_quantized,
+                                              params_with_int8_experts,
+                                              save_quantized)
 from deepgemm_ascend_tpu_torch.models import moe as moemod
 from deepgemm_ascend_tpu_torch.models.layers import BF16Linear
 from deepgemm_ascend_tpu_torch.models.moe import dispatch_masked, route_topk
@@ -266,6 +302,10 @@ from deepgemm_ascend_tpu_torch.parallel import (ring_attention_prefill,
                                                 ring_flash_prefill,
                                                 zigzag_inverse, zigzag_order)
 from deepgemm_ascend_tpu_torch.parallel import ring_attention as ringmod
+from deepgemm_ascend_tpu_torch.parallel import make_mesh
+from deepgemm_ascend_tpu_torch.parallel import sharded as shardmod
+from deepgemm_ascend_tpu_torch.scripts import (eval_quality, gen_golden,
+                                               torch_matmul, verify_output)
 from deepgemm_ascend_tpu_torch.scripts import (headline, layer_bench,
                                                prefill_sweep, profile_kernel,
                                                serve_bench, straggler_probe)
@@ -305,10 +345,13 @@ F32_SIBLING_TOL = 1e-5
 # scale or layout moves them by O(1).
 MODEL_REL_L2_TOL = 0.25
 # Phase 4's prefix cache, warm vs cold admission first-token logits: the
-# same rows through K1 in other split plans (16384- and 256-row forwards);
-# about 3x the 0.0161 read on an H100. A wrong suffix start or row copy
-# moves them by O(1).
-PREFIX_REL_L2_TOL = 0.05
+# same rows through K1 in other split plans (16384- and 256-row forwards),
+# two card paths that round differently. About 1.5x the largest distance
+# that scripts/prefix_spread.py measures on an H100 over system prompts
+# from 24 seeds (0.1084, seed 18; phase 4's own prompt, seed 3, 0.083);
+# the 0.05 this bound once was, 3x a single reading, is below that. A
+# wrong suffix start or row copy moves them by O(1).
+PREFIX_REL_L2_TOL = 0.16
 FLOOR_FLIP_RATE = 1e-2
 # Σ of an expert-parallel block's shards vs the whole block, f32 outputs:
 # the same products, a token's ≤ top_k terms added in another order.
@@ -2243,6 +2286,7 @@ def phase_serving(device: dict, experts: str) -> dict:
         raise RuntimeError("serving: token out of range")
     expected = FP8_PATH if experts == "fp8" else INT8_PATH
     check_path(f"serving ({experts})", counts, expected, plans)
+    digest = cache_digest(eng)
     profile = _profile_decode_step(eng)
     prefill = _profile_prefill_forward(eng)
     return {"run": experts, "wall_s": wall, "setup_s": setup_s,
@@ -2251,7 +2295,8 @@ def phase_serving(device: dict, experts: str) -> dict:
             "decode_tok_s": eng.tokens_per_second,
             "decode_steps": st["decode_steps"],
             "prefill_tokens": st["prefill_tokens"], "peak_gib": peak_gb,
-            "counts": counts, "plans": plans, "outputs": outs}
+            "counts": counts, "plans": plans, "outputs": outs,
+            "cache_sha256": digest}
 
 
 def phase_features(device: dict, experts: str, plain_outs) -> list:
@@ -2286,6 +2331,16 @@ def restore_state(eng: Engine, state) -> None:
             getattr(c, n).copy_(t)
     eng.seq_lens.copy_(lens)
     eng.last_tokens.copy_(last)
+
+
+def cache_digest(eng: Engine) -> str:
+    """sha256 over every cache tensor's bytes of an engine, on the host."""
+    h = hashlib.sha256()
+    for c in eng.caches:
+        for n in engine_mod._CACHE_FIELDS:
+            h.update(getattr(c, n).contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
 
 
 def _profiled_device_ms(fn) -> tuple:
@@ -2413,6 +2468,7 @@ def phase_chunked(device: dict, experts: str, params, prompts,
             any(n % CHUNK for n, _ in graph.values()):
         raise RuntimeError(f"the captured chunk: launches {graph}, not "
                            f"each kernel's per-step launches x {CHUNK}")
+    digest = cache_digest(eng)
     replay = check_chunk_replay(eng)
     return {"run": f"{experts} chunk {CHUNK}", "wall_s": wall,
             "prefill_tok_s": prefill_tps,
@@ -2422,7 +2478,7 @@ def phase_chunked(device: dict, experts: str, params, prompts,
             "graph_capture_s": st["graph_capture_s"], "utilization": util,
             "peak_gib": peak_gb, "outputs_equal_chunk1": same,
             "graph_launches": graph, "counts": counts, "plans": plans,
-            "replay": replay}
+            "replay": replay, "outputs": outs, "cache_sha256": digest}
 
 
 def phase_prefix(device: dict, params) -> dict:
@@ -3879,6 +3935,504 @@ def phase_tiling(device: dict) -> dict:
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 9
+
+# (a) The loader at V2_LITE's widths, cut to 2 layers (1 dense + 1 MoE) for
+# time; (b) the golden files' GEMM; (c) eval_quality's decode steps and
+# batch; (d)/(e) the mesh runs' requests and new tokens, the meshes of the
+# four ranks sharing the card, and their first-decode-step bounds: JAX's
+# for tp = 1 meshes (tests/test_parallel.py:105) and for tp > 1 or dp > 1
+# (:69).
+LOADER_CFG = dataclasses.replace(V2_LITE, num_layers=2)
+GOLDEN_SIZE = 2048
+QUALITY_ARGS = ["--model", "v2_lite", "--steps", "24", "--batch", "4"]
+MESH_REQUESTS = 16
+MESH_NEW = 16
+MESH_RANKS = 4
+MESH_SHAPES = ((1, 4, 1), (1, 1, 4), (2, 2, 1))
+MESH_TP1_REL_L2 = 1e-6
+MESH_REL_L2 = 0.02
+MESH_JOIN_S = 600
+MESH_SEQ = 2048          # the teacher-forced runs' cache: prompts ≤ 1024
+
+
+def hf_state(cfg, seed: int) -> dict:
+    """A synthetic HF checkpoint of ``cfg`` (numpy, from ``seed``): torch
+    ``(out, in)`` Linear weights N(0, 0.02²), unit norms."""
+    rng = np.random.default_rng(seed)
+    h = cfg.hidden_size
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    s = {"model.embed_tokens.weight": w(cfg.vocab_size, h),
+         "model.norm.weight": np.ones((h,), np.float32),
+         "lm_head.weight": w(cfg.vocab_size, h)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        s[p + "input_layernorm.weight"] = np.ones((h,), np.float32)
+        s[p + "post_attention_layernorm.weight"] = np.ones((h,), np.float32)
+        for name, out, inp in (("q", cfg.q_dim, h), ("k", cfg.kv_dim, h),
+                               ("v", cfg.kv_dim, h), ("o", h, cfg.q_dim)):
+            s[p + f"self_attn.{name}_proj.weight"] = w(out, inp)
+        if i < cfg.first_dense_layers:
+            mlps = [("mlp.", cfg.dense_intermediate)]
+        else:
+            s[p + "mlp.gate.weight"] = w(cfg.num_experts, h)
+            mlps = [(f"mlp.experts.{j}.", cfg.moe_intermediate)
+                    for j in range(cfg.num_experts)]
+            mlps.append(("mlp.shared_experts.",
+                         cfg.moe_intermediate * cfg.num_shared_experts))
+        for pre, inter in mlps:
+            s[p + pre + "gate_proj.weight"] = w(inter, h)
+            s[p + pre + "up_proj.weight"] = w(inter, h)
+            s[p + pre + "down_proj.weight"] = w(h, inter)
+    return s
+
+
+def _tensors(obj, path=""):
+    """(path, tensor) of every tensor in a parameter tree."""
+    if isinstance(obj, torch.Tensor):
+        yield path, obj
+    elif isinstance(obj, list):
+        for i, o in enumerate(obj):
+            yield from _tensors(o, f"{path}[{i}]")
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name), f"{path}.{f.name}")
+
+
+def _unequal_tensors(a, b) -> list:
+    """The paths where two parameter trees differ in dtype, shape or a
+    byte."""
+    ta, tb = dict(_tensors(a)), dict(_tensors(b))
+    if ta.keys() != tb.keys():
+        return sorted(ta.keys() ^ tb.keys())
+    return [k for k, x in ta.items()
+            if x.dtype != tb[k].dtype or x.shape != tb[k].shape
+            or not torch.equal(x.contiguous().view(torch.uint8).cpu(),
+                               tb[k].contiguous().view(torch.uint8).cpu())]
+
+
+def check_loader(device: dict) -> dict:
+    """(a) ``load_params`` of a synthetic HF checkpoint at V2_LITE's widths
+    (2 layers) on the card, byte-equal to the same loader on the CPU; the
+    loaded model's logits through the kernels (a 256-token prefill and 8
+    decode steps) against the same parameters under ``exact_mode`` (the
+    fp8 GEMMs as exact f32 products) within the phase-3 bound; and the
+    ``save_quantized`` / ``load_quantized`` round trip bit for bit."""
+    cfg = LOADER_CFG
+    t0 = time.perf_counter()
+    state = hf_state(cfg, 15)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = load_params(state, cfg, device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    unequal = _unequal_tensors(card, load_params(state, cfg, device="cpu"))
+    n_tensors = len(dict(_tensors(card)))
+    del state
+    rng = np.random.default_rng(16)
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, 256)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab_size, size=8)
+    _kernels.reset_counters()
+    kern = _model_logits(card, cfg, DEV, prompt, steps)
+    counts = counts_now()
+    with fp8mod.exact_mode():
+        exact = _model_logits(card, cfg, DEV, prompt, steps)
+    errs = [relative_l2_error(a.numpy(), b.numpy())
+            for a, b in zip(kern, exact)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "quantized.pt")
+        t0 = time.perf_counter()
+        save_quantized(card, path)
+        back = load_quantized(path, cfg, device=DEV)
+        roundtrip_s = time.perf_counter() - t0
+        file_mib = os.path.getsize(path) / 2 ** 20
+    unequal_back = _unequal_tensors(back, card)
+    log(f"loader: V2_LITE widths, {cfg.num_layers} layers (1 dense + 1 MoE, "
+        f"{cfg.num_experts} experts), a synthetic HF checkpoint made in "
+        f"{make_s:.1f} s; load_params on the "
+        f"card {load_s:.2f} s, {n_tensors} tensors, "
+        f"{n_tensors - len(unequal)} byte-equal to the CPU loader's; "
+        f"logits through the kernels vs exact_mode rel-L2 prefill "
+        f"{errs[0]:.4g}, decode max {max(errs[1:]):.4g} (bound "
+        f"{MODEL_REL_L2_TOL}); save/load_quantized {file_mib:.0f} MiB in "
+        f"{roundtrip_s:.2f} s, {n_tensors - len(unequal_back)} of "
+        f"{n_tensors} tensors bit-equal; kernel path launches {counts}; "
+        f"{device['smi']}")
+    if unequal or unequal_back:
+        raise RuntimeError(f"loader: card vs CPU differ at {unequal[:4]}, "
+                           f"round trip at {unequal_back[:4]}")
+    if not max(errs) < MODEL_REL_L2_TOL or not all(
+            bool(torch.isfinite(x).all()) for x in kern):
+        raise RuntimeError(f"loader: kernels vs exact rel-L2 {errs}")
+    check_path("loader (kernel path)", counts, FP8_PATH)
+    return {"run": "loader", "counts": counts, "rel_l2_vs_exact": errs,
+            "load_s": load_s, "tensors": n_tensors,
+            "roundtrip_s": roundtrip_s, "file_mib": file_mib}
+
+
+def _script(main, argv) -> tuple:
+    """(exit code, stdout lines) of a script's ``main(argv)`` here."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def check_golden(device: dict) -> dict:
+    """(b) ``gen_golden`` at 2048³ in fp16 and bf16; the inputs through
+    K10 (``ops.gemm``, f32 out) into a file that ``verify_output`` must
+    pass against the golden; the ``torch_matmul`` cross-check the same."""
+    n = str(GOLDEN_SIZE)
+    rows = []
+    _kernels.reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, stored, tdt in (("float16", "float16", torch.float16),
+                                   ("bfloat16", "float32", torch.bfloat16)):
+            d = os.path.join(tmp, dtype)
+            rc_gen, _ = _script(gen_golden.main, [n, n, n, "--dtype", dtype,
+                                                  "--out-dir", d])
+
+            def inp(name):
+                x = np.fromfile(os.path.join(d, "input", name),
+                                np.dtype(stored))
+                return torch.from_numpy(x.reshape(GOLDEN_SIZE, -1)).to(
+                    DEV, tdt)
+            out = gemm(inp("x1_gm.bin"), inp("x2_gm.bin"),
+                       out_dtype=torch.float32)
+            k10 = os.path.join(d, "output", "k10_out.bin")
+            out.cpu().numpy().tofile(k10)
+            golden = os.path.join(d, "output", "golden.bin")
+            rc_k10, lines_k10 = _script(verify_output.main, [k10, golden])
+            rc_mm, _ = _script(torch_matmul.main, [n, n, n, "--dtype", stored,
+                                                   "--dir", d])
+            rc_ref, lines_ref = _script(verify_output.main, [
+                os.path.join(d, "output", "torch_out.bin"), golden])
+            rows.append({"dtype": dtype, "rc": [rc_gen, rc_k10, rc_mm,
+                                                rc_ref],
+                         "k10": lines_k10[-1], "torch_matmul": lines_ref[-1]})
+            log(f"golden {dtype} {n}³: K10 {lines_k10[-1]}; torch_matmul "
+                f"{lines_ref[-1]}")
+    counts = counts_now()
+    log(f"  launches {counts}; {device['smi']}")
+    if any(rc for r in rows for rc in r["rc"]):
+        raise RuntimeError(f"golden scripts: {rows}, launches {counts}")
+    check_path("golden (K10)", counts, {"gemm"})
+    return {"run": "golden", "counts": counts, "rows": rows}
+
+
+def check_quality(device: dict) -> dict:
+    """(c) ``eval_quality`` at V2_LITE (8 layers), 24 decode steps, batch
+    4, with fp8 and with int8 experts: its JSON lines, ``ok`` required."""
+    lines = {}
+    _kernels.reset_counters()
+    for quant_ in ("fp8", "int8"):
+        t0 = time.perf_counter()
+        rc, out = _script(eval_quality.main,
+                          QUALITY_ARGS + ["--expert-quant", quant_])
+        line = json.loads(out[-1])
+        lines[quant_] = line
+        log(f"eval_quality {quant_} ({time.perf_counter() - t0:.1f} s): "
+            f"{out[-1]}")
+        if rc != 0 or not line["ok"]:
+            raise RuntimeError(f"eval_quality {quant_}: rc {rc}, {line}")
+    counts = counts_now()
+    log(f"  launches {counts}; {device['smi']}")
+    # Decode steps from empty caches: no prefill kernel.
+    check_path("eval_quality", counts, DECODE_PATH | {"int8_grouped_masked"})
+    return {"run": "eval_quality", "counts": counts, "lines": lines}
+
+
+def forced_logits(mesh, params, prompts, tokens) -> tuple:
+    """Teacher-forced logits on ``mesh``: ``prompts`` prefilled into slots
+    0.. through the sharded prefill step, grouped by bucket and padded as
+    the engine groups one admission; then MESH_NEW - 1 decode steps (the
+    logits gathered), step t fed every request's token ``tokens[i][t]``,
+    so that every mesh sees the same history and the logits read the
+    merged caches. Returns (prefill last logits, [step logits]), each
+    (requests, vocab) f32 on the CPU."""
+    p = shardmod.shard_params(mesh, params, V2_LITE)
+    caches = shardmod.shard_caches(
+        mesh, init_cache(V2_LITE, len(prompts), MESH_SEQ, device=DEV),
+        V2_LITE)
+    groups = {}
+    for i, prompt in enumerate(prompts):
+        groups.setdefault(engine_mod._bucket(len(prompt)), []).append(i)
+    last = [None] * len(prompts)
+    for bucket, rows in groups.items():
+        s_pad = 1 << (len(rows) - 1).bit_length()
+        toks = np.zeros((s_pad, bucket), np.int32)
+        lens = np.ones((s_pad,), np.int32)
+        slots = np.full((s_pad,), -1, np.int32)
+        for j, i in enumerate(rows):
+            toks[j, :len(prompts[i])] = prompts[i]
+            lens[j], slots[j] = len(prompts[i]), i
+        got, _ = shardmod.make_sharded_prefill_step(
+            mesh, V2_LITE, params, bucket, s_pad)(
+            p, caches, torch.from_numpy(toks), slots, lens)
+        for j, i in enumerate(rows):
+            last[i] = got[j].float().cpu()
+    step = shardmod.make_sharded_decode_step(mesh, V2_LITE, params)
+    seq = torch.tensor([len(x) for x in prompts], dtype=torch.int32,
+                       device=DEV)
+    steps = []
+    for t in range(MESH_NEW - 1):
+        toks = torch.tensor([out[t] for out in tokens], dtype=torch.int32,
+                            device=DEV)
+        logits, _ = step(p, toks, caches, seq)
+        seq += 1
+        steps.append(logits.float().cpu())
+    return torch.stack(last), steps
+
+
+def phase_mesh_one(device: dict, serving: list) -> dict:
+    """(d) A 1-rank NCCL group joined through a ``file://`` store in this
+    process; phase 4's requests through ``Engine(mesh=make_mesh(1, 1, 1))``
+    with fp8 experts at decode_chunk 1 and 8 and with int8 at 1: tokens and
+    final caches equal phase 4's one-device runs' bit for bit, exactly
+    phase 4's kernels (ring K1/K3, K2 live, K6) and no plain call. Then the
+    reference of (e): the decode step from empty caches, the first
+    MESH_REQUESTS requests served with MESH_NEW new tokens, and those
+    tokens fed back (``forced_logits``). The group is destroyed at the
+    end."""
+    ref_runs = {r["run"]: r for r in serving if "cache_sha256" in r}
+    prompts = serving_prompts(V2_LITE)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1, 1)
+            for experts, chunk in (("fp8", 1), ("fp8", CHUNK), ("int8", 1)):
+                label = experts if chunk == 1 else f"{experts} chunk {chunk}"
+                ref = ref_runs[label]
+                params = serving_params(experts)
+                eng = Engine(params, V2_LITE, max_slots=16, max_seq_len=4096,
+                             decode_chunk=chunk, device=DEV, mesh=mesh)
+                outs, wall, counts, plans, peak = serve(eng, prompts)
+                same_caches = cache_digest(eng) == ref["cache_sha256"]
+                log(f"one-rank mesh ({label}): 24 requests in {wall:.2f} s, "
+                    f"decode {eng.tokens_per_second:.1f} tok/s; tokens "
+                    f"{'equal' if outs == ref['outputs'] else 'DIFFER from'}"
+                    f" phase 4's, caches "
+                    f"{'equal' if same_caches else 'DIFFER'}; launches by "
+                    f"plan {plans}; {device['smi']}")
+                if outs != ref["outputs"] or not same_caches:
+                    raise RuntimeError(f"one-rank mesh ({label}): tokens or "
+                                       f"caches differ from phase 4's")
+                check_path(f"one-rank mesh ({label})", counts,
+                           FP8_PATH if experts == "fp8" else INT8_PATH, plans)
+                runs.append({"run": f"mesh 1x1x1 {label}", "counts": counts,
+                             "plans": plans, "wall_s": wall,
+                             "decode_tok_s": eng.tokens_per_second})
+                del eng, params
+                torch.cuda.empty_cache()
+            params = serving_params("fp8")
+            fresh = fresh_step_logits(mesh, params)
+            eng = Engine(params, V2_LITE, max_slots=16, max_seq_len=4096,
+                         device=DEV, mesh=mesh)
+            outs, *_ = serve(eng, prompts[:MESH_REQUESTS], MESH_NEW)
+            if outs != [o[:MESH_NEW] for o in
+                        ref_runs["fp8"]["outputs"][:MESH_REQUESTS]]:
+                raise RuntimeError("one-rank mesh, 16 requests: the tokens "
+                                   "are not phase 4's")
+            del eng
+            forced = forced_logits(mesh, params, prompts[:MESH_REQUESTS],
+                                   outs)
+            del params
+        finally:
+            shardmod.clear_program_memo()
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "reference": (outs, forced, fresh)}
+
+
+def fresh_step_logits(mesh, params) -> torch.Tensor:
+    """One sharded decode step of 16 slots from empty caches (lengths 0,
+    tokens 1, 8, 15, ...), its logits gathered — the step JAX's tests hold
+    a mesh to one device by (``tests/test_parallel.py:69,105``)."""
+    step = shardmod.make_sharded_decode_step(mesh, V2_LITE, params)
+    p = shardmod.shard_params(mesh, params, V2_LITE)
+    caches = shardmod.shard_caches(
+        mesh, init_cache(V2_LITE, MESH_REQUESTS, 256, device=DEV), V2_LITE)
+    toks = torch.arange(MESH_REQUESTS, dtype=torch.int32, device=DEV) * 7 + 1
+    lens = torch.zeros(MESH_REQUESTS, dtype=torch.int32, device=DEV)
+    logits, _ = step(p, toks, caches, lens)
+    return logits.float().cpu()
+
+
+def mesh_rank(rank: int, world: int, store: str, out_dir: str,
+              ref_outs: list) -> None:
+    """One of (e)'s ranks (a spawned process, the card shared): joins gloo
+    through ``store`` and, for each of MESH_SHAPES, serves the first
+    MESH_REQUESTS of phase 4's requests (MESH_NEW new tokens, fp8 experts,
+    greedy) through the unmodified ``Engine(mesh=...)``, the counters
+    zeroed before and read after; then feeds the one-rank mesh's tokens
+    ``ref_outs`` back (``forced_logits``); writes ``<rank>.pt``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        params = serving_params("fp8")
+        prompts = serving_prompts(V2_LITE)[:MESH_REQUESTS]
+        out = {}
+        for shape in MESH_SHAPES:
+            mesh = make_mesh(*shape, device_type="cpu")
+            fresh = fresh_step_logits(mesh, params)
+            eng = Engine(params, V2_LITE, max_slots=16, max_seq_len=4096,
+                         device=DEV, mesh=mesh)
+            dist.barrier()
+            outs, wall, counts, plans, _ = serve(eng, prompts, MESH_NEW)
+            out[shape] = {"outputs": outs, "wall_s": wall, "counts": counts,
+                          "plans": plans,
+                          "decode_tok_s": eng.tokens_per_second}
+            del eng
+            torch.cuda.empty_cache()
+            forced = forced_logits(mesh, params, prompts, ref_outs)
+            if rank == 0:
+                out[shape].update(fresh=fresh, forced=forced)
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
+    finally:
+        shardmod.clear_program_memo()
+        dist.destroy_process_group()
+
+
+def _partings(ref_outs, outs, ref_forced, forced) -> tuple:
+    """(first position where each request's tokens leave the reference's,
+    {request: (the reference's margin of its token over the mesh's,
+    |Δ| of the two tokens' logits)}) — the margin and Δ from the
+    teacher-forced logits at that position, where both have the same
+    history: a parting the rounding explains has margin ≤ |Δ|."""
+    first, ties = [], {}
+    for i, (x, y) in enumerate(zip(outs, ref_outs)):
+        d = next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+        first.append(d)
+        if d is not None:
+            (lp, lm) = ((ref_forced[0], forced[0]) if d == 0 else
+                        (ref_forced[1][d - 1], forced[1][d - 1]))
+            lp, lm = lp[i], lm[i]
+            delta = (lm - lp).abs()
+            ties[i] = (float(lp[y[d]] - lp[x[d]]),
+                       float(delta[x[d]] + delta[y[d]]))
+    return first, ties
+
+
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got - ref).norm() / ref.norm())
+
+
+def phase_mesh_four(device: dict, reference) -> list:
+    """(e) MESH_RANKS spawned processes joined over gloo, the tensors on
+    the one card (gloo takes CUDA tensors in this torch), each mesh of
+    MESH_SHAPES in turn. Rank 0's decode step from empty caches
+    (``fresh_step_logits``) against (d)'s within MESH_TP1_REL_L2 (tp = dp
+    = 1: only the f32 order of the ep psum differs) or MESH_REL_L2, JAX's
+    bounds for that step. Serving through the unmodified engine (its
+    sharded sampler, tp > 1 included): every rank's tokens identical, and
+    each rank's launches exactly the fp8 serving kernels on their routes,
+    no plain call; decode tok/s — gloo ranks sharing one card, a harness
+    check and not a scaling figure. Teacher-forced (``forced_logits``, the
+    one-rank mesh's tokens fed to both): the prefill's last logits and
+    every decode step's logits, which read the caches the prefill merged
+    over "data", within the phase-3 bound of (d)'s (two card paths that
+    round differently: psums in other f32 orders, K1's split plans at
+    other m). The served tokens equal (d)'s or part where the teacher-
+    forced logits explain it: the reference's margin of its token over
+    the mesh's no more than the two logits' differences."""
+    runs = []
+    ctx = mp.get_context("spawn")
+    ref_outs, ref_forced, ref_fresh = reference
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, MESH_RANKS, os.path.join(tmp, "store"),
+                                   tmp, ref_outs)) for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=MESH_JOIN_S)
+        hung = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        codes = [p.exitcode for p in procs]
+        if hung or codes != [0] * MESH_RANKS:
+            raise RuntimeError(f"four ranks: exit codes {codes}, hung {hung}")
+        res = [torch.load(os.path.join(tmp, f"{r}.pt"), weights_only=False)
+               for r in range(MESH_RANKS)]
+        wall = time.perf_counter() - t0
+    for shape in MESH_SHAPES:
+        r0 = res[0][shape]
+        same_ranks = all(r[shape]["outputs"] == r0["outputs"] for r in res)
+        fresh = _rel_l2(r0["fresh"], ref_fresh)
+        bound = (MESH_TP1_REL_L2 if shape[0] == shape[2] == 1
+                 else MESH_REL_L2)
+        prefill = _rel_l2(r0["forced"][0], ref_forced[0])
+        steps = [_rel_l2(a, b) for a, b in zip(r0["forced"][1],
+                                               ref_forced[1])]
+        first, ties = _partings(ref_outs, r0["outputs"], ref_forced,
+                                r0["forced"])
+        ties_ok = all(m <= gap for m, gap in ties.values())
+        log(f"four ranks, mesh {shape} (dp, ep, tp), gloo on one shared "
+            f"card: decode step from empty caches vs the one-rank mesh "
+            f"rel-L2 {fresh:.3g} (bound {bound:g}); teacher-forced vs the "
+            f"one-rank mesh: prefill logits rel-L2 {prefill:.3g}, decode "
+            f"steps first {steps[0]:.3g} max {max(steps):.3g} (bound "
+            f"{MODEL_REL_L2_TOL}); serving 16 requests: every rank's "
+            f"tokens {'identical' if same_ranks else 'NOT identical'}, "
+            f"{first.count(None)} of {MESH_REQUESTS} equal to the one-rank "
+            f"mesh's, partings (request: position, reference margin, |Δ| "
+            f"of the two logits) "
+            f"{ {i: (first[i], round(m, 5), round(g, 5))
+                 for i, (m, g) in ties.items()} }"
+            f"; decode {r0['decode_tok_s']:.1f} tok/s on rank 0 (gloo "
+            f"ranks on one shared card: a harness check, not a scaling "
+            f"figure)")
+        for r, rr in enumerate(res):
+            log(f"  rank {r} launches (launches, plain calls) "
+                f"{ {n: c for n, c in rr[shape]['counts'].items() if any(c)} }"
+                f"; by plan {rr[shape]['plans']}")
+            check_path(f"four ranks {shape} rank {r}", rr[shape]["counts"],
+                       FP8_PATH, rr[shape]["plans"])
+        if not same_ranks or not fresh < bound or not ties_ok or \
+                not prefill < MODEL_REL_L2_TOL or \
+                not max(steps) < MODEL_REL_L2_TOL:
+            raise RuntimeError(f"four ranks {shape}: ranks identical "
+                               f"{same_ranks}, fresh step rel-L2 {fresh}, "
+                               f"teacher-forced prefill rel-L2 {prefill}, "
+                               f"steps {steps}, partings {ties}")
+        counts = {n: (sum(rr[shape]["counts"][n][0] for rr in res),
+                      sum(rr[shape]["counts"][n][1] for rr in res))
+                  for n in r0["counts"]}
+        runs.append({"run": "mesh " + "x".join(map(str, shape)),
+                     "counts": counts, "rel_l2_fresh_step": fresh,
+                     "rel_l2_forced_prefill": prefill,
+                     "rel_l2_forced_steps": steps,
+                     "first_divergence": first, "partings": ties,
+                     "decode_tok_s_rank0": r0["decode_tok_s"],
+                     "wall_s": r0["wall_s"]})
+    log(f"  four ranks, three meshes: {wall:.1f} s with the processes' "
+        f"start; {device['smi']}")
+    return runs
+
+
+def phase_sharded(device: dict, serving: list) -> list:
+    """Phase 9: the loader, the golden and quality scripts, and sharded
+    serving on a one-rank mesh and on four ranks sharing the card. Returns
+    one run a check (its counts read just after it)."""
+    runs = [check_loader(device), check_golden(device),
+            check_quality(device)]
+    torch.cuda.empty_cache()
+    one = phase_mesh_one(device, serving)
+    runs += one["runs"]
+    runs += phase_mesh_four(device, one["reference"])
+    return runs
+
+
 HEADLINE = {"fp8_gemm": "m=16 n=22016 k=2048",
             "grouped_gemm": "E=32 cap=96 ",
             "flash_decode": "kvh=4 g=4",
@@ -4003,9 +4557,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 7: the measurement scripts")
     runs += phase_scripts(device)
+    scripts = runs[len(serving) + 2:]
     log("phase 8: the tiling tiers and the tile variants")
     tiling = phase_tiling(device)
     runs.append(tiling)
+    torch.cuda.empty_cache()
+    log("phase 9: the loader, the golden and quality scripts, sharded "
+        "serving")
+    sharded = phase_sharded(device, serving)
+    runs += sharded
     summary = summarize(kernels, runs) + variant_entries(kernels, tiling)
     log("kernels " + " | ".join(
         f"{k['name']}: launches="
@@ -4015,7 +4575,7 @@ def main() -> int:
     n = len(serving)
     report = {"device": device, "kernels": kernels, "model": model,
               "serving": serving, "compat": runs[n], "cp": runs[n + 1],
-              "scripts": runs[n + 2:-1], "tiling": tiling,
+              "scripts": scripts, "tiling": tiling, "sharded": sharded,
               "total_s": time.perf_counter() - t_start}
     if report_path:
         os.makedirs(os.path.dirname(report_path) or ".", exist_ok=True)

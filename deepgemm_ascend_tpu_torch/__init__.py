@@ -7,13 +7,16 @@ every Pallas kernel on the ported path is a CUDA C++ kernel for Hopper
 tensor each kernel wrapper runs the kernel's plain PyTorch version instead,
 which is what the CPU tests hold against the JAX package.
 
-Ported so far: single-device MoE serving (``models``, ``serving``) with FP8
-or W8A8 int8 experts (``models.params_with_int8_experts``); the
+Ported: MoE serving (``models``, ``serving``) with FP8 or W8A8 int8
+experts (``models.params_with_int8_experts``), on one device or sharded
+over a dp/ep/tp mesh (``Engine(mesh=...)``, ``parallel/sharded.py``), from
+random weights or an HF checkpoint (``models.load_params``); the
 reference-compatible API (:mod:`.compat`: ``run_mmad_*`` and the DeepGEMM
 aliases); context-parallel prefill (:mod:`.parallel`); the measurement
-layer (:mod:`.bench`, ``utils/golden.py``) and the benchmark scripts
-(:mod:`.scripts`, run as ``python -m deepgemm_ascend_tpu_torch.scripts.
-<name>``); and all fifteen kernels behind them — the dense GEMM
+layer (:mod:`.bench`, ``utils/golden.py``) and the benchmark, quality and
+golden scripts (:mod:`.scripts`, run as ``python -m
+deepgemm_ascend_tpu_torch.scripts.<name>``); and all fifteen kernels
+behind them — the dense GEMM
 :func:`gemm` / :func:`bgemm` / :func:`gemm_with_config` (K10, and K11 when
 :func:`select_config` or the caller picks split-K), :func:`fp8_gemm` (K1;
 K12 with ``scale_mode="folded"``), :func:`m_grouped_gemm_contiguous` (K8),

@@ -1,7 +1,6 @@
 """GQA attention with an INT8-quantized KV cache.
 
-Port of ``deepgemm_ascend_tpu/models/attention.py`` for one device (the
-tensor-parallel arguments wait for the parallel slice). Three branches,
+Port of ``deepgemm_ascend_tpu/models/attention.py``. Three branches,
 chosen by the same gates as in the JAX package so that the same inputs take
 the same branch in both:
 
@@ -12,6 +11,14 @@ the same branch in both:
 * otherwise (``use_flash_decode=False``, ragged s, or no ``prefill_start``):
   the fallback, plain PyTorch in f32 — the JAX package's XLA
   dequantize-in-contraction path.
+
+Tensor parallelism (``parallel/sharded.py``): ``tp_heads`` local q heads
+starting at global head ``head_offset``, the row-sharded o-projection's f32
+partials summed over ``group`` and cast to bf16. The kv regime follows the
+cache's local kv-head count, as in JAX: *congruent* (the cache holds this
+shard's kv heads, a GQA problem of its own, so the flash kernels run on
+it) or *replicated kv* (every kv head on every shard; each local q head
+reads its kv head by global index, on the fallback path — JAX's XLA path).
 
 The cache tensors are updated in place (the JAX package returns new arrays).
 """
@@ -104,11 +111,13 @@ class AttentionParams:
         )
 
 
-def _fallback(q, cache: KVCache, positions, seq_lens, heads, group, hd):
-    """Dequantize-in-contraction attention in f32 (the XLA path)."""
+def _fallback(q, cache: KVCache, positions, seq_lens, heads, g, hd,
+              head_offset=0):
+    """Dequantize-in-contraction attention in f32 (the XLA path); local q
+    head i reads the kv head of global head ``head_offset + i``."""
     kf = cache.k_q.to(torch.float32) * cache.k_s[..., None]
     vf = cache.v_q.to(torch.float32) * cache.v_s[..., None]
-    kv_map = torch.arange(heads, device=q.device) // group
+    kv_map = (head_offset + torch.arange(heads, device=q.device)) // g
     kf_h = kf[:, kv_map]                                   # (b, heads, S, hd)
     vf_h = vf[:, kv_map]
     qf = q.to(torch.float32)
@@ -130,18 +139,26 @@ def attention(
     seq_lens: torch.Tensor,          # (batch,) valid cache length AFTER update
     cfg: ModelConfig,
     *,
+    tp_heads: Optional[int] = None,
+    head_offset: int = 0,
+    group=None,
     prefill_start: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Causal GQA over the int8 cache, for prefill (s = prompt) and decode
-    (s = 1) alike."""
+    (s = 1) alike. Under tensor parallelism ``params`` holds this shard's
+    ``tp_heads`` q heads (and its kv heads in the congruent regime) and
+    ``group`` is the "model" axis's process group."""
     b, s, _ = x.shape
-    heads = cfg.num_heads
-    kv_heads = cache.k_q.shape[1]
+    heads = tp_heads if tp_heads is not None else cfg.num_heads
+    kv_heads = cache.k_q.shape[1]        # LOCAL kv heads (may be sharded)
     hd = cfg.head_dim
-    group = cfg.num_heads // cfg.num_kv_heads
-    if heads != kv_heads * group:
-        raise ValueError(f"cache has {kv_heads} kv heads but the config "
-                         f"needs {heads // group}")
+    g = cfg.num_heads // cfg.num_kv_heads   # invariant under sharding
+    # Congruent ⇔ this shard's q heads attend exactly its kv heads.
+    congruent = heads == kv_heads * g
+    if kv_heads != cfg.num_kv_heads and not congruent:
+        raise ValueError(
+            f"kv cache sharded to {kv_heads} heads but {heads} local q "
+            f"heads / group {g} — shard q and kv heads congruently")
 
     q = params.wq(x).reshape(b, s, heads, hd)
     k = params.wk(x).reshape(b, s, kv_heads, hd)
@@ -149,7 +166,6 @@ def attention(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    congruent = True   # one device: every q head sees its own kv head
     use_flash = (s == 1 and congruent
                  and cfg.use_flash_decode and cache.max_seq % 8 == 0)
     use_flash_prefill = (s > 1 and s % 16 == 0 and congruent
@@ -172,7 +188,7 @@ def attention(
             seq_lens)
         cache = KVCache(k_q=kq2, k_s=ks2, v_q=vq2, v_s=vs2)
         out = out.reshape(b, 1, heads * hd).to(torch.bfloat16)
-        return params.wo(out), cache
+        return _o_proj(params, out, group), cache
 
     cache = cache.update(k.to(torch.float32), v.to(torch.float32), positions)
     if use_flash_prefill:
@@ -181,6 +197,16 @@ def attention(
                                 cache.v_s, prefill_start, seq_lens)
     else:
         out = _fallback(q, cache, positions.to(q.device), seq_lens, heads,
-                        group, hd)
+                        g, hd, head_offset)
     out = out.reshape(b, s, heads * hd).to(torch.bfloat16)
-    return params.wo(out), cache
+    return _o_proj(params, out, group), cache
+
+
+def _o_proj(params: AttentionParams, out: torch.Tensor, group):
+    """The o-projection; under tensor parallelism this shard's partial in
+    f32, summed over ``group``, then cast to bf16."""
+    if group is None:
+        return params.wo(out)
+    from ..parallel.mesh import psum
+    return psum(params.wo(out, out_dtype=torch.float32),
+                group).to(torch.bfloat16)

@@ -123,11 +123,17 @@ def forward(
     seq_lens: torch.Tensor,        # (batch,) valid length AFTER this step
     cfg: ModelConfig,
     prefill_start: Optional[torch.Tensor] = None,
+    *,
+    attn_kw: Optional[dict] = None,
+    moe_kw: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, List[KVCache]]:
     """Returns (logits (batch, s, vocab) f32, caches updated in place).
 
     ``prefill_start`` (batch,) asserts positions are consecutive from it
     (row i at prefill_start + i) — enables the flash prefill kernel.
+    ``attn_kw`` / ``moe_kw``: a mesh shard's arguments of every layer's
+    :func:`attention` and :func:`moe_block` (``parallel/sharded.py``); its
+    logits are then those of its ``lm_head`` columns.
     """
     b, s = tokens.shape
     x = params.embed[tokens.to(torch.int64)]          # (b, s, hidden) bf16
@@ -136,13 +142,15 @@ def forward(
         h = rms_norm(x, layer.attn_norm, cfg.rms_eps)
         attn_out, cache = attention(layer.attn, h, cache, positions,
                                     seq_lens, cfg,
-                                    prefill_start=prefill_start)
+                                    prefill_start=prefill_start,
+                                    **(attn_kw or {}))
         new_caches.append(cache)
         x = x + attn_out
         h = rms_norm(x, layer.ffn_norm, cfg.rms_eps)
         if isinstance(layer.ffn, MoEParams):
             flat = h.reshape(b * s, cfg.hidden_size)
-            ffn_out = moe_block(layer.ffn, flat, cfg).reshape(b, s, -1)
+            ffn_out = moe_block(layer.ffn, flat, cfg,
+                                **(moe_kw or {})).reshape(b, s, -1)
         else:
             ffn_out = layer.ffn(h)
         x = x + ffn_out

@@ -1,8 +1,8 @@
 """MoE block: top-k routing + masked grouped GEMM experts, FP8 or W8A8 int8.
 
-Port of ``deepgemm_ascend_tpu/models/moe.py`` for one device: an expert-
-parallel shard's compute is ``moe_block(local_experts=, expert_offset=)``
-(its psum over the shards waits for ``parallel/sharded.py``).
+Port of ``deepgemm_ascend_tpu/models/moe.py``: an expert-parallel shard's
+compute is ``moe_block(local_experts=, expert_offset=, group=)``, its routed
+output summed over the "expert" axis's group before the shared expert.
 DeepSeek-style: routed experts plus
 always-on shared expert(s), SwiGLU in each expert. The routed experts hold
 FP8 blockwise weights (:class:`ExpertWeights`, kernel K3) or W8A8 int8
@@ -11,7 +11,10 @@ per-channel weights (:class:`Int8ExpertWeights`, kernel K6;
 dispatches on the type, and the shared experts stay FP8 (K1) either way.
 Dispatch uses the fixed-shape masked grouped kernel for prefill and decode
 alike: capacity per expert = T·top_k, and ``masked_m`` says how many rows
-are real.
+are real. An explicit ``capacity`` below an expert's load keeps JAX's
+out-of-range semantics: the assignments past it are dropped from the
+buffer, and their gather reads row ``capacity - 1`` (JAX clamps a gather
+index and drops a scatter's).
 
 Numerics kept from the JAX package: the router gives bf16 logits from an
 f32 accumulation; ``route_topk`` keeps the lower expert index on tied
@@ -28,6 +31,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..config import GemmConfig
 from ..ops import grouped_gemm as gg
 from ..ops import int8_gemm as i8
 from ..ops import quant
@@ -195,8 +199,11 @@ def moe_block(
     x: torch.Tensor,            # (T, hidden) bf16
     cfg: ModelConfig,
     *,
+    capacity: Optional[int] = None,
+    gemm_config: Optional[GemmConfig] = None,
     local_experts: Optional[int] = None,
     expert_offset: int = 0,
+    group=None,
     token_chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """One MoE FFN over a flat token batch.
@@ -204,28 +211,37 @@ def moe_block(
     Under expert parallelism, ``params.experts`` holds this shard's
     ``local_experts`` experts, global ids [expert_offset, expert_offset +
     local_experts): routing runs over all ``cfg.num_experts`` as on every
-    shard, and only the assignments to local experts are computed; the
-    others contribute zero (summing the shards' outputs gives the whole
-    block).
+    shard, only the assignments to local experts are computed (the others
+    contribute zero), and ``group`` (the "expert" axis's process group)
+    sums the shards' routed outputs.
 
-    Large token batches run in chunks of ``token_chunk`` tokens (default:
-    ``params.token_chunk``): the dispatch buffer is (E, T·K, hidden) at
-    worst-case capacity, so chunking bounds it at (E, chunk·K, hidden) with
-    identical results — every routed quantity is per token. T is padded
-    with zero rows up to a chunk multiple; their outputs are dropped.
+    ``capacity``: rows an expert's buffer holds (default T·top_k, the
+    worst case); ``gemm_config`` goes to the grouped GEMMs as their
+    ``config``. Large token batches run in chunks of ``token_chunk`` tokens
+    (default: ``params.token_chunk``): the dispatch buffer is (E, T·K,
+    hidden) at worst-case capacity, so chunking bounds it at (E, chunk·K,
+    hidden) with identical results — every routed quantity is per token.
+    T is padded with zero rows up to a chunk multiple; their outputs are
+    dropped. An explicit ``capacity`` disables chunking (the caller owns
+    the shape).
     """
     t, hidden = x.shape
     tc = token_chunk if token_chunk is not None else params.token_chunk
-    shard = dict(local_experts=local_experts, expert_offset=expert_offset)
-    if tc and t > tc:
+    kw = dict(capacity=capacity, gemm_config=gemm_config,
+              local_experts=local_experts, expert_offset=expert_offset)
+    if capacity is None and tc and t > tc:
         nc = -(-t // tc)
         pad = nc * tc - t
         xp = torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
         out = torch.cat([_moe_routed(params, xp[i * tc:(i + 1) * tc], cfg,
-                                     **shard)
+                                     **kw)
                          for i in range(nc)])[:t]
     else:
-        out = _moe_routed(params, x, cfg, **shard)
+        out = _moe_routed(params, x, cfg, **kw)
+
+    if group is not None:
+        from ..parallel.mesh import psum
+        out = psum(out, group)
 
     if params.shared_w1 is not None:
         sh = _swiglu(params.shared_w1(x))
@@ -234,6 +250,8 @@ def moe_block(
 
 
 def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
+                capacity: Optional[int] = None,
+                gemm_config: Optional[GemmConfig] = None,
                 local_experts: Optional[int] = None,
                 expert_offset: int = 0) -> torch.Tensor:
     """The routed-expert computation for one token block → (t, hidden) f32."""
@@ -242,14 +260,13 @@ def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
     e_local = local_experts or e_total
     logits = params.router(x)
     weights, topk_idx = route_topk(logits, cfg.top_k)
-    slot, masked_m, cap = dispatch_masked(topk_idx, e_total)
+    slot, masked_m, cap_default = dispatch_masked(topk_idx, e_total)
+    cap = capacity or cap_default
 
     # Scatter tokens into the fixed (E_local, cap, hidden) buffer: row
     # t·K + k of the flat assignment list goes to (expert, slot). On a
-    # shard, assignments to other shards' experts go as zeros to (0, cap-1),
-    # as in the JAX package. No real row lands there: an expert gets at
-    # most T of the cap = T·K rows (top-k picks distinct experts), and
-    # with K = 1 one off-shard assignment leaves expert 0 fewer than T.
+    # shard, assignments to other shards' experts read back from
+    # (0, cap-1) and are masked out of the combine, as in the JAX package.
     # Each token's row top_k times (repeat_interleave's values, with no
     # count read back to the host: the decode step is graph-captured).
     rows = x.to(torch.bfloat16)[:, None].expand(
@@ -260,13 +277,23 @@ def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
         in_shard = ((local >= 0) & (local < e_local)).reshape(-1)
         topk_idx = torch.where(in_shard.reshape(t, -1), local, 0)
         slot = torch.where(in_shard.reshape(t, -1), slot, cap - 1)
-        rows = torch.where(in_shard[:, None], rows, 0)
         masked_m = masked_m[expert_offset:expert_offset + e_local]
     e_flat = topk_idx.reshape(-1).to(torch.int64)
     s_flat = slot.reshape(-1).to(torch.int64)
-    buf = torch.zeros((e_local, cap, hidden), dtype=torch.bfloat16,
+    # Past the capacity, JAX's scatter drops a row and its gather clamps to
+    # the last row. Dropped rows and off-shard assignments go to one spare
+    # row past the buffer, so that no two writes share a real row (CUDA
+    # picks no winner among duplicate indices).
+    keep = s_flat < cap
+    if in_shard is not None:
+        keep &= in_shard
+    flat = torch.where(keep, e_flat * cap + s_flat, e_local * cap)
+    buf = torch.zeros((e_local * cap + 1, hidden), dtype=torch.bfloat16,
                       device=x.device)
-    buf[e_flat, s_flat] = rows
+    buf[flat] = rows
+    buf = buf[:-1].view(e_local, cap, hidden)
+    s_flat = s_flat.clamp(max=cap - 1)
+    masked_m = masked_m.clamp(max=cap)
     del rows
 
     # Expert SwiGLU through the masked grouped GEMM of the experts' type:
@@ -279,7 +306,8 @@ def _moe_routed(params: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         quantize = quant.quantize_fp8_act
         gemm = gg.m_grouped_gemm_masked
-    gemm = functools.partial(gemm, expected_m=-(-t * cfg.top_k // e_total))
+    gemm = functools.partial(gemm, expected_m=-(-t * cfg.top_k // e_total),
+                             config=gemm_config)
     a_q, a_s = quantize(buf)
     del buf
     h = gemm(a_q, a_s, exp.w1_q, exp.w1_s, masked_m, b_layout="t")

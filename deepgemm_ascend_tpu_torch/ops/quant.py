@@ -11,6 +11,11 @@ scales match the JAX package bit for bit (tests/test_torch_quant.py):
   (⌈k/128⌉, ⌈n/128⌉) f32;
 * KV-cache: per-(head, token) int8 symmetric quantization, rounding half to
   even like ``jnp.round``.
+
+Every division is an IEEE division of two tensors on the data's device: a
+CUDA kernel dividing by a Python scalar multiplies by its reciprocal
+instead, which rounds twice and moved the card's scales off the CPU's and
+JAX's bits (:func:`_scale`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,13 @@ FP8_MAX = 448.0          # float8_e4m3fn max normal
 INT8_MAX = 127.0
 _SCALE_EPS = 1e-12       # avoid div-by-zero on all-zero blocks
 FP8 = torch.float8_e4m3fn
+
+
+def _scale(amax: torch.Tensor, q_max: float) -> torch.Tensor:
+    """max(amax, eps) / q_max, rounded once on every device: the divisor a
+    0-dim tensor on ``amax``'s device (made by a fill, so a captured CUDA
+    graph can hold it), never a Python scalar."""
+    return torch.clamp(amax, min=_SCALE_EPS) / amax.new_full((), q_max)
 
 
 def _pad_to(x: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
@@ -51,7 +63,7 @@ def quantize_fp8_act(
     xp = _pad_to(x.to(torch.float32), -1, block)
     g = xp.reshape(*lead, m, kb, block)
     amax = g.abs().amax(dim=-1)
-    scales = torch.clamp(amax, min=_SCALE_EPS) / FP8_MAX
+    scales = _scale(amax, FP8_MAX)
     q = (g / scales[..., None]).reshape(*lead, m, kb * block)[..., :k]
     return q.to(FP8), scales
 
@@ -70,7 +82,7 @@ def quantize_fp8_weight(
     wp = _pad_to(_pad_to(w.to(torch.float32), -1, block), -2, block)
     g = wp.reshape(*lead, kb, block, nb, block)
     amax = g.abs().amax(dim=(-3, -1))
-    scales = torch.clamp(amax, min=_SCALE_EPS) / FP8_MAX
+    scales = _scale(amax, FP8_MAX)
     q = (g / scales[..., :, None, :, None]).reshape(
         *lead, kb * block, nb * block)[..., :k, :n]
     return q.to(FP8), scales
@@ -101,7 +113,7 @@ def quantize_int8(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-slice INT8 quantization along ``axis`` (KV-cache use)."""
     amax = x.to(torch.float32).abs().amax(dim=axis, keepdim=True)
-    scales = torch.clamp(amax, min=_SCALE_EPS) / INT8_MAX
+    scales = _scale(amax, INT8_MAX)
     q = torch.clamp(torch.round(x / scales), -INT8_MAX, INT8_MAX)
     return q.to(torch.int8), scales
 

@@ -20,10 +20,20 @@ script's keys:
   prompt-lookup drafts, or with ``--spec-oracle`` the greedy continuation
   that a speculative engine recorded first.
 
+* ``--mode scaling``: tok/s of the sharded decode step
+  (``parallel/sharded.py``, a dp-only mesh, the logits gathered) at one
+  rank and at ``--devices`` ranks, and the efficiency. Under ``torchrun``
+  the ranks are the launcher's, one process a card over NCCL, and the
+  one-rank figure is rank 0's unsharded ``decode_step`` (which a one-rank
+  mesh equals bit for bit); otherwise both figures
+  come from ``spawn``ed groups joined over gloo (on the CPU, or with
+  ``--device cuda`` on the visible cards in turn: ranks may share a card),
+  which check the harness, not scaling. ``backend`` names which ran.
+  ``--model`` picks the model (the JAX script always runs TINY).
+
 ``--expert-quant int8`` runs the MoE experts as W8A8 int8
 (``models.params_with_int8_experts``), in every mode, as in JAX for scan
-and engine. ``--mode scaling`` needs ``parallel/sharded.py``, which the
-port does not have yet, and raises ``NotImplementedError``.
+and engine.
 
     python -m deepgemm_ascend_tpu_torch.scripts.serve_bench --mode scan \\
         --model v2_lite --batch 64 --steps 64 --max-seq 4096
@@ -33,12 +43,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing as mp
+import os
+import sys
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
-from ..models import (TINY, V2_LITE, generate_greedy_scan, init_cache,
-                      init_params, params_with_int8_experts)
+from ..models import (TINY, V2_LITE, decode_step, generate_greedy_scan,
+                      init_cache, init_params, params_with_int8_experts)
 from ..bench.timing import synchronize
 from ..serving import Engine
 from ..utils.common import resolve_device
@@ -280,10 +295,125 @@ def _prefix_mode(args, dev):
     }), flush=True)
 
 
+def _scaling_tps(args, cfg, dev, mesh, ranks: int) -> float:
+    """Decode tok/s of the sharded step (logits gathered) on ``mesh``, a
+    dp-only mesh of ``ranks`` ranks, or of the unsharded ``decode_step``
+    when ``mesh`` is None: ``args.steps`` steps after a warm one, between
+    barriers, on the host clock ended by a synchronize."""
+    from ..parallel.sharded import (make_sharded_decode_step, shard_caches,
+                                    shard_params)
+    batch = -(-max(args.batch, ranks) // ranks) * ranks
+    p = _params_for(args, cfg, dev)
+    c = init_cache(cfg, batch, max_seq=args.steps + 8, device=dev)
+    if mesh is None:
+        def step(p, toks, c, lens):
+            return decode_step(p, toks, c, lens, cfg)
+    else:
+        p, c = shard_params(mesh, p, cfg), shard_caches(mesh, c, cfg)
+        step = make_sharded_decode_step(mesh, cfg, p)
+    toks = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    lens = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    step(p, toks, c, lens)                     # warm
+    synchronize(dev)
+    if ranks > 1:
+        dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step(p, toks, c, lens)
+        lens = lens + 1
+    synchronize(dev)
+    if ranks > 1:
+        dist.barrier()
+    return batch * args.steps / (time.perf_counter() - t0)
+
+
+def _scaling_worker(rank: int, ranks: int, store: str, out: str,
+                    argv: list) -> None:
+    """One rank of a spawned gloo group (``_scaling_mode``); rank 0 writes
+    its tok/s to ``out``."""
+    args = _parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=ranks)
+    try:
+        from ..parallel import make_mesh
+        mesh = make_mesh(dp=ranks, ep=1, tp=1, device_type="cpu")
+        tps = _scaling_tps(args, MODELS[args.model], dev, mesh, ranks)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(tps, f)
+    finally:
+        dist.destroy_process_group()
+
+
+_JOIN_TIMEOUT_S = 600
+
+
+def _spawned_tps(ranks: int, argv: list, tmp: str) -> float:
+    """tok/s of a gloo group of ``ranks`` spawned workers."""
+    ctx = mp.get_context("spawn")
+    store = os.path.join(tmp, f"store{ranks}")
+    out = os.path.join(tmp, f"tps{ranks}.json")
+    procs = [ctx.Process(target=_scaling_worker,
+                         args=(r, ranks, store, out, argv))
+             for r in range(ranks)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=_JOIN_TIMEOUT_S)
+    hung = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=10)
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * ranks:
+        raise RuntimeError(f"scaling: {ranks} ranks, exit codes {codes}, "
+                           f"hung {hung}")
+    with open(out) as f:
+        return json.load(f)
+
+
 def _scaling_mode(args, dev):
-    raise NotImplementedError(
-        "--mode scaling runs the sharded decode step of "
-        "parallel/sharded.py, which the port does not have yet")
+    from ..parallel import init_distributed, make_mesh
+    cfg = MODELS[args.model]
+    if init_distributed():
+        # torchrun: one process a card over NCCL; rank 0 times one rank on
+        # its own card while the others wait.
+        ranks, backend = dist.get_world_size(), "nccl"
+        dev = torch.device("cuda", torch.cuda.current_device())
+        t1 = (_scaling_tps(args, cfg, dev, None, 1)
+              if dist.get_rank() == 0 else 0.0)
+        dist.barrier()
+        tn = _scaling_tps(args, cfg, dev, make_mesh(dp=ranks, ep=1, tp=1),
+                          ranks)
+        if dist.get_rank() != 0:
+            return
+    else:
+        ranks, backend = args.devices, f"gloo-{dev.type}"
+        if dev.type == "cuda":
+            from ..ops import _kernels
+            _kernels.build()     # the ranks load this build, never race it
+        with tempfile.TemporaryDirectory() as tmp:
+            t1 = _spawned_tps(1, args.argv, tmp)
+            tn = _spawned_tps(ranks, args.argv, tmp)
+    print(json.dumps({
+        "metric": "decode_scaling_efficiency", "mode": "scaling",
+        "model": args.model, "devices": ranks, "backend": backend,
+        "tokens_per_s_1dev": round(t1, 1),
+        "tokens_per_s_ndev": round(tn, 1),
+        "efficiency": round(tn / (t1 * ranks), 3),
+        "note": ("one process a card over NCCL" if backend == "nccl" else
+                 "gloo ranks (on the CPU, or sharing the visible cards) — "
+                 "a harness check of the sharded step, not a scaling "
+                 "figure; run under torchrun, one process a card, for "
+                 "the real number"),
+    }), flush=True)
 
 
 MODES = {"scan": _scan_mode, "engine": _engine_mode,
@@ -291,7 +421,7 @@ MODES = {"scan": _scan_mode, "engine": _engine_mode,
          "mixed": _mixed_mode, "prefix": _prefix_mode}
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", default="scan", choices=list(MODES))
     ap.add_argument("--model", default="v2_lite", choices=list(MODELS))
@@ -313,8 +443,16 @@ def main(argv=None) -> int:
                     help="engine mode with --speculative-k: draft the "
                          "greedy continuation a speculative engine "
                          "recorded first (the verify machinery's ceiling)")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="scaling mode: the ranks of the sharded run")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    args.argv = argv            # the scaling mode's workers parse it again
     MODES[args.mode](args, resolve_device(args.device))
     return 0
 

@@ -1,6 +1,6 @@
 """Decode engine: fixed-slot continuous batching over the FP8 MoE model.
 
-Port of ``deepgemm_ascend_tpu/serving/engine.py`` for one device. The batch
+Port of ``deepgemm_ascend_tpu/serving/engine.py``. The batch
 dimension of every decode step is ``max_slots`` (freed slots ride along,
 their lengths clamped by the decode kernel); prompts are padded to
 power-of-two buckets from 16 and each step's admissions are prefilled in
@@ -20,10 +20,21 @@ The JAX engine's serving features, with its semantics:
 * greedy speculative decoding (``speculative_k``, ``draft_fn``): every
   slot's current token and k drafts verified in one 16-token forward.
 
+With ``mesh=`` (``parallel/sharded.py``) the engine runs the sharded dp/ep/tp
+steps: every rank of the mesh runs one engine on its own shard of the
+parameters and caches, with the same requests, and takes the same
+scheduling and sampling decisions (the steps gather the next tokens and
+the prefill logits to every rank; the generator is seeded alike
+everywhere). Sampling runs inside the sharded decode step. As in JAX the
+prefix cache is ignored with a warning and speculative decoding is
+refused. A chunk of ``decode_chunk`` steps is captured as one CUDA graph
+where the mesh's groups are NCCL or of one rank; over gloo groups it runs
+as eager steps.
+
 The engine's state (caches, lengths, last tokens) is updated in place, so
-that a captured graph reads and writes one storage for each. The device
-mesh waits for the parallel slice and is refused. PyTorch runs eagerly, so
-the JAX package's per-shape program memo has no counterpart here.
+that a captured graph reads and writes one storage for each. PyTorch runs
+eagerly, so the JAX package's per-shape program memo has no counterpart
+here (the sharded steps keep a memo of their set-up).
 """
 
 from __future__ import annotations
@@ -193,7 +204,8 @@ def _categorical(probs: torch.Tensor,
 
 
 class Engine:
-    """Single-device serving engine."""
+    """Serving engine on one device, or on this rank's shard of a mesh
+    (``mesh=``)."""
 
     def __init__(
         self,
@@ -223,10 +235,10 @@ class Engine:
         them). ``prefix_cache_slots``: the number of stored prefixes.
         ``speculative_k``: drafts verified an iteration (greedy only);
         ``draft_fn(slot, hist, k) -> k tokens`` replaces prompt-lookup
-        drafting."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving arrives with the port's parallel slice")
+        drafting. ``mesh``: a (data, expert, model) mesh
+        (``parallel.make_mesh``) this rank serves its shard of; ``params``
+        are the whole parameters, which the engine cuts to its shard, and
+        ``max_slots`` must split over the "data" axis."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, engine device "
@@ -244,7 +256,7 @@ class Engine:
         # verify forward's own argmaxes; drafts only decide how many land.
         self.spec_k = max(int(speculative_k), 0)
         if self.spec_k:
-            if self.decode_chunk > 1:
+            if mesh is not None or self.decode_chunk > 1:
                 raise ValueError("speculative_k requires single-device "
                                  "mode with decode_chunk=1")
             if temperature != 0.0 or top_k or (top_p and top_p < 1.0):
@@ -260,6 +272,29 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.caches = init_cache(cfg, max_slots, self.max_seq_len,
                                  device=self.device)
+        self._mesh = mesh
+        self._eager_chunks = self.device.type != "cuda"
+        if mesh is not None:
+            from ..parallel import mesh as meshmod
+            from ..parallel import sharded
+            dp = meshmod.axis_size(mesh, "data")
+            if max_slots % dp:
+                raise ValueError(f"max_slots {max_slots} does not split over "
+                                 f"{dp} data shards")
+            self.params = sharded.shard_params(mesh, params, cfg)
+            self.caches = sharded.shard_caches(mesh, self.caches, cfg)
+            self._decode_sampled = sharded.make_sharded_decode_step(
+                mesh, cfg, params, sample={"temperature": temperature,
+                                           "top_k": top_k, "top_p": top_p})
+            # A gloo collective cannot be captured in a CUDA graph.
+            self._eager_chunks |= any(
+                meshmod.axis_size(mesh, ax) > 1 and torch.distributed
+                .get_backend(mesh.get_group(ax)) == "gloo"
+                for ax in meshmod.AXES)
+            if prefix_cache_slots:
+                get_logger().warning(
+                    "prefix_cache_slots ignored in mesh mode (unsupported)")
+                prefix_cache_slots = 0
         self.seq_lens = torch.zeros((max_slots,), dtype=torch.int32,
                                     device=self.device)
         self.last_tokens = torch.zeros((max_slots,), dtype=torch.int32,
@@ -361,9 +396,15 @@ class Engine:
         False neither advance nor change their token; step t's tokens go
         to ``out[t]``. Every state tensor is updated in place."""
         for t in range(out.shape[0]):
-            logits, _ = decode_step(self.params, self.last_tokens,
-                                    self.caches, self.seq_lens, self.cfg)
-            nxt = torch.where(mask, self._sample(logits), self.last_tokens)
+            if self._mesh is not None:
+                sampled, _ = self._decode_sampled(
+                    self.params, self.last_tokens, self.caches,
+                    self.seq_lens, self._gen)
+            else:
+                logits, _ = decode_step(self.params, self.last_tokens,
+                                        self.caches, self.seq_lens, self.cfg)
+                sampled = self._sample(logits)
+            nxt = torch.where(mask, sampled, self.last_tokens)
             self.seq_lens.add_(mask.to(torch.int32))
             self.last_tokens.copy_(nxt)
             out[t].copy_(nxt)
@@ -374,7 +415,7 @@ class Engine:
         replays the captured graph; the first one runs eagerly on the
         stream the graph is then captured on (:meth:`_capture`)."""
         out = self._out[:chunk]
-        if chunk == 1 or self.device.type != "cuda":
+        if chunk == 1 or self._eager_chunks:
             self._decode_chunk(self._mask, out)
         elif self._graph is not None:
             self._graph.replay()
@@ -564,8 +605,14 @@ class Engine:
                 # by decode before they are attended).
                 _copy_cache_rows(self.caches, self._prefix_store,
                                  self._index(hit_dst), self._index(hit_src))
-            last_logits = _prefill(self.params, self.caches, self.cfg, toks,
-                                   total, last_i, pstart, slots)
+            if self._mesh is not None:
+                from ..parallel.sharded import make_sharded_prefill_step
+                last_logits, _ = make_sharded_prefill_step(
+                    self._mesh, self.cfg, self.params, bucket, s_pad)(
+                    self.params, self.caches, toks, slots, total)
+            else:
+                last_logits = _prefill(self.params, self.caches, self.cfg,
+                                       toks, total, last_i, pstart, slots)
             metrics.inc("engine.prefill_dispatches")
             firsts = self._sample(last_logits).cpu().numpy()   # (s_pad,)
             self.stats["prefill_time_s"] += time.perf_counter() - t0
@@ -613,7 +660,7 @@ class Engine:
             self.stats["decode_time_s"] += time.perf_counter() - t0
             self.stats["decode_steps"] += chunk
             self.stats["decode_slot_steps"] += chunk * len(active)
-            if chunk > 1 and self.device.type == "cuda" and \
+            if chunk > 1 and not self._eager_chunks and \
                     self._graph is None:
                 self._capture()
             self._emit_tokens(out_np, active, sched, emitted)

@@ -2362,3 +2362,96 @@ def test_a_cache_entry_changes_the_launched_tile(dev, tmp_path):
             fp8mod.fp8_gemm_plain(fa, fas, fb, fbs.t(), b_t=True)))
     finally:
         cachemod.reset_global_cache(None, kind=kind)
+
+
+@pytest.mark.parametrize("kind", ["act", "weight", "int8"])
+def test_quantizers_on_the_card_equal_the_cpu_bit_for_bit(dev, kind):
+    """The quantizers divide by a tensor on every device (a CUDA kernel
+    dividing by a Python scalar multiplies by its reciprocal, rounding
+    twice): the card's bytes and scales equal the CPU's, which equal the
+    JAX package's."""
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(3, 256, 640, generator=g) * torch.logspace(
+        -3, 3, 640)[None, None]
+    fn = {"act": quant.quantize_fp8_act, "weight": quant.quantize_fp8_weight,
+          "int8": lambda t: quant.quantize_int8(t, axis=-1)}[kind]
+    for got, want in zip(fn(x.to(dev)), fn(x)):
+        assert got.dtype == want.dtype
+        assert torch.equal(got.cpu().view(torch.uint8),
+                           want.view(torch.uint8))
+
+
+def test_loader_on_the_card_equals_the_cpu(dev):
+    """load_params quantizes on the device it is given: a TINY checkpoint
+    loaded on the card equals the CPU load byte for byte."""
+    import dataclasses
+    from deepgemm_ascend_tpu_torch.models import TINY, load_params
+    rng = np.random.default_rng(3)
+    cfg = TINY
+    h = cfg.hidden_size
+    w = lambda *s: rng.standard_normal(s, dtype=np.float32) * 0.02
+    state = {"model.embed_tokens.weight": w(cfg.vocab_size, h),
+             "model.norm.weight": np.ones(h, np.float32),
+             "lm_head.weight": w(cfg.vocab_size, h)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        state[p + "input_layernorm.weight"] = np.ones(h, np.float32)
+        state[p + "post_attention_layernorm.weight"] = np.ones(h, np.float32)
+        for n, o, k in (("q", cfg.q_dim, h), ("k", cfg.kv_dim, h),
+                        ("v", cfg.kv_dim, h), ("o", h, cfg.q_dim)):
+            state[p + f"self_attn.{n}_proj.weight"] = w(o, k)
+        if i < cfg.first_dense_layers:
+            pre = [("mlp.", cfg.dense_intermediate)]
+        else:
+            state[p + "mlp.gate.weight"] = w(cfg.num_experts, h)
+            pre = [(f"mlp.experts.{j}.", cfg.moe_intermediate)
+                   for j in range(cfg.num_experts)]
+            pre.append(("mlp.shared_experts.", cfg.moe_intermediate))
+        for q, inter in pre:
+            state[p + q + "gate_proj.weight"] = w(inter, h)
+            state[p + q + "up_proj.weight"] = w(inter, h)
+            state[p + q + "down_proj.weight"] = w(h, inter)
+
+    def leaves(obj):
+        if isinstance(obj, torch.Tensor):
+            yield obj
+        elif isinstance(obj, list):
+            for o in obj:
+                yield from leaves(o)
+        elif dataclasses.is_dataclass(obj):
+            for f in dataclasses.fields(obj):
+                yield from leaves(getattr(obj, f.name))
+    card = list(leaves(load_params(state, cfg, device=dev)))
+    cpu = list(leaves(load_params(state, cfg, device="cpu")))
+    assert len(card) == len(cpu)
+    for a, b in zip(card, cpu):
+        assert a.is_cuda and torch.equal(a.cpu().view(torch.uint8),
+                                          b.view(torch.uint8))
+
+
+def test_mesh_engine_on_a_local_mesh_serves_the_one_device_tokens(
+        dev, tmp_path):
+    """Engine(mesh=make_mesh(1, 1, 1)) over a one-rank NCCL group of this
+    process — the sharded steps with every axis of size 1 — serves the
+    one-device engine's tokens, and a chunk of decode steps is captured
+    (no gloo group to force eager steps)."""
+    import torch.distributed as dist
+    from deepgemm_ascend_tpu_torch.models import TINY, init_params
+    from deepgemm_ascend_tpu_torch.parallel import make_mesh, sharded
+    from deepgemm_ascend_tpu_torch.serving import Engine
+    params = init_params(0, TINY, device=dev)
+    prompts = [[1, 2, 3], list(range(5, 40)), [7] * 20, [9, 8]]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, 1)
+        for chunk in (1, 4):
+            want = Engine(params, TINY, max_slots=4, max_seq_len=128,
+                          decode_chunk=chunk, device=dev).generate(prompts, 8)
+            eng = Engine(params, TINY, max_slots=4, max_seq_len=128,
+                         decode_chunk=chunk, device=dev, mesh=mesh)
+            assert eng.generate(prompts, 8) == want
+            assert (eng._graph is not None) == (chunk > 1)
+    finally:
+        sharded.clear_program_memo()
+        dist.destroy_process_group()

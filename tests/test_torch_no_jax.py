@@ -70,6 +70,13 @@ def test_importing_the_port_loads_no_jax():
         "import deepgemm_ascend_tpu_torch.scripts.train_predictor\n"
         "import deepgemm_ascend_tpu_torch.scripts.publish_tilings\n"
         "import deepgemm_ascend_tpu_torch.scripts.report_benchmarks\n"
+        "import deepgemm_ascend_tpu_torch.models.loader\n"
+        "import deepgemm_ascend_tpu_torch.parallel.sharded\n"
+        "import deepgemm_ascend_tpu_torch.scripts.gen_golden\n"
+        "import deepgemm_ascend_tpu_torch.scripts.verify_output\n"
+        "import deepgemm_ascend_tpu_torch.scripts.torch_matmul\n"
+        "import deepgemm_ascend_tpu_torch.scripts.eval_quality\n"
+        "import deepgemm_ascend_tpu_torch.scripts.prefix_spread\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deepgemm_ascend_tpu'))\n"
         "print(bad)\n"
@@ -90,7 +97,8 @@ def _jax_tree(cfg):
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "engine",
                                    "params_from_numpy",
                                    "int8_experts_create", "run_mmad_numpy",
-                                   "deep_gemm_numpy", "select_config"])
+                                   "deep_gemm_numpy", "select_config",
+                                   "load_params"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks the CPU-only host: the default device is CUDA")
@@ -119,6 +127,9 @@ def test_entry_points_default_to_cuda(entry):
                 (np.zeros((128, 128), np.uint8), np.ones((1, 1), np.float32)))
         elif entry == "select_config":           # the default device
             select_config(16, 2048, 11008)
+        elif entry == "load_params":
+            from deepgemm_ascend_tpu_torch.models import load_params
+            load_params({}, TINY)
         else:
             Engine(init_params(0, TINY, device="cpu"), TINY, max_slots=1,
                    max_seq_len=32)

@@ -4,9 +4,10 @@ Each script's ``main([... "--device", "cpu"])`` — or, where its shapes are
 fixed at full size (the probe's rows, the headline), the function the CLI
 calls with those shapes — runs the plain path and prints its line with the
 JAX script's keys. No number printed here is a device measurement; the
-tests check the lines' form, the counts of kernels reached (plain versions
-on the CPU), and that the serve_bench mode the port lacks (``scaling``)
-raises ``NotImplementedError`` rather than skip.
+tests check the lines' form and the counts of kernels reached (plain
+versions on the CPU); ``serve_bench --mode scaling`` runs its ranks in
+spawned gloo groups. The golden, verify and quality scripts are held
+against the JAX scripts' files, exit codes and keys.
 """
 
 import json
@@ -127,9 +128,17 @@ def test_serve_bench_modes(mode, quant, keys, capsys):
 
 @pytest.mark.parametrize("argv", [["--mode", "scaling"]])
 def test_serve_bench_unported_modes_raise(argv, capsys):
-    with pytest.raises(NotImplementedError):
-        serve_bench.main(argv + SERVE)
-    assert not _json_lines(capsys.readouterr().out)
+    """The mode that raised before the sharded slice now runs: --mode
+    scaling times the sharded decode step at one rank and at two, in
+    spawned gloo groups on the CPU, with the JAX script's keys, and says
+    which backend ran and that it is not a scaling figure."""
+    assert serve_bench.main(argv + ["--devices", "2"] + SERVE) == 0
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert {"metric", "mode", "devices", "backend", "tokens_per_s_1dev",
+            "tokens_per_s_ndev", "efficiency", "note"} <= set(line)
+    assert line["mode"] == "scaling" and line["devices"] == 2
+    assert line["backend"] == "gloo-cpu" and "not a scaling" in line["note"]
+    assert line["tokens_per_s_1dev"] > 0 and line["tokens_per_s_ndev"] > 0
 
 
 def test_serve_bench_chunksweep(capsys):
@@ -421,3 +430,131 @@ def test_publish_tilings_never_publishes_the_xla_yardstick():
     (key, cfg, ms), = publish_tilings.winners(recs)
     assert cfg == GemmConfig(128, 256, 64).to_dict() and ms == 0.4
     assert key == "gemm:m2048n2048k2048:bfloat16->float32:g128"
+
+
+# ---- the golden, verify and quality scripts against the JAX scripts ----
+
+def _jax_script(name):
+    """A JAX script of ``scripts/`` as a module (its ``main(argv)``)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / name
+    spec = importlib.util.spec_from_file_location(f"jax_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+GOLDEN_FILES = ("input/x1_gm.bin", "input/x2_gm.bin", "output/golden.bin")
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32"])
+def test_gen_golden_files_byte_equal_to_jax(dtype, heavy, tmp_path):
+    from deepgemm_ascend_tpu_torch.scripts import gen_golden
+    extra = ["--dtype", dtype, "--seed", "3"] + (["--heavy-tail"] if heavy
+                                                  else [])
+    assert _jax_script("gen_golden.py").main(
+        ["16", "24", "40", "--out-dir", str(tmp_path / "jax")] + extra) == 0
+    assert gen_golden.main(
+        ["16", "24", "40", "--out-dir", str(tmp_path / "port")] + extra) == 0
+    for name in GOLDEN_FILES:
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+
+
+def _verify_case(case, tmp_path):
+    """(argv of verify_output) for one case over a fresh golden file."""
+    import numpy as np
+    from deepgemm_ascend_tpu_torch.scripts import gen_golden
+    shape = ("64", "64", "16") if case == "outliers" else ("8", "8", "8")
+    gen_golden.main([*shape, "--out-dir", str(tmp_path)])
+    g = tmp_path / "output" / "golden.bin"
+    arr = np.fromfile(g, np.float32)
+    extra = []
+    if case == "double":
+        arr = arr * 2.0
+    elif case == "short":
+        arr = arr[:-1]
+    elif case == "outliers":          # 1 of 4096: passes at 1e-3
+        arr[0] *= 100.0
+        extra = ["--max-ratio", "1e-3"]
+    out = tmp_path / "out.bin"
+    arr.tofile(out)
+    return [str(out), str(g)] + extra
+
+
+@pytest.mark.parametrize("case,rc", [("identical", 0), ("double", 1),
+                                     ("short", 2), ("outliers", 0)])
+def test_verify_output_agrees_with_jax(case, rc, tmp_path, capsys):
+    from deepgemm_ascend_tpu_torch.scripts import verify_output
+    argv = _verify_case(case, tmp_path)
+    capsys.readouterr()
+    assert _jax_script("verify_output.py").main(argv) == rc
+    want = capsys.readouterr().out.splitlines()[-1]
+    assert verify_output.main(argv) == rc
+    assert capsys.readouterr().out.splitlines()[-1] == want
+    assert want.split(":")[0].endswith(
+        {0: "PASS", 1: "FAIL", 2: "size mismatch"}[rc])
+
+
+@pytest.mark.parametrize("dtype,stored", [("float16", "float16"),
+                                          ("bfloat16", "float32")])
+def test_torch_matmul_cross_check(dtype, stored, tmp_path, capsys):
+    """torch_matmul over gen_golden's files passes verify_output against
+    the golden (a bf16 golden stores its inputs as f32)."""
+    from deepgemm_ascend_tpu_torch.scripts import (gen_golden, torch_matmul,
+                                                   verify_output)
+    shape = ["16", "24", "32"]
+    assert gen_golden.main(shape + ["--dtype", dtype, "--out-dir",
+                                    str(tmp_path)]) == 0
+    assert torch_matmul.main(shape + ["--dtype", stored, "--dir",
+                                      str(tmp_path)] + CPU) == 0
+    out = tmp_path / "output" / "torch_out.bin"
+    assert verify_output.main([str(out), str(tmp_path / "output" /
+                                             "golden.bin")]) == 0
+    assert "PASS" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def jax_quality_keys():
+    """The keys of the JAX eval_quality line, fp8 and int8 (tiny, a few
+    steps)."""
+    import contextlib
+    import io
+    mod = _jax_script("eval_quality.py")
+    keys = {}
+    for quant in ("fp8", "int8"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--model", "tiny", "--steps", "3", "--batch", "2",
+                      "--expert-quant", quant])
+        keys[quant] = set(json.loads(buf.getvalue().splitlines()[-1]))
+    return keys
+
+
+@pytest.mark.parametrize("quant", ["fp8", "int8"])
+def test_eval_quality_keys_and_gate(quant, jax_quality_keys, capsys):
+    from deepgemm_ascend_tpu_torch.scripts import eval_quality
+    _kernels.reset_counters()
+    rc = eval_quality.main(["--model", "tiny", "--steps", "6", "--batch",
+                            "2", "--expert-quant", quant] + CPU)
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert set(line) == jax_quality_keys[quant]
+    assert rc == 0 and line["ok"] and line["expert_quant"] == quant
+    experts = "int8_grouped_masked" if quant == "int8" else "grouped_gemm"
+    assert experts in _plain_calls()
+
+
+def test_prefix_spread_lines(capsys):
+    """One line a seed with the distance of the prefix cache's warm and
+    cold admissions, which the CPU's plain versions compute alike."""
+    from deepgemm_ascend_tpu_torch.scripts import prefix_spread
+    assert prefix_spread.main(["--model", "tiny", "--seeds", "2",
+                               "--system", "32"] + CPU) == 0
+    lines = _json_lines(capsys.readouterr().out)
+    assert [ln["seed"] for ln in lines] == [0, 1]
+    for ln in lines:
+        assert len(ln["rel_l2"]) == 16
+        assert 0 <= ln["max_rel_l2"] < 0.25
+        assert ln["first_tokens_differing"] <= ln["requests_differing"]

@@ -239,11 +239,23 @@ def test_engine_padding_rows_write_no_cache_row():
         assert bool((c.k_s[3, :, 1:] == 0.5).all())
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
-def test_engine_refuses_later_slice_features(kwargs):
+@pytest.mark.parametrize("kwargs", [{"mesh": "one rank"}])
+def test_engine_refuses_later_slice_features(kwargs, tmp_path):
+    """The mesh, which the engine refused before the sharded slice, now
+    serves: on a mesh of one rank (a gloo group of this process alone) the
+    engine gives the one-device engine's tokens, and the steps it runs are
+    the sharded ones."""
+    from torch_dist_worker import one_rank_mesh
     tp = tmodels.init_params(0, jmodels.TINY_DENSE, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(tp, jmodels.TINY_DENSE, device="cpu", **kwargs)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8]]
+    with one_rank_mesh(tmp_path) as mesh:
+        eng = Engine(tp, jmodels.TINY_DENSE, max_slots=2, max_seq_len=64,
+                     device="cpu", mesh=mesh)
+        assert eng._decode_sampled is not None
+        got = eng.generate(prompts, max_new_tokens=4)
+    assert got == Engine(
+        tp, jmodels.TINY_DENSE, max_slots=2, max_seq_len=64,
+        device="cpu").generate(prompts, max_new_tokens=4)
 
 
 def test_engine_temperature_sampling_runs():
