@@ -68,7 +68,7 @@ Phases, each of which raises on failure (exit code ≠ 0):
    4096-key cache). Every K2 row shows its route (``route=live/<blocks>``:
    the grid of ``flash_decode.live_blocks``), its time on route "span"
    (the design before, same inputs, ``span_ms``), and ``prev_ms``; every
-   K6 row its route and tile (``ops.int8_gemm.masked_plan`` from the MoE
+   K6 row its route and tile (``tiling.analytic.masked_plan`` from the MoE
    layer's ``expected_m``: ring 16x64 at decode, wgmma 64x64 at a
    128-token prefill forward, wgmma 128x256 at a 2048-token chunk) and
    ``prev_ms``; every K8 and K9 row its route (``contiguous_route``: K8
@@ -205,7 +205,29 @@ Phases, each of which raises on failure (exit code ≠ 0):
    through the selector's tier 2 as well; the C++ host core
    (``native.py``, built with g++) equal to the Python tiling on a grid;
    and the host µs of K1's selection at the decode path's shapes, the
-   tiers' and the wrapper's memoised one (``selection_host_cost``);
+   tiers' and the wrapper's memoised one (``selection_host_cost``).
+   The grouped GEMMs and K12 through the same tiers: (a) every compiled
+   tile of K3 (ring 16x64, 64x64) and K6 (ring 16x64, wgmma 64x64,
+   128x256) at V2_LITE's experts and phase 2's loads of a decode step, a
+   128-token prefill forward and a 2048-token chunk (cap 96, 768, 12288;
+   the MoE layer's expected_m), of K8 (wgmma16 64x128, 128x128) and K9
+   (wgmma 64x64, 128x256) on phase 2's 2048-token layouts, and of K12
+   (64x64, 128x128, 128x256) at m=16 and m=2048 of n=22016 k=2048, each
+   against its plain version and the default tile's output (bit for bit;
+   K12's equality is reported, not required), with its cold ms
+   (``check_grouped_variants``); (b) the grouped sweep in process
+   (GROUPED_SWEEPS: K3 and K6 at a decode and a prefill expected_m, K8
+   and K9 on 128-row m-tiles, at V2_LITE's expert shapes, on routed
+   top-6 loads, ``bench.loads``), each candidate's cold ms, the
+   default's and the winner's; (c) with that
+   cache as the card's, each swept shape through its public wrapper with
+   no config hitting the cache and launching the winner's tile, then an
+   entry naming another compiled tile moving the next launch to it
+   (``serve_grouped_from_cache``); the driven run's counters then also
+   show K3, K6, K8, K9 and K12 (K12 by tile from its launch count, its
+   wrapper counting no plan), and the host µs of the grouped wrappers'
+   selection, the tiers' and the memoised one
+   (``grouped_selection_host_cost``);
 9. the loader, the golden and quality scripts, and sharded serving: (a)
    ``models.load_params`` of a synthetic HF checkpoint (numpy, from a
    seed) at V2_LITE's widths, cut to 2 layers for time, on the card and
@@ -267,6 +289,7 @@ import torch
 import torch.distributed as dist
 
 from deepgemm_ascend_tpu_torch import compat, select_config
+from deepgemm_ascend_tpu_torch.bench import loads as bench_loads
 from deepgemm_ascend_tpu_torch.bench import prefill_profile
 from deepgemm_ascend_tpu_torch.bench import shapes as bench_shapes
 from deepgemm_ascend_tpu_torch.bench.roofline import bound_ms
@@ -422,7 +445,9 @@ CP_PATH = {"flash_prefill", "flash_prefill_stats", "flash_decode_read",
 # no prefill kernel; the probe adds K11 where select_config splits one of
 # its dense shapes (script_runs).
 DECODE_PATH = {"fp8_gemm", "grouped_gemm", "flash_decode"}
-TILING_PATH = {"gemm", "gemm_ksplit", "int8_gemm", "fp8_gemm"}
+TILING_PATH = {"gemm", "gemm_ksplit", "int8_gemm", "fp8_gemm", "grouped_gemm",
+               "int8_grouped_masked", "grouped_gemm_contiguous",
+               "int8_grouped_contiguous", "fp8_gemm_folded"}
 DECODE_INT8_PATH = {"fp8_gemm", "int8_grouped_masked", "flash_decode"}
 PROBE_PATH = {"copy_probe", "fp8_gemm", "fp8_gemm_folded", "grouped_gemm",
               "grouped_gemm_contiguous", "gemm"}
@@ -3435,7 +3460,12 @@ TILING_SWEEPS = (("gemm", ((2048, 2048, 2048), (1279, 5003, 7681))),
 # Each variant's headline shape in the kernels line (its phase-2 row).
 VARIANT_HEADLINE = {"gemm": "m=2048 n=2048 k=2048", "gemm_ksplit":
                     "m=16 n=2048 k=11008", "int8_gemm": "m=16 n=22016 k=2048",
-                    "fp8_gemm": "m=16 n=22016 k=2048"}
+                    "fp8_gemm": "m=16 n=22016 k=2048",
+                    "grouped_gemm": "E=32 cap=96 ",
+                    "int8_grouped_masked": "E=32 cap=96 ",
+                    "grouped_gemm_contiguous": "E=32 block_m=128",
+                    "int8_grouped_contiguous": "E=32 M_total=",
+                    "fp8_gemm_folded": "m=16 n=22016 k=2048 b_layout=t"}
 SWEEP_TIMEOUT_S = 600
 
 
@@ -3805,6 +3835,447 @@ def selection_host_cost(n_calls: int = 2000) -> list:
     return rows
 
 
+# The grouped kernels' and K12's tiles (phase 8): K3 and K6 on V2_LITE's
+# experts (E=32) at phase 2's loads of a decode step (16 tokens: cap 96),
+# a 128-token prefill forward (cap 768) and a 2048-token chunk (cap
+# 12288), with the MoE layer's expected_m; K8 and K9 on phase 2's
+# 2048-token layouts (128-row m-tiles); K12 at m=16 and m=2048 of
+# n=22016 k=2048.
+EXPERT_NK = ((2816, 2048), (2048, 1408))
+GROUPED_VARIANT_TOKENS = (16, 128, 2048)
+FOLDED_VARIANT_M = (16, 2048)
+FOLDED_VARIANT_NK = (22016, 2048)
+# The grouped sweeps, in process (op, ((E, M_max or tokens an expert,
+# expected_m), ...)) at EXPERT_NK, on routed loads (bench.loads): K3 and
+# K6 at a decode step (cap 96, 3 rows an expert: 16 tokens) and a
+# 512-token prefill forward (cap 3072, 96 rows an expert); K8 and K9 on
+# 128 tokens an expert on average in 128-row m-tiles.
+GROUPED_SWEEPS = (
+    ("grouped_gemm_masked_nt", ((32, 96, 3), (32, 3072, 96))),
+    ("int8_grouped_gemm_masked_nt", ((32, 96, 3), (32, 3072, 96))),
+    ("grouped_gemm_contiguous_nt", ((32, 128, None),)),
+    ("int8_grouped_gemm_contiguous_nt", ((32, 128, None),)))
+# Each grouped kernel: its selector op, its counter's plan label of a
+# (kernel route, tile code), and its variant rows' headline shape.
+GROUPED_KERNELS = {
+    "grouped_gemm": ("grouped_gemm_masked_nt",
+                     lambda kr, c: fp8mod.plan_label(kr, c)),
+    "int8_grouped_masked": ("int8_grouped_gemm_masked_nt",
+                            lambda kr, c: i8mod.masked_plan_label(kr, c)),
+    "grouped_gemm_contiguous": ("grouped_gemm_nt",
+                                lambda kr, c: ggmod.contiguous_plan_label(
+                                    kr, c)),
+    "int8_grouped_contiguous": ("int8_grouped_gemm_nt",
+                                lambda kr, c: i8mod.masked_plan_label(kr,
+                                                                      c))}
+SWEEP_KERNEL = {"grouped_gemm_masked_nt": "grouped_gemm",
+                "int8_grouped_gemm_masked_nt": "int8_grouped_masked",
+                "grouped_gemm_contiguous_nt": "grouped_gemm_contiguous",
+                "int8_grouped_gemm_contiguous_nt": "int8_grouped_contiguous"}
+
+
+def _valid(t: torch.Tensor, rows: list) -> torch.Tensor:
+    """A masked output's valid rows, expert after expert."""
+    return torch.cat([t[ei, :r] for ei, r in enumerate(rows) if r])
+
+
+def _masked_variants(kernel: str, tokens: int, n: int, k: int,
+                     seed: int) -> list:
+    """Every compiled tile of K3 or K6 at phase 2's loads of ``tokens``
+    routed over V2_LITE's experts, through its launch's plan: on the valid
+    rows within one bf16 ulp (K3) or bit for bit (K6) of the plain
+    version, and bit for bit the default tile's output (the wrapper with
+    no config and the MoE layer's expected_m)."""
+    e, bf16 = V2_LITE.num_experts, torch.bfloat16
+    cap = tokens * 6
+    expected = -(-cap // e)
+    masked_m = _masked_m(e, tokens, 6, seed)
+    rows = masked_m.tolist()
+    valid, active = sum(rows), sum(1 for r in rows if r)
+    op, label = GROUPED_KERNELS[kernel]
+    if kernel == "int8_grouped_masked":
+        a_q, a_s, b_q, b_s = _int8_operands((e, cap, k), (e, n, k), seed + 1)
+        launch = lambda p: i8mod._launch_masked(
+            a_q, a_s, b_q, b_s, masked_m, True, bf16, plan=p,
+            expected_m=expected)
+        default = lambda: i8mod.m_grouped_int8_gemm_masked(
+            a_q, a_s, b_q, b_s, masked_m, b_layout="t", expected_m=expected)
+        plain = lambda: i8mod.grouped_masked_plain(a_q, a_s, b_q, b_s,
+                                                   masked_m, b_t=True)
+        close = torch.equal
+        nbytes = (valid * (k + 4) + active * (n * k + n * 4)
+                  + valid * n * 2 + e * 4)
+        bound = bound_ms(nbytes, 2.0 * valid * n * k, INT8_OPS_PER_S)
+    else:
+        g = _gen(seed + 1)
+        a_q, a_s = quant.quantize_fp8_act(
+            torch.randn(e, cap, k, generator=g, device=DEV))
+        b_q, b_s = quant.quantize_fp8_weight(
+            torch.randn(e, n, k, generator=g, device=DEV) / math.sqrt(k))
+        bs_view = b_s.transpose(1, 2)
+        launch = lambda p: ggmod._launch(a_q, a_s, b_q, bs_view,
+                                         fp8mod._SHIFT, masked_m, True, bf16,
+                                         plan=p, expected_m=expected)
+        default = lambda: ggmod.m_grouped_gemm_masked(
+            a_q, a_s, b_q, b_s, masked_m, b_layout="t", expected_m=expected)
+        plain = lambda: ggmod.grouped_gemm_masked_plain(
+            a_q, a_s, b_q, bs_view, masked_m, b_t=True)
+        close = within_one_bf16_ulp
+        kb = k // 128
+        nbytes = (valid * (k + kb * 4) + active * (n * k + (n // 128) * kb
+                                                   * 4)
+                  + valid * n * 2 + e * 4)
+        bound = bound_ms(nbytes, 2.0 * valid * n * k, FP8_OPS_PER_S)
+    ref, base = _valid(plain(), rows), _valid(default(), rows)
+    plain_ms = cold_ms(plain, reps=3)
+    rt = analytic.expected_route(op, cap, n, k, a_q.dtype)
+    out = []
+    for _, tile in analytic.route_tiles(op, rt):
+        p = analytic.kernel_plan(op, rt, *tile)
+        got = _valid(launch(p), rows)
+        torch.cuda.synchronize()
+        equals = bool(torch.equal(got, base))
+        out.append(_variant_row(
+            kernel, label(*p), f"E={e} cap={cap} valid_rows={valid} n={n} "
+            f"k={k} expected_m={expected}", got, ref,
+            close(got, ref) and equals, lambda p=p: launch(p), plain_ms,
+            bound, equals))
+    return out
+
+
+def _contiguous_variants(kernel: str, n: int, k: int, seed: int) -> list:
+    """Every compiled tile of K8 or K9 on phase 2's 2048-token layout
+    (128-row m-tiles), through its launch's plan: within one bf16 ulp (K8)
+    or bit for bit (K9) of the plain version, and bit for bit the default
+    tile's output (the wrapper with no config)."""
+    e, bf16 = V2_LITE.num_experts, torch.bfloat16
+    counts = _masked_m(e, 2048, 6, seed).tolist()
+    m, gids, _ = ggmod.make_contiguous_layout(counts, 128)
+    ids = torch.from_numpy(gids)
+    active = sum(1 for c in counts if c)
+    op, label = GROUPED_KERNELS[kernel]
+    if kernel == "int8_grouped_contiguous":
+        a_q, a_s, b_q, b_s = _int8_operands((m, k), (e, n, k), seed + 1)
+        launch = lambda p: i8mod._launch_contiguous(a_q, a_s, b_q, b_s, ids,
+                                                    128, True, bf16, plan=p)
+        default = lambda: i8mod.m_grouped_int8_gemm_contiguous(
+            a_q, a_s, b_q, b_s, ids, b_layout="t")
+        plain = lambda: i8mod.grouped_contiguous_plain(a_q, a_s, b_q, b_s,
+                                                       ids, b_t=True)
+        close = torch.equal
+        nbytes = (m * (k + 4) + active * (n * k + n * 4) + m * n * 2
+                  + gids.size * 4)
+        bound = bound_ms(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+        shape = f"E={e} M_total={m} tokens={sum(counts)} n={n} k={k}"
+    else:
+        g = _gen(seed + 1)
+        a_q, a_s = quant.quantize_fp8_act(
+            torch.randn(m, k, generator=g, device=DEV))
+        b_q, b_s = quant.quantize_fp8_weight(
+            torch.randn(e, n, k, generator=g, device=DEV) / math.sqrt(k))
+        bs_view = b_s.transpose(1, 2)
+        launch = lambda p: ggmod._launch_contiguous(
+            a_q, a_s, b_q, bs_view, fp8mod._SHIFT, ids, 128, True, bf16,
+            plan=p)
+        default = lambda: ggmod.m_grouped_gemm_contiguous(
+            a_q, a_s, b_q, b_s, ids, b_layout="t")
+        plain = lambda: ggmod.grouped_gemm_contiguous_plain(
+            a_q, a_s, b_q, bs_view, ids, b_t=True)
+        close = within_one_bf16_ulp
+        kb = k // 128
+        nbytes = (m * (k + kb * 4) + active * (n * k + (n // 128) * kb * 4)
+                  + m * n * 2 + gids.size * 4)
+        bound = bound_ms(nbytes, 2.0 * m * n * k, FP8_OPS_PER_S)
+        shape = (f"E={e} block_m=128 M_total={m} tokens={sum(counts)} "
+                 f"n={n} k={k}")
+    ref, base = plain(), default()
+    plain_ms = cold_ms(plain, reps=3)
+    rt = analytic.expected_route(op, 128, n, k, a_q.dtype)
+    out = []
+    for _, tile in analytic.route_tiles(op, rt):
+        p = analytic.kernel_plan(op, rt, *tile)
+        got = launch(p)
+        torch.cuda.synchronize()
+        equals = bool(torch.equal(got, base))
+        out.append(_variant_row(kernel, label(*p), shape, got, ref,
+                                close(got, ref) and equals,
+                                lambda p=p: launch(p), plain_ms, bound,
+                                equals))
+    return out
+
+
+def _folded_variants(m: int, n: int, k: int, seed: int) -> list:
+    """Every compiled tile of K12 through a caller's config: within the
+    plain version's tolerance (the same bf16 operands, another f32 sum
+    order) and FOLDED_REL_L2 of K1; ``equals_default`` says whether it
+    gives the default tile's bits, which is not required (module
+    docstring of phase 8)."""
+    g = _gen(seed)
+    a_q, a_s = quant.quantize_fp8_act(
+        torch.randn(m, k, generator=g, device=DEV))
+    b_q, b_s = quant.quantize_fp8_weight(
+        torch.randn(n, k, generator=g, device=DEV) / math.sqrt(k))
+    kw = dict(b_layout="t", scale_mode="folded", allow_relaxed=True)
+    plain = lambda: fp8mod.fp8_gemm_folded_plain(a_q, a_s, b_q, b_s.t(),
+                                                 b_t=True)
+    ref, base = plain(), fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, **kw)
+    k1 = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, b_layout="t",
+                         out_dtype=torch.float32)
+    a_sc, b_sc = fp8mod.fold_operands(a_q, a_s, b_q, b_s.t(), b_t=True)
+    plain_ms = cold_ms(plain, reps=3)
+    kb = k // 128
+    nbytes = m * k + m * kb * 4 + n * k + (n // 128) * kb * 4 + m * n * 2
+    bound = bound_ms(nbytes, 2.0 * m * n * k, BF16_OPS_PER_S)
+    out = []
+    for bm, bn in analytic.FOLDED_TILES:
+        run = (lambda c=GemmConfig(bm, bn, 128): fp8mod.fp8_gemm(
+            a_q, a_s, b_q, b_s, config=c, **kw))
+        got = run()
+        torch.cuda.synchronize()
+        rel = float((got.float() - k1).norm() / k1.norm())
+        row = _variant_row(
+            "fp8_gemm_folded", f"folded {bm}x{bn}",
+            f"m={m} n={n} k={k} b_layout=t", got, ref,
+            gemm_close(got, ref, a_sc, b_sc) and rel < FOLDED_REL_L2, run,
+            plain_ms, bound, bool(torch.equal(got, base)))
+        out.append({**row, "rel_l2_vs_k1": rel})
+    return out
+
+
+def check_grouped_variants() -> list:
+    """Phase 8 (a): every compiled tile of K3, K6, K8, K9 and K12 at
+    phase 2's grouped shapes (``_masked_variants``,
+    ``_contiguous_variants``, ``_folded_variants``), with its cold ms."""
+    rows = []
+    for tokens in GROUPED_VARIANT_TOKENS:
+        for n, k in EXPERT_NK:
+            for kernel in ("grouped_gemm", "int8_grouped_masked"):
+                rows += _masked_variants(kernel, tokens, n, k,
+                                         seed=370 + tokens + n)
+    for n, k in EXPERT_NK:
+        for kernel in ("grouped_gemm_contiguous", "int8_grouped_contiguous"):
+            rows += _contiguous_variants(kernel, n, k, seed=380 + n)
+    for m in FOLDED_VARIANT_M:
+        rows += _folded_variants(m, *FOLDED_VARIANT_NK, seed=390 + m)
+    return rows
+
+
+def _grouped_sweep(tmp: str) -> list:
+    """Phase 8 (b): GROUPED_SWEEPS through ``scripts/autotune_sweep`` in
+    this process, the winners into the tiling cache in ``tmp``: their JSON
+    lines."""
+    from deepgemm_ascend_tpu_torch.scripts import autotune_sweep
+    out = []
+    for op, shapes in GROUPED_SWEEPS:
+        for e, m, em in shapes:
+            argv = ["--op", op, "--out-dir", tmp, "--in-process",
+                    "--cache", os.path.join(tmp, "tilings.jsonl"),
+                    "--shapes", *(str(x) for n, k in EXPERT_NK
+                                  for x in (e, m, n, k))]
+            if em is not None:
+                argv += ["--expected-m", str(em)]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = autotune_sweep.main(argv)
+            if rc != 0:
+                raise RuntimeError(f"autotune_sweep --op {op}: rc {rc}")
+            for line in buf.getvalue().splitlines():
+                if line.startswith("{"):
+                    out.append(json.loads(line))
+                else:
+                    log(f"  {line}")
+    return out
+
+
+def _grouped_call(op: str, e: int, m: int, n: int, k: int, em):
+    """The public wrapper of a swept grouped op at its shape with no
+    config (the tiers'), on the sweep's routed loads (``bench.loads``): E
+    experts of M_max rows, ``em`` expected an expert, or E experts of M
+    tokens on average laid out in min(128, M)-row m-tiles."""
+    seed = 400 + m + n
+    bf16 = torch.bfloat16
+    if "masked" in op:
+        mm = bench_loads.routed_masked_m(
+            e, m, em if em is not None else m, generator=_gen(seed + 1),
+            device=DEV)
+        if op.startswith("int8"):
+            a_q, a_s, b_q, b_s = _int8_operands((e, m, k), (e, n, k), seed)
+            return lambda: i8mod.m_grouped_int8_gemm_masked(
+                a_q, a_s, b_q, b_s, mm, b_layout="t", expected_m=em)
+        g = _gen(seed)
+        a_q, a_s = quant.quantize_fp8_act(
+            torch.randn(e, m, k, generator=g, device=DEV))
+        b_q, b_s = quant.quantize_fp8_weight(
+            torch.randn(e, n, k, generator=g, device=DEV) / math.sqrt(k))
+        return lambda: ggmod.m_grouped_gemm_masked(
+            a_q, a_s, b_q, b_s, mm, b_layout="t", expected_m=em)
+    m_total, gids, _ = ggmod.make_contiguous_layout(
+        bench_loads.routed_counts(e, m, generator=_gen(seed + 1),
+                                  device=DEV),
+        min(128, m))
+    ids = torch.from_numpy(gids)
+    if op.startswith("int8"):
+        a_q, a_s, b_q, b_s = _int8_operands((m_total, k), (e, n, k), seed)
+        return lambda: i8mod.m_grouped_int8_gemm_contiguous(
+            a_q, a_s, b_q, b_s, ids, b_layout="t", out_dtype=bf16)
+    g = _gen(seed)
+    a_q, a_s = quant.quantize_fp8_act(
+        torch.randn(m_total, k, generator=g, device=DEV))
+    b_q, b_s = quant.quantize_fp8_weight(
+        torch.randn(e, n, k, generator=g, device=DEV) / math.sqrt(k))
+    return lambda: ggmod.m_grouped_gemm_contiguous(a_q, a_s, b_q, b_s, ids,
+                                                   b_layout="t")
+
+
+def _launched_labels(call) -> set:
+    """(counter, plan label) of every launch ``call`` made."""
+    before = {name: dict(c.plans) for name, c in _kernels.COUNTERS.items()}
+    call()
+    torch.cuda.synchronize()
+    return {(name, lab) for name, c in _kernels.COUNTERS.items()
+            for lab, cnt in c.plans.items()
+            if cnt != before[name].get(lab, 0)}
+
+
+def serve_grouped_from_cache(gsweeps: list, kind: str) -> list:
+    """Phase 8 (c), with the swept cache as the card's: each swept shape
+    through its public wrapper with no config hits the cache
+    (``tiling.cache_hit``) and launches the winner's tile
+    (``Counter.plans``); then an entry naming another compiled tile of the
+    route, set in the card's cache, moves the next launch to that tile."""
+    from deepgemm_ascend_tpu_torch.tiling import cache as cachemod
+    from deepgemm_ascend_tpu_torch.tiling.selector import key_extra
+    out = []
+    for row in gsweeps:
+        op, sop = row["op"], row["op"].replace("grouped_gemm_contiguous",
+                                               "grouped_gemm")
+        kernel = SWEEP_KERNEL[op]
+        label = GROUPED_KERNELS[kernel][1]
+        e, m, n, k, em = (row["e"], row["m"], row["n"], row["k"],
+                          row["expected_m"])
+        dt = torch.int8 if op.startswith("int8") else torch.float8_e4m3fn
+        rt = analytic.expected_route(sop, m, n, k, dt)
+        call = _grouped_call(op, e, row["shape_m"], n, k, em)
+        win = GemmConfig.from_dict(row["winner_config"])
+        hits = engine_metrics.snapshot().get("tiling.cache_hit", 0)
+        launched = _launched_labels(call)
+        hit = engine_metrics.snapshot().get("tiling.cache_hit", 0) - hits
+        want = {(kernel, label(*analytic.kernel_plan(sop, rt, win.block_m,
+                                                     win.block_n)))}
+        other = next(t for _, t in analytic.route_tiles(sop, rt)
+                     if t != (win.block_m, win.block_n)
+                     and analytic.tile_admits(sop, rt, *t, m, n))
+        key = cachemod.cache_key(sop, m, n, k, cachemod.dtype_name(dt),
+                                 "bfloat16", key_extra(sop, m, 128, 1, em))
+        cachemod.global_cache(kind).set(key, GemmConfig(*other, 128),
+                                        persist=False)
+        moved = _launched_labels(call)
+        want_moved = {(kernel, label(*analytic.kernel_plan(sop, rt,
+                                                           *other)))}
+        ok = hit == 1 and launched == want and moved == want_moved
+        out.append({"op": sop, "key": key, "winner": row["winner"],
+                    "cache_hit": hit, "launched": sorted(launched),
+                    "entry": "%dx%d" % other, "then_launched": sorted(moved),
+                    "ok": ok})
+        if not ok:
+            raise RuntimeError(f"cache-served {key}: hit {hit}, launched "
+                               f"{launched} vs {want}, then {moved} vs "
+                               f"{want_moved}")
+    return out
+
+
+def _grouped_variant_calls() -> list:
+    """One public-wrapper call per grouped and K12 tile that a caller's
+    config names (K8's 64 x 128 tile at 128-row m-tiles only the tiers
+    name: ``serve_grouped_from_cache``): (counter, label, call)."""
+    calls = []
+    e, (n, k) = V2_LITE.num_experts, EXPERT_NK[0]
+    loads = _masked_m(e, 16, 6, 410)
+    a_q, a_s = quant.quantize_fp8_act(torch.randn(e, 96, k, generator=_gen(
+        411), device=DEV))
+    b_q, b_s = quant.quantize_fp8_weight(torch.randn(
+        e, n, k, generator=_gen(412), device=DEV) / math.sqrt(k))
+    i_aq, i_as, i_bq, i_bs = _int8_operands((e, 96, k), (e, n, k), 413)
+    for kernel, fn, args in (
+            ("grouped_gemm", ggmod.m_grouped_gemm_masked,
+             (a_q, a_s, b_q, b_s, loads)),
+            ("int8_grouped_masked", i8mod.m_grouped_int8_gemm_masked,
+             (i_aq, i_as, i_bq, i_bs, loads))):
+        op, label = GROUPED_KERNELS[kernel]
+        rt = analytic.expected_route(op, 96, n, k, args[0].dtype)
+        for _, t in analytic.route_tiles(op, rt):
+            calls.append((kernel, label(*analytic.kernel_plan(op, rt, *t)),
+                          lambda fn=fn, args=args, c=GemmConfig(*t, 128):
+                          fn(*args, config=c, b_layout="t")))
+    ids = torch.arange(e, dtype=torch.int32)
+    c_aq, c_as = quant.quantize_fp8_act(torch.randn(
+        e * 128, k, generator=_gen(414), device=DEV))
+    ci_aq, ci_as, _, _ = _int8_operands((e * 128, k), (1, n, k), 415)
+    calls.append(("grouped_gemm_contiguous", "wgmma16 128x128",
+                  lambda: ggmod.m_grouped_gemm_contiguous(
+                      c_aq, c_as, b_q, b_s, ids, b_layout="t",
+                      config=GemmConfig(128, 128, 128))))
+    for bn, lab in ((64, "wgmma 64x64"), (256, "wgmma 128x256")):
+        calls.append(("int8_grouped_contiguous", lab,
+                      lambda bn=bn: i8mod.m_grouped_int8_gemm_contiguous(
+                          ci_aq, ci_as, i_bq, i_bs, ids, b_layout="t",
+                          config=GemmConfig(128, bn, 128))))
+    g = _gen(416)
+    fn_, fk = FOLDED_VARIANT_NK
+    f_aq, f_as = quant.quantize_fp8_act(torch.randn(2048, fk, generator=g,
+                                                    device=DEV))
+    f_bq, f_bs = quant.quantize_fp8_weight(
+        torch.randn(fn_, fk, generator=g, device=DEV) / math.sqrt(fk))
+    for bm, bn in analytic.FOLDED_TILES:
+        calls.append(("fp8_gemm_folded", f"folded {bm}x{bn}",
+                      lambda c=GemmConfig(bm, bn, 128): fp8mod.fp8_gemm(
+                          f_aq, f_as, f_bq, f_bs, config=c, b_layout="t",
+                          scale_mode="folded", allow_relaxed=True)))
+    return calls
+
+
+def grouped_selection_host_cost(n_calls: int = 2000) -> list:
+    """Host µs a call of the grouped wrappers' selection takes at the
+    decode path's shapes (K3 and K6 at V2_LITE's experts, cap 96,
+    expected_m 3): the tiers (``select_config`` then ``fit_route``) and
+    the memoised selection the wrappers make
+    (``grouped_gemm.selected_tile``), each the mean of ``n_calls``
+    calls."""
+    from deepgemm_ascend_tpu_torch.tiling.selector import fit_route
+    bf16 = torch.bfloat16
+    rows = []
+    for op, dt in (("grouped_gemm_masked_nt", torch.float8_e4m3fn),
+                   ("int8_grouped_gemm_masked_nt", torch.int8)):
+        for n, k in EXPERT_NK:
+            m = 96
+            rt = analytic.expected_route(op, m, n, k, dt)
+
+            def tiers():
+                cfg = select_config(m, n, k, dt, bf16, op=op,
+                                    k_granularity=128, device=DEV,
+                                    expected_m=3)
+                cfg = fit_route(cfg, rt, m, n, k, dt, bf16, op=op,
+                                device=DEV, expected_m=3)
+                return cfg.block_m, cfg.block_n
+
+            def memo():
+                return ggmod.selected_tile(op, rt, m, n, k, dt, bf16, DEV,
+                                           3)
+            us = {}
+            for name, fn in (("tiers", tiers), ("memo", memo)):
+                fn()
+                t0 = time.perf_counter()
+                for _ in range(n_calls):
+                    fn()
+                us[name] = (time.perf_counter() - t0) / n_calls * 1e6
+            if tiers() != memo():
+                raise RuntimeError(f"{op} {m}x{n}x{k}: the memo's tile is "
+                                   f"not the tiers'")
+            rows.append({"shape": f"{op} m={m} n={n} k={k} expected_m=3",
+                         "tiers_us": us["tiers"], "memo_us": us["memo"]})
+    return rows
+
+
 def phase_tiling(device: dict) -> dict:
     """The tiling tiers on the card: every compiled variant against its
     plain version (``check_variants``); a sweep of TILING_SWEEPS in child
@@ -3824,6 +4295,9 @@ def phase_tiling(device: dict) -> dict:
     info = platmod.detect(DEV)
     kind = info.device_kind
     variants = check_variants()
+    t_grouped = time.perf_counter()
+    variants += check_grouped_variants()
+    grouped_s = {"variants": time.perf_counter() - t_grouped}
     bad = [(r["kernel"], r["variant"], r["shape"]) for r in variants
            if not r["ok"]]
     for r in variants:
@@ -3841,6 +4315,9 @@ def phase_tiling(device: dict) -> dict:
     try:
         sweeps = _sweep(tmp)
         sweep_s = time.perf_counter() - t0
+        t_grouped = time.perf_counter()
+        gsweeps = _grouped_sweep(tmp)
+        grouped_s["sweep"] = time.perf_counter() - t_grouped
         files_by_op = {op: [os.path.join(tmp, f) for f in sorted(
             os.listdir(tmp)) if f.startswith(op + "_") and
             f.endswith(".jsonl")] for op, _ in TILING_SWEEPS}
@@ -3850,12 +4327,36 @@ def phase_tiling(device: dict) -> dict:
                 with open(path) as f:
                     failed += [(op, line.strip()) for line in f
                                if not json.loads(line)["correct"]]
+        # The grouped sweeps: every kernel candidate through the gate (the
+        # XLA yardstick's gate result is logged, as it never wins).
+        for op, _ in GROUPED_SWEEPS:
+            for f in sorted(os.listdir(tmp)):
+                if not (f.startswith(op + "_") and f.endswith(".jsonl")):
+                    continue
+                with open(os.path.join(tmp, f)) as fh:
+                    for line in fh:
+                        rec = json.loads(line)
+                        if rec["correct"]:
+                            continue
+                        if rec["config"].get("kernel_type") == int(
+                                KernelType.XLA):
+                            log(f"  sweep {f}: the XLA yardstick failed "
+                                f"the gate")
+                        else:
+                            failed.append((op, line.strip()))
         for row in sweeps:
             log(f"  sweep {row['op']:12s} m={row['m']} n={row['n']} "
                 f"k={row['k']}: candidates ms {row['candidates_ms']}; "
                 f"analytic default {row['default']} "
                 f"{row['default_ms']} ms; winner {row['winner']} "
                 f"{row['winner_ms']} ms")
+        for row in gsweeps:
+            log(f"  sweep {row['op']:31s} E={row['e']} M={row['shape_m']} "
+                f"n={row['n']} k={row['k']} expected_m={row['expected_m']} "
+                f"(key m={row['m']}): candidates ms "
+                f"{row['candidates_ms']}; analytic default "
+                f"{row['default']} {row['default_ms']} ms; winner "
+                f"{row['winner']} {row['winner_ms']} ms")
         if failed:
             raise RuntimeError(f"sweep candidates failed the gate: "
                                f"{failed}")
@@ -3892,20 +4393,30 @@ def phase_tiling(device: dict) -> dict:
                 raise RuntimeError(f"cache-served {op} {m}x{n}x{k}: hit "
                                    f"{hit - before}, {cfg} vs winner {win}, "
                                    f"launched {launched} vs {want}")
-        calls = _variant_calls()
-        for _, _, call in calls:
+        grouped_served = serve_grouped_from_cache(gsweeps, kind)
+        calls = _variant_calls() + _grouped_variant_calls()
+        k12 = _kernels.COUNTERS["fp8_gemm_folded"]
+        folded = {}
+        for name, lab, call in calls:
+            before = k12.launches
             call()
+            if name == "fp8_gemm_folded":
+                folded[lab] = folded.get(lab, 0) + k12.launches - before
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         counts = counts_now()
         plans = launch_plans()
         missing = [(name, lab) for name, lab, _ in calls
-                   if not plans.get(name, {}).get(lab)]
+                   if not (folded if name == "fp8_gemm_folded" else
+                           plans.get(name, {})).get(lab)]
         log(f"tiling: {len(variants)} variant rows held to their plain "
             f"versions; sweep of {len(sweeps)} shapes in child processes "
             f"in {sweep_s:.1f} s; the driven run (cache-served calls and "
             f"each compiled variant) {wall:.2f} s wall; {device['smi']}")
         log(f"  cache-served: {served}")
+        log(f"  cache-served grouped: {grouped_served}")
+        log(f"  K12 launches by tile (its wrapper counts no plan): "
+            f"{folded}")
         log(f"  counters (launches, plain calls): {counts}")
         log(f"  launches by plan: {plans}")
         if missing:
@@ -3924,13 +4435,24 @@ def phase_tiling(device: dict) -> dict:
             log(f"  K1 selection host cost {r['shape']}: tiers "
                 f"{r['tiers_us']:.2f} us/call, memoised "
                 f"{r['memo_us']:.2f} us/call")
+        grouped_cost = grouped_selection_host_cost()
+        for r in grouped_cost:
+            log(f"  grouped selection host cost {r['shape']}: tiers "
+                f"{r['tiers_us']:.2f} us/call, memoised "
+                f"{r['memo_us']:.2f} us/call")
+        log(f"  grouped additions: variant rows {grouped_s['variants']:.1f} "
+            f"s, sweeps {grouped_s['sweep']:.1f} s")
     finally:
         cachemod.reset_global_cache(None, kind=kind)
         tmp_dir.cleanup()
     return {"run": "tiling", "wall_s": wall, "counts": counts,
-            "plans": plans, "variants": variants, "sweeps": sweeps,
-            "served": served, "predictor": predictor_rows, "native": core,
-            "selection_host_us": host_cost}
+            "plans": plans, "folded_launches": folded, "variants": variants,
+            "sweeps": sweeps, "grouped_sweeps": gsweeps,
+            "served": served, "grouped_served": grouped_served,
+            "predictor": predictor_rows, "native": core,
+            "selection_host_us": host_cost,
+            "grouped_selection_host_us": grouped_cost,
+            "grouped_s": grouped_s}
 
 
 # ---------------------------------------------------------------- main
@@ -4473,7 +4995,8 @@ def variant_entries(kernels: dict, tiling: dict) -> list:
     for r in tiling["variants"]:
         by_var.setdefault((r["kernel"], r["variant"]), []).append(r)
     for (name, label), rows in by_var.items():
-        launches = tiling["plans"].get(name, {}).get(label, 0)
+        launches = (tiling["folded_launches"] if name == "fp8_gemm_folded"
+                    else tiling["plans"].get(name, {})).get(label, 0)
         if not launches:
             continue
         head = next((r for r in rows

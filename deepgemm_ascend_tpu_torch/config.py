@@ -4,15 +4,16 @@ Port of ``deepgemm_ascend_tpu/config.py`` (pure Python, copied). Of a
 config the ported ops read: ``kernel_type`` (all of them; ``XLA``: the
 JAX package's product outside Pallas, plain torch ops); ``block_m ×
 block_n`` as the tile of K10/K11 (``ops/gemm.py``), K7
-(``ops/int8_gemm.py``) and K1 (``ops/fp8_gemm.py``), which must be one of
-the kernel's compiled tiles on the route the operands take
-(``tiling/analytic.py:TILES``; else ``ValueError``); ``k_split`` (K11,
-and K1's ring, whose splits are CTAs of a cluster); ``swizzle`` and
-``pad_k`` (the dense GEMM); ``block_m`` of the contiguous grouped GEMMs,
-where it fixes the layout's m-tile. ``block_k`` is the kernels' fixed K
-step (64 16-bit elements, 128 int8, one 128-deep fp8 group);
-``vmem_limit_bytes`` and ``expert_coalesce`` are TPU knobs the port does
-not read (the grouped kernels have no tile variants yet: ROADMAP.md).
+(``ops/int8_gemm.py``), K1 and K12 (``ops/fp8_gemm.py``) and the masked
+grouped GEMMs K3 and K6, which must be one of the kernel's compiled tiles
+on the route the operands take (``tiling/analytic.py:TILES``; else
+``ValueError``); ``k_split`` (K11, and K1's ring, whose splits are CTAs
+of a cluster); ``swizzle`` and ``pad_k`` (the dense GEMM); ``block_m`` of
+a caller's config for the contiguous grouped GEMMs (K8, K9), where it
+fixes the layout's m-tile and ``block_n`` names the tile's columns
+(``ops/grouped_gemm.py``). ``block_k`` is the kernels' fixed K step (64
+16-bit elements, 128 int8, one 128-deep fp8 group); ``vmem_limit_bytes``
+and ``expert_coalesce`` are TPU knobs the port does not read.
 
 TPU-native counterpart of two reference structures:
 

@@ -35,10 +35,12 @@
 //     warpgroup folds B, and the consumer warpgroups fold A of stage
 //     kb + 1 right after issuing stage kb's products, while those run;
 //   * consumer warpgroups run wgmma on the bf16 ring (sm90::mma_loop).
-// Tiles: 128 x 256 (128 x 128 where n is not a multiple of 256; two
-// consumer warpgroups, one fold warpgroup, 3 bf16 stages) for m > 64;
-// 64 x 64 (one each, three blocks an SM) for m <= 64, where the weight
-// bytes bound it, and wherever the large tile would leave most SMs idle.
+// Tiles, the caller's (a tile code from tiling/analytic.py): 128 x 256
+// (n a multiple of 256) and 128 x 128 (two consumer warpgroups, one fold
+// warpgroup, 3 bf16 stages), 64 x 64 (one each, three blocks an SM). The
+// analytic default takes the 128-row tiles for m > 64 where their grid
+// fills the card, 64 x 64 at m <= 64, where the weight bytes bound it, and
+// wherever the large tile would leave most SMs idle.
 // Bound on the card: as K1 (weight bytes at decode, tensor cores at
 // prefill: here the bf16 rate, 989 TFLOP/s, since the product is bf16).
 // At prefill the fold costs more than the math hides, so K12 runs below
@@ -357,20 +359,23 @@ int run_folded(const void* a, const void* a_s, const void* b, const void* b_s, v
       ta, tb, p);
 }
 
-// The tile (sm90::large_tile): 128 x 256 (or 128 x 128 where n is not a
-// multiple of 256), or 64 x 64 with three blocks an SM.
+// The caller's tile (tiling/analytic.py: TILES[("fp8", "folded")]): 0 is
+// 64 x 64 with three blocks an SM, 1 128 x 128, 2 128 x 256 (n a multiple
+// of 256 only: the grid covers n / 256 tiles).
 template <bool B_KMAJOR, typename OutT>
-int tile_folded(const void* a, const void* a_s, const void* b, const void* b_s, void* c, int m,
-                int n, int k, long long bs_g, long long bs_n, int bs_shift, cudaStream_t s) {
-  const long long rows128 = (m + 127) / 128;
-  if (n % 256 == 0 && s9::large_tile(m, rows128 * (n / 256)))
-    return run_folded<128, 256, 3, 3, B_KMAJOR, OutT>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n,
-                                                       bs_shift, s);
-  if (n % 256 != 0 && s9::large_tile(m, rows128 * (n / 128)))
+int tile_folded(int tile, const void* a, const void* a_s, const void* b, const void* b_s, void* c,
+                int m, int n, int k, long long bs_g, long long bs_n, int bs_shift,
+                cudaStream_t s) {
+  if (tile == 0)
+    return run_folded<64, 64, 3, 3, B_KMAJOR, OutT>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n,
+                                                     bs_shift, s);
+  if (tile == 1)
     return run_folded<128, 128, 3, 6, B_KMAJOR, OutT>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n,
                                                        bs_shift, s);
-  return run_folded<64, 64, 3, 3, B_KMAJOR, OutT>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n,
-                                                   bs_shift, s);
+  if (tile == 2 && n % 256 == 0)
+    return run_folded<128, 256, 3, 3, B_KMAJOR, OutT>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n,
+                                                       bs_shift, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <bool B_KMAJOR, typename OutT>
@@ -387,7 +392,7 @@ void launch(const dga::GemmArgs& p, void* c, cudaStream_t stream) {
 bool bad_shape(int m, int n, int k) { return m <= 0 || n % dga::kBN || k % dga::kGroup; }
 
 // Layouts and output types of K1 (FOLDED false; its route, ring tile and
-// splits) and K12.
+// splits) and K12 (its tile).
 template <bool FOLDED>
 int run(const void* a, const void* a_s, const void* b, const void* b_s, void* c, int m, int n,
         int k, long long sbk, long long sbn, long long bs_g, long long bs_n, int bs_shift,
@@ -399,12 +404,14 @@ int run(const void* a, const void* a_s, const void* b, const void* b_s, void* c,
     // The two layouts the maps describe: (n, k) and (k, n), both dense.
     if (kmajor ? sbn != k : sbn != 1 || sbk != n) return (int)cudaErrorInvalidValue;
     if (kmajor && out_f32)
-      return tile_folded<true, float>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
+      return tile_folded<true, float>(tile, a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
     if (kmajor)
-      return tile_folded<true, __nv_bfloat16>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
+      return tile_folded<true, __nv_bfloat16>(tile, a, a_s, b, b_s, c, m, n, k, bs_g, bs_n,
+                                              bs_shift, s);
     if (out_f32)
-      return tile_folded<false, float>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
-    return tile_folded<false, __nv_bfloat16>(a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
+      return tile_folded<false, float>(tile, a, a_s, b, b_s, c, m, n, k, bs_g, bs_n, bs_shift, s);
+    return tile_folded<false, __nv_bfloat16>(tile, a, a_s, b, b_s, c, m, n, k, bs_g, bs_n,
+                                             bs_shift, s);
   } else if (route == dga::kRouteRing) {
     // TMA reads B as (n, k) rows of k bytes: K-major and dense only.
     if (sbk != 1 || sbn != k) return (int)cudaErrorInvalidValue;
@@ -440,12 +447,13 @@ extern "C" int dga_fp8_gemm(const void* a, const void* a_s, const void* b,
                     tile, splits, stream);
 }
 
-// K12: the same operands and addressing, folded scales.
+// K12: the same operands and addressing, folded scales; tile: 0 64 x 64,
+// 1 128 x 128, 2 128 x 256 (tile_folded).
 extern "C" int dga_fp8_gemm_folded(const void* a, const void* a_s, const void* b,
                                    const void* b_s, void* c, int m, int n, int k,
                                    long long sbk, long long sbn, long long bs_g,
                                    long long bs_n, int bs_shift, int out_f32,
-                                   void* stream) {
-  return run<true>(a, a_s, b, b_s, c, m, n, k, sbk, sbn, bs_g, bs_n, bs_shift, out_f32, 0, 0, 1,
-                   stream);
+                                   int tile, void* stream) {
+  return run<true>(a, a_s, b, b_s, c, m, n, k, sbk, sbn, bs_g, bs_n, bs_shift, out_f32, 0, tile,
+                   1, stream);
 }

@@ -102,14 +102,6 @@ inline int make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The tile rule of both kernels: a 128-row tile where m > 64 and its grid
-// (`tiles` blocks) fills the card, at least kFullGrid blocks; else the
-// 64 x 64 tile, several blocks an SM (m <= 64, or a narrow n such as 512
-// at m = 2048).
-constexpr long long kFullGrid = 100;
-
-inline bool large_tile(int m, long long tiles) { return m > 64 && tiles >= kFullGrid; }
-
 // Sets the kernel's dynamic shared memory once per kernel instance (above
 // 48 KB it must be asked for), then launches it; returns the launch's
 // error, a refused attribute included.

@@ -58,7 +58,8 @@ _F = ctypes.c_float
 # three B strides, out_f32 and the stream.
 _INT8_GROUPED = [_P] * 6 + [_I] * 4 + [_L] * 3 + [_I, _P]
 # K1 and K12: a, a_s, b, b_s, c, m, n, k, four strides, the scale shift,
-# out_f32 and the stream (K1: its route, ring tile and splits before it).
+# out_f32 and the stream (K1: its route, ring tile and splits before it;
+# K12 its tile).
 _FP8 = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P]
 # Every kernel: its name (the key of its counter), the source that holds it
 # (csrc/<source>.cu), its C entry point and that entry's signature. Every
@@ -66,7 +67,8 @@ _FP8 = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P]
 KERNELS = {
     # K1 also takes its route, ring tile and splits.
     "fp8_gemm": ("fp8_gemm", "dga_fp8_gemm", _FP8[:-1] + [_I, _I, _I, _P]),
-    "fp8_gemm_folded": ("fp8_gemm", "dga_fp8_gemm_folded", _FP8),
+    "fp8_gemm_folded": ("fp8_gemm", "dga_fp8_gemm_folded",
+                        _FP8[:-1] + [_I, _P]),
     "grouped_gemm": ("grouped_gemm", "dga_grouped_gemm_masked",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                       _L, _L, _I, _I, _I, _I, _P]),

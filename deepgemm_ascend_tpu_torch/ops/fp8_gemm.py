@@ -33,10 +33,23 @@ raises ``ValueError``) and its split plan (``KernelType.KSPLIT`` with
 Pallas in plain torch ops: each 128-deep group's product in f32, scaled,
 summed over the groups. K12 runs on the Hopper main loop of
 ``csrc/sm90_gemm.cuh`` (TMA loads of the e4m3 bytes, a fold into bf16
-overlapped with wgmma; its tiles follow the shape and read no config). On
-a CPU tensor they run :func:`fp8_gemm_plain` or
-:func:`fp8_gemm_folded_plain`, the same arithmetic in PyTorch.
-``mxu_dtype`` (a TPU MXU knob) is not ported.
+overlapped with wgmma) on route "folded": a 64 × 64, 128 × 128 or
+128 × 256 tile (the last where 256 divides n), the caller's config's or
+the tiling tiers' (``select_config`` under the same op with the route in
+its key; the analytic answer is the rule the kernel compiled in before,
+``tiling.analytic.folded_tile``); a caller's K12 tile is checked on every
+device (:func:`folded_tile_code`). On a CPU tensor they run
+:func:`fp8_gemm_plain` or :func:`fp8_gemm_folded_plain`, the same
+arithmetic in PyTorch.
+
+``mxu_dtype`` (JAX's type for each group's dot, on the TPU's MXU): e4m3
+converts exactly to f16, bf16 and f32, and K1 already sums each group on
+f16 tensor cores with f32 accumulation, so ``None`` and those three run
+the same kernel, and the plain version the same arithmetic (JAX's cast of
+each group's operands to the type changes no value). The public entries
+check it: any other type raises ``ValueError``, as does
+``KernelType.XLA`` with an ``mxu_dtype`` (JAX's message); the folded mode
+ignores it, as JAX's does.
 
 The TPU package lane-expands B's block scales to a (k/128, n) panel for its
 kernel; the port keeps them compact and addresses them through strides.
@@ -56,7 +69,7 @@ from ..tiling import analytic, platform
 from ..tiling.analytic import (MAX_SPLIT_GROUPS, MAX_SPLITS,  # noqa: F401
                                MIN_SPLIT_GROUPS, RING_TILES, ring_plan,
                                ring_splits, ring_tile)
-from ..tiling.selector import launch_config
+from ..tiling.selector import FOLDED, launch_config
 from ..tiling.padding import pad_fp8_operands, pad_fp8_operands_nt
 from . import _kernels
 from .quant import BLOCK, FP8
@@ -69,6 +82,8 @@ __all__ = ["fp8_gemm", "fp8_gemm_with_config", "fp8_gemm_plain",
 COUNTER = _kernels.COUNTERS["fp8_gemm"]
 FOLDED_COUNTER = _kernels.COUNTERS["fp8_gemm_folded"]
 SCALE_MODES = ("accum", "folded")
+# The types a group's dot may take (mxu_dtype): each holds e4m3 exactly.
+MXU_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
 _SHIFT = BLOCK.bit_length() - 1        # column → scale-block index: col >> 7
 
 # K1's (and K3's) routes, numbered as the C entries number them.
@@ -269,14 +284,31 @@ def config_plan(config: GemmConfig, rt: str):
     return tile, splits
 
 
+def folded_tile_code(config: GemmConfig, m: int, n: int, b_t: bool) -> int:
+    """K12's tile code of a config: its ``block_m × block_n`` one of the
+    folded route's compiled tiles that can run an (m, n) output
+    (``analytic.tile_admits``: 128 × 256 only where 256 divides n); else
+    ``ValueError``."""
+    op = "fp8_gemm_nt" if b_t else "fp8_gemm"
+    code = analytic.tile_code(op, FOLDED, config.block_m, config.block_n)
+    if not analytic.tile_admits(op, FOLDED, config.block_m, config.block_n,
+                                m, n):
+        raise ValueError(f"fp8_gemm: the folded {config.block_m}x"
+                         f"{config.block_n} tile needs n % 256 == 0, got "
+                         f"n={n}")
+    return code
+
+
 def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
             folded=False, plan=None, config=None):
     """Run K1 (or K12 if ``folded``) on ``a_q``'s device: the kernel for
     CUDA, the plain version for the CPU. Shapes are validated by the
-    callers. ``plan``: K1's (route, tile, splits) in place of
-    :func:`route`'s and the config's (for tests and sweeps; the C entry
+    callers. ``plan``: K1's (route, tile, splits), or K12's tile code, in
+    place of :func:`route`'s and the config's (for tests and sweeps, and
+    K12's for a caller's config: :func:`folded_tile_code`; the C entry
     refuses what it cannot run); ``config``: K1's tile and splits
-    (:func:`config_plan`), else :func:`ring_plan`'s."""
+    (:func:`config_plan`), else :func:`ring_plan`'s; K12 with no plan
+    takes the tiers' tile on route "folded"."""
     dev = a_q.device
     if dev.type == "cpu":
         plain = fp8_gemm_folded_plain if folded else fp8_gemm_plain
@@ -306,7 +338,12 @@ def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
             out.data_ptr(), m, n, k, sbk, sbn, bs.stride(0), bs.stride(1),
             shift, int(out_dtype == torch.float32))
     if folded:
-        rc = _kernels.entry("fp8_gemm_folded")(*args,
+        if plan is None:
+            op = "fp8_gemm_nt" if b_t else "fp8_gemm"
+            plan = folded_tile_code(
+                launch_config(m, n, k, FP8, out_dtype, op=op, device=dev,
+                              route=FOLDED, k_granularity=BLOCK), m, n, b_t)
+        rc = _kernels.entry("fp8_gemm_folded")(*args, plan,
                                                _kernels.stream_ptr(dev))
         _kernels.check(rc, "fp8_gemm_folded")
         FOLDED_COUNTER.launches += 1
@@ -330,18 +367,29 @@ def _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
     return out
 
 
-def check_config(config: GemmConfig, scale_mode: str = "accum") -> None:
+def check_mxu_dtype(mxu_dtype) -> None:
+    """``mxu_dtype`` must be None or a type that holds e4m3 exactly
+    (:data:`MXU_DTYPES`)."""
+    if mxu_dtype is not None and mxu_dtype not in MXU_DTYPES:
+        raise ValueError(
+            "mxu_dtype must be None or one of torch.float16, torch.bfloat16, "
+            f"torch.float32 (each holds e4m3 exactly), got {mxu_dtype!r}")
+
+
+def check_config(config: GemmConfig, scale_mode: str = "accum",
+                 mxu_dtype=None) -> None:
     """A config must be a ``GemmConfig``; ``KernelType.XLA`` computes
-    accum-mode math only, and raises with another ``scale_mode`` (JAX's
-    ValueError)."""
+    accum-mode math only, and raises with another ``scale_mode`` or an
+    ``mxu_dtype`` (JAX's ValueError)."""
     if not isinstance(config, GemmConfig):
         raise TypeError(f"config must be a GemmConfig, got {type(config)}")
-    if config.kernel_type == KernelType.XLA and scale_mode != "accum":
+    if config.kernel_type == KernelType.XLA and (scale_mode != "accum"
+                                                 or mxu_dtype is not None):
         # As in the JAX package: its XLA realization computes accum-mode
         # math only, and must not stand in for an explicit opt-in.
         raise ValueError(
             "KernelType.XLA supports only the default scale_mode="
-            f"'accum' / mxu_dtype=None (got {scale_mode!r}/None)")
+            f"'accum' / mxu_dtype=None (got {scale_mode!r}/{mxu_dtype})")
 
 
 def is_xla(config: Optional[GemmConfig]) -> bool:
@@ -408,24 +456,30 @@ def fp8_gemm_with_config(
     scale_mode: str = "accum",
     allow_relaxed: bool = False,
     b_layout: str = "n",
+    mxu_dtype=None,
 ) -> torch.Tensor:
     """FP8 GEMM with an explicit config; ``b_scales_expanded`` is the (kb, n)
     f32 panel regardless of ``b_layout``. K1 takes its ring tile and splits
-    from the config (module docstring); ``KernelType.XLA`` runs
-    :func:`fp8_gemm_xla` (with ``scale_mode='folded'``, JAX's
-    ValueError)."""
+    from the config, K12 its tile (module docstring); ``KernelType.XLA``
+    runs :func:`fp8_gemm_xla` (with ``scale_mode='folded'`` or an
+    ``mxu_dtype``, JAX's ValueError)."""
     _check_scale_mode(scale_mode, allow_relaxed)
+    check_mxu_dtype(mxu_dtype)
     b_t = _check_layout(b_layout)
     m, n, k = _check_shapes(a_q, a_scales, b_q, b_t, b_layout)
     if tuple(b_scales_expanded.shape) != (k // BLOCK, n):
         raise ValueError(f"expanded b_scales must be {(k // BLOCK, n)}, got "
                          f"{tuple(b_scales_expanded.shape)}")
-    check_config(config, scale_mode)
+    check_config(config, scale_mode, mxu_dtype)
     if is_xla(config):
         return fp8_gemm_xla(a_q, a_scales, b_q, b_scales_expanded, b_t=b_t,
                             out_dtype=out_dtype)
+    if scale_mode == "folded":
+        return _launch(a_q, a_scales, b_q, b_scales_expanded, 0, b_t,
+                       out_dtype, folded=True,
+                       plan=folded_tile_code(config, m, n, b_t))
     return _launch(a_q, a_scales, b_q, b_scales_expanded, 0, b_t, out_dtype,
-                   folded=scale_mode == "folded", config=config)
+                   config=config)
 
 
 def fp8_gemm(
@@ -441,6 +495,7 @@ def fp8_gemm(
     allow_relaxed: bool = False,
     auto_pad: bool = False,
     b_layout: str = "n",
+    mxu_dtype=None,
 ) -> torch.Tensor:
     """Blockwise-scaled FP8 GEMM (DeepGEMM ``gemm_fp8_fp8_bf16_nt`` analogue).
 
@@ -455,8 +510,10 @@ def fp8_gemm(
     and the output is sliced back to the original n.
     ``scale_mode='folded'`` (K12) requires ``allow_relaxed=True``; under
     :func:`exact_mode` either mode computes the exact golden.
+    ``mxu_dtype``: None, f16, bf16 or f32 (module docstring).
     """
     _check_scale_mode(scale_mode, allow_relaxed)
+    check_mxu_dtype(mxu_dtype)
     b_t = _check_layout(b_layout)
     if b_t and b_scales_expanded:
         raise ValueError("b_layout='t' requires unexpanded (n/128, k/128) "
@@ -472,7 +529,8 @@ def fp8_gemm(
                                                    b_scales)
         out = fp8_gemm(a_q, a_scales, b_q, b_scales, out_dtype=out_dtype,
                        config=config, scale_mode=scale_mode,
-                       allow_relaxed=allow_relaxed, b_layout=b_layout)
+                       allow_relaxed=allow_relaxed, b_layout=b_layout,
+                       mxu_dtype=mxu_dtype)
         return out[:, :n_orig]
     m, n, k = _check_shapes(a_q, a_scales, b_q, b_t, b_layout)
     kb, nb = k // BLOCK, n // BLOCK
@@ -489,12 +547,15 @@ def fp8_gemm(
         return _exact_gemm(a_q, a_scales, b_q, bs_view, shift, b_t,
                            out_dtype)
     if config is not None:
-        check_config(config, scale_mode)
+        check_config(config, scale_mode, mxu_dtype)
     if scale_mode == "folded":
+        plan = None if config is None else folded_tile_code(config, m, n,
+                                                            b_t)
         return _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,
-                       folded=True)
+                       folded=True, plan=plan)
     cfg = _selected(a_q, b_q, m, n, k, b_t, out_dtype, config)
     if is_xla(cfg):
+        check_config(cfg, scale_mode, mxu_dtype)
         return fp8_gemm_xla(a_q, a_scales, b_q, _scale_panel(bs_view, shift, n),
                             b_t=b_t, out_dtype=out_dtype)
     return _launch(a_q, a_scales, b_q, bs_view, shift, b_t, out_dtype,

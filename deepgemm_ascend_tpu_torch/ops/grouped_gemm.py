@@ -17,15 +17,28 @@ blockwise scale math for each output element (``csrc/grouped_gemm.cu``,
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 :func:`grouped_gemm_masked_plain` and :func:`grouped_gemm_contiguous_plain`.
 The masked kernel takes K1's routes (:func:`route`): "ring" (a TMA ring of
-scale groups, its tile from :func:`ring_tile`; never split, so that it
-stays bit-equal to the contiguous kernel) for B stored K-major, else
-"tile". The contiguous kernel takes :func:`contiguous_route`: "wgmma16"
-(f16 ``wgmma`` on the e4m3 operands converted exactly, each 128-deep
-group's partial from 0 promoted as K1 does — an f16 ``wgmma`` sums a group
-bit for bit as K1's ``mma.sync`` steps do, which ``tests/test_torch_gpu.py``
-probes on the card; 128×128 or 64×128 tiles by :func:`contiguous_tile`)
-for B stored K-major with a ``block_m`` that 64 divides, else K1's 64×64
-tile routine.
+scale groups on 16×64 or 64×64 tiles; never split, so that it stays
+bit-equal to the contiguous kernel) for B stored K-major, else "tile". The
+contiguous kernel takes :func:`contiguous_route`: "wgmma16" (f16 ``wgmma``
+on the e4m3 operands converted exactly, each 128-deep group's partial from
+0 promoted as K1 does — an f16 ``wgmma`` sums a group bit for bit as K1's
+``mma.sync`` steps do, which ``tests/test_torch_gpu.py`` probes on the
+card; 64×128 or 128×128 tiles) for B stored K-major with a ``block_m``
+that 64 divides, else K1's 64×64 tile routine.
+
+The tile: a caller's config names it (``block_m × block_n``, one of the
+route's compiled tiles, ``tiling/analytic.py:TILES``; else
+``ValueError``), else the tiling tiers' (``selector.launch_config``, op
+``grouped_gemm_masked[_nt]`` keyed on M_max and ``expected_m``, op
+``grouped_gemm[_nt]`` keyed on the layout's block_m, as in JAX); with no
+cache and no predictor that is the rule the wrappers used before
+(``tiling.analytic.masked_ring_tile``, ``contiguous_tile``). The
+contiguous layout fixes block_m, so a caller's config there names the
+layout's m-tile in ``block_m`` (JAX's meaning) and the tile of the route
+with ``block_n`` columns whose rows are the largest that divide it
+(:func:`caller_contiguous_tile`); the tiers' config names the tile itself.
+A caller's config is checked on every device (:func:`caller_plan`), so a
+CPU tensor refuses the configs the card refuses.
 """
 
 from __future__ import annotations
@@ -36,6 +49,8 @@ import numpy as np
 import torch
 
 from ..config import GemmConfig, KernelType
+from ..tiling import analytic
+from ..tiling.selector import launch_config
 from ..utils.common import round_up
 from . import _kernels
 from .fp8_gemm import (ROUTES, _SHIFT, _check_cuda_operands, _exact_gemm,
@@ -47,21 +62,14 @@ from .quant import BLOCK, FP8
 __all__ = ["m_grouped_gemm_masked", "grouped_gemm_masked_plain",
            "m_grouped_gemm_contiguous", "grouped_gemm_contiguous_plain",
            "make_contiguous_layout", "contiguous_tiles", "route",
-           "ring_tile", "contiguous_route", "contiguous_tile"]
+           "contiguous_route"]
 
 COUNTER = _kernels.COUNTERS["grouped_gemm"]
 K8 = _kernels.COUNTERS["grouped_gemm_contiguous"]
-# K3's ring tile follows the rows an expert is expected to hold: 16-row
-# tiles where they fit one (at decode: no padded fragments, and a CTA
-# walks its (expert, n-tile)'s few valid tiles and zeros the rest), 64-row
-# tiles beyond (fragments past masked_m[e] skipped). scripts/ring_sweep.py
-# on routed loads over 32 experts: 16 rows ahead up to a mean of 12 rows
-# an expert, 64 rows from 24 on.
-SMALL_ROWS = 16
 # K8's routes, numbered as its C entry numbers them, and the tiles of its
 # wgmma16 route (rows, columns).
 CONTIGUOUS_ROUTES = ("tile", "wgmma16")
-CONTIGUOUS_TILES = ((64, 128), (128, 128))
+CONTIGUOUS_TILES = analytic.WGMMA16_TILES
 
 
 def route(a_q, b_q, b_layout: str = "n") -> str:
@@ -72,15 +80,6 @@ def route(a_q, b_q, b_layout: str = "n") -> str:
     if b_layout not in ("n", "t"):
         raise ValueError(f"b_layout must be 'n' or 't', got {b_layout!r}")
     return "ring" if ring_route_ok(a_q, b_q, b_layout == "t") else "tile"
-
-
-def ring_tile(m_max: int, expected_m: Optional[int] = None) -> int:
-    """Index into ``fp8_gemm.RING_TILES`` of K3's ring tile: 16 rows where
-    an expert is expected to hold at most SMALL_ROWS rows — ``expected_m``
-    (the caller's hint, DeepGEMM's name for it) or, without one, M_max —
-    else 64."""
-    rows = m_max if expected_m is None else min(m_max, expected_m)
-    return 0 if rows <= SMALL_ROWS else 1
 
 
 def contiguous_route(a_q, b_q, b_layout: str = "n",
@@ -98,12 +97,60 @@ def contiguous_route(a_q, b_q, b_layout: str = "n",
     return "wgmma16"
 
 
-def contiguous_tile(block_m: int) -> int:
-    """The tile of the contiguous kernels' Hopper routes (K8's wgmma16, K9's
-    wgmma), as an index into their tile lists: 1, the 128-row tile, where
-    128 divides ``block_m`` (the MoE prefill's and DeepGEMM's layout), else
-    0, the 64-row one."""
-    return int(block_m % 128 == 0)
+def masked_op(b_t: bool, int8: bool = False) -> str:
+    """The selector op of a masked grouped GEMM (JAX's name, ``_nt`` for B
+    stored K-major)."""
+    return ("int8_" if int8 else "") + "grouped_gemm_masked" + (
+        "_nt" if b_t else "")
+
+
+def contiguous_op(b_t: bool, int8: bool = False) -> str:
+    """The selector op of a contiguous grouped GEMM (JAX's name, keyed on
+    the layout's m-tile)."""
+    return ("int8_" if int8 else "") + "grouped_gemm" + ("_nt" if b_t
+                                                         else "")
+
+
+def caller_contiguous_tile(op: str, rt: str, block_m: int,
+                           block_n: int) -> Tuple[int, int]:
+    """The kernel tile a caller's config names for a contiguous layout of
+    ``block_m``-row m-tiles: the compiled tile of route ``rt`` with
+    ``block_n`` columns whose rows are the largest that divide block_m (on
+    the tile routes, whose one 64 × 64 tile takes any block_m, that tile).
+    None such raises ``ValueError`` naming the compiled tiles."""
+    tiles = [t for _, t in analytic.route_tiles(op, rt)]
+    fits = [t for t in tiles if t[1] == block_n
+            and analytic.tile_admits(op, rt, *t, block_m, block_n)]
+    if not fits:
+        raise ValueError(
+            f"{op}: no compiled tile of {block_n} columns whose rows divide "
+            f"block_m={block_m} on route {rt!r}; compiled: "
+            f"{', '.join('%dx%d' % t for t in tiles)}")
+    return max(fits)
+
+
+def caller_plan(op: str, rt: str, config: GemmConfig) -> Tuple[str, int]:
+    """(kernel route, tile code) of the tile a caller's config names on
+    route ``rt``: its block_m × block_n (a contiguous op's:
+    :func:`caller_contiguous_tile` of its layout's block_m), one of the
+    route's compiled tiles, else ``ValueError`` naming them. The wrappers
+    call it before they branch on the device."""
+    if analytic.family(op) in analytic.CONTIGUOUS:
+        tile = caller_contiguous_tile(op, rt, config.block_m, config.block_n)
+    else:
+        tile = config.block_m, config.block_n
+    return analytic.kernel_plan(op, rt, *tile)
+
+
+def selected_tile(op: str, rt: str, m: int, n: int, k: int, in_dtype,
+                  out_dtype, dev,
+                  expected_m: Optional[int] = None) -> Tuple[int, int]:
+    """(block_m, block_n) a grouped wrapper launches on route ``rt`` with
+    no config: the tiers' (memoised: ``selector.launch_config``; ``m``
+    M_max or the layout's block_m)."""
+    cfg = launch_config(m, n, k, in_dtype, out_dtype, op=op, device=dev,
+                        route=rt, k_granularity=BLOCK, expected_m=expected_m)
+    return cfg.block_m, cfg.block_n
 
 
 def contiguous_plan_label(rt: str, tile: int) -> str:
@@ -140,10 +187,10 @@ def contiguous_tiles(m: int, e: int, tile_group_ids,
     """(block_m, expert id of every m-tile as a host int64 tensor) of a
     contiguous layout of ``m`` rows over ``e`` experts, for the fp8 (K8)
     and int8 (K9) contiguous GEMMs. block_m is m / len(tile_group_ids), or
-    ``config.block_m`` (of a config the fixed-tile kernels read nothing
-    else). The ids are read on the host — one device-to-host copy when they
-    lie on the card — and an id outside [-1, e) raises: the kernels index
-    the expert weights with it."""
+    ``config.block_m`` (JAX's meaning; the tile a caller's config names:
+    :func:`caller_contiguous_tile`). The ids are read on the host — one
+    device-to-host copy when they lie on the card — and an id outside
+    [-1, e) raises: the kernels index the expert weights with it."""
     ids = torch.as_tensor(tile_group_ids).to(torch.int64).cpu()
     n_tiles = ids.numel()
     if ids.dim() != 1 or n_tiles == 0 or m % n_tiles:
@@ -191,7 +238,8 @@ def _launch(a_q, a_scales, b_q, bs_view, shift, masked_m, b_t, out_dtype,
             plan=None, expected_m=None):
     """Run K3 on ``a_q``'s device: the kernel for CUDA, the plain version
     for the CPU. ``plan``: (route, ring tile) in place of :func:`route`
-    and :func:`ring_tile`'s (for tests and sweeps)."""
+    and the tiers' tile (:func:`selected_tile`): a caller's config's
+    (:func:`caller_plan`), or a test's or a sweep's."""
     dev = a_q.device
     if dev.type == "cpu":
         return grouped_gemm_masked_plain(a_q, a_scales, b_q, bs_view,
@@ -217,7 +265,10 @@ def _launch(a_q, a_scales, b_q, bs_view, shift, masked_m, b_t, out_dtype,
     sbk, sbn = (1, k) if b_t else (n, 1)
     if plan is None:
         rt = route(a_q, b_q, "t" if b_t else "n")
-        plan = rt, ring_tile(m_max, expected_m) if rt == "ring" else 0
+        op = masked_op(b_t)
+        tile = selected_tile(op, rt, m_max, n, k, FP8, out_dtype, dev,
+                             expected_m)
+        plan = rt, analytic.tile_code(op, rt, *tile)
     if plan[0] == "tile":
         check_tile_alignment("m_grouped_gemm_masked", a_q, b_q, b_t)
     rc = _kernels.entry("grouped_gemm")(
@@ -258,7 +309,10 @@ def m_grouped_gemm_masked(
     layout of the port's expert weights.
 
     ``expected_m``: the rows an expert is expected to hold, a hint that
-    picks the kernel's tile (:func:`ring_tile`) and changes no result.
+    picks the kernel's tile (the selection key carries it; the analytic
+    rule is ``tiling.analytic.masked_ring_tile``) and changes no result.
+    ``config``: its tile, one of the route's compiled tiles (module
+    docstring), or ``KernelType.XLA``.
     """
     if b_layout not in ("n", "t"):
         raise ValueError(f"b_layout must be 'n' or 't', got {b_layout!r}")
@@ -304,8 +358,10 @@ def m_grouped_gemm_masked(
         rows = torch.arange(m_max, device=a_q.device)[None, :, None]
         y = torch.where(rows < masked_m.to(a_q.device)[:, None, None], y, 0.0)
         return y.to(out_dtype)
+    plan = None if config is None else caller_plan(
+        masked_op(b_t), route(a_q, b_q, b_layout), config)
     return _launch(a_q, a_scales, b_q, bs_view, shift, masked_m, b_t,
-                   out_dtype, expected_m=expected_m)
+                   out_dtype, plan=plan, expected_m=expected_m)
 
 
 def grouped_gemm_contiguous_plain(a_q, a_scales, b_q, bs_view, tile_group_ids,
@@ -334,8 +390,9 @@ def _launch_contiguous(a_q, a_scales, b_q, bs_view, shift, ids, block_m, b_t,
                        out_dtype, plan=None):
     """Run K8 on ``a_q``'s device: the kernel for CUDA, the plain version
     for the CPU. ``plan``: (route, tile) in place of
-    :func:`contiguous_route` and :func:`contiguous_tile`'s (for tests and
-    sweeps; the C entry refuses what it cannot run)."""
+    :func:`contiguous_route` and the tiers' tile (:func:`selected_tile`):
+    a caller's config's (:func:`caller_plan`), or a test's or a sweep's
+    (the C entry refuses what it cannot run)."""
     dev = a_q.device
     if dev.type == "cpu":
         return grouped_gemm_contiguous_plain(a_q, a_scales, b_q, bs_view, ids,
@@ -359,14 +416,18 @@ def _launch_contiguous(a_q, a_scales, b_q, bs_view, shift, ids, block_m, b_t,
     m, k = a_q.shape
     e = b_q.shape[0]
     n = b_q.shape[1] if b_t else b_q.shape[2]
+    if plan is None:
+        rt = contiguous_route(a_q, b_q, "t" if b_t else "n", block_m)
+        op = contiguous_op(b_t)
+        tile = selected_tile(op, rt, block_m, n, k, FP8, out_dtype, dev)
+        plan = rt, analytic.tile_code(op, rt, *tile)
+    if plan[0] == "tile":
+        check_tile_alignment("m_grouped_gemm_contiguous", a_q, b_q, b_t)
+    # The ids' copy to the card waits for the stream: the host work above
+    # runs before it.
     gids = ids.to(device=dev, dtype=torch.int32)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     sbk, sbn = (1, k) if b_t else (n, 1)
-    if plan is None:
-        rt = contiguous_route(a_q, b_q, "t" if b_t else "n", block_m)
-        plan = rt, contiguous_tile(block_m) if rt == "wgmma16" else 0
-    if plan[0] == "tile":
-        check_tile_alignment("m_grouped_gemm_contiguous", a_q, b_q, b_t)
     rc = _kernels.entry("grouped_gemm_contiguous")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), bs.data_ptr(),
         gids.data_ptr(), out.data_ptr(), m, n, k, block_m, b_q.stride(0), sbk,
@@ -399,7 +460,7 @@ def m_grouped_gemm_contiguous(
     tile_group_ids: (M_total/block_m,) int expert id per m-tile, -1 for
     padding tiles (zeros). Returns (M_total, N). Plan the layout with
     :func:`make_contiguous_layout`. block_m and the checks on the ids:
-    :func:`contiguous_tiles`.
+    :func:`contiguous_tiles`; a config's tile: module docstring.
 
     ``b_layout='t'``: b_q (E, N, K) with b_scales (E, N/128, K/128) —
     DeepGEMM's ``m_grouped_gemm_fp8_fp8_bf16_nt_contiguous`` convention.
@@ -441,5 +502,8 @@ def m_grouped_gemm_contiguous(
             y[rows] = _exact_gemm(a_q[rows], a_scales[rows], b_q[ei],
                                   bs_view[ei], shift, b_t, torch.float32)
         return y.to(out_dtype)
+    plan = None if config is None else caller_plan(
+        contiguous_op(b_t), contiguous_route(a_q, b_q, b_layout, block_m),
+        config)
     return _launch_contiguous(a_q, a_scales, b_q, bs_view, shift, ids,
-                              block_m, b_t, out_dtype)
+                              block_m, b_t, out_dtype, plan=plan)

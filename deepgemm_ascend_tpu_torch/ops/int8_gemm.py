@@ -27,19 +27,28 @@ main loop of ``csrc/sm90_gemm.cuh`` with 8-bit stages: TMA and
 only) or ``"int8_tile"`` (``mma.sync`` on 64 × 64 tiles: every layout and
 shape). K9 takes the same two routes (:func:`contiguous_route`): "wgmma"
 — K6's wgmma route with the contiguous map, the expert of each tile read
-by the producer, 128 × 256 or 64 × 64 tiles by
-``grouped_gemm.contiguous_tile`` — for B stored K-major with a ``block_m``
+by the producer, on 64 × 64 or 128 × 256 tiles whose rows divide block_m
+— for B stored K-major with a ``block_m``
 that 64 divides, else ``"int8_tile"``.
 
-K6 with B stored K-major takes one of two routes by the rows an expert is
-expected to hold (:func:`masked_plan`; ``expected_m``, DeepGEMM's hint,
-which the MoE layer passes and which changes no result): ``"ring"`` at
-decode (16 × 64 tiles, a TMA ring fed by a producer warp, ``mma.sync`` s8
-into int32 accumulators) or ``"wgmma"`` beyond (K7's Hopper main loop over
-the experts, 64 × 64 tiles up to 64 rows an expert, 128 × 256 beyond); in
-both a CTA walks the m-tiles of its (expert, n-tile), reads
-``masked_m[e]`` on the card and zeroes the tiles past it.
-``b_layout='n'`` and operands TMA cannot describe keep ``"int8_tile"``.
+K6 with B stored K-major takes one of two kernels by its tile:
+``"ring"`` (16 × 64 tiles, a TMA ring fed by a producer warp, ``mma.sync``
+s8 into int32 accumulators) or ``"wgmma"`` (K7's Hopper main loop over
+the experts, 64 × 64 or 128 × 256 tiles); in both a CTA walks the m-tiles
+of its (expert, n-tile), reads ``masked_m[e]`` on the card and zeroes the
+tiles past it. ``b_layout='n'`` and operands TMA cannot describe keep
+``"int8_tile"``.
+
+The grouped wrappers' tile: a caller's config's (for K9 as for K8,
+``grouped_gemm.caller_contiguous_tile``), else the tiling tiers' under op
+``int8_grouped_gemm_masked[_nt]`` (keyed on M_max and ``expected_m``,
+DeepGEMM's hint of the rows an expert is expected to hold, which the MoE
+layer passes and which changes no result) and ``int8_grouped_gemm[_nt]``
+(keyed on the layout's block_m). With no cache and no predictor that is
+the rule the wrappers used before: ``tiling.analytic.masked_plan`` (ring
+at decode, 64 × 64 up to 64 rows an expert, 128 × 256 beyond) and
+``tiling.analytic.contiguous_tile``. A caller's config is checked on
+every device (``grouped_gemm.caller_plan``).
 
 ``b_layout='t'`` takes B stored K-major, (n, k) / (E, n, k): the layout of
 the port's int8 weights, which the tensor cores' B operand wants. The
@@ -58,12 +67,13 @@ from ..tiling.selector import launch_config
 from . import _kernels
 from .fp8_gemm import _check_cuda_operands, check_config, exact_enabled, \
     is_xla
-from .grouped_gemm import contiguous_tile, contiguous_tiles
+from .grouped_gemm import (caller_plan, contiguous_op, contiguous_tiles,
+                           masked_op, selected_tile)
 
 __all__ = ["int8_gemm", "int8_gemm_with_config", "int8_gemm_xla", "route",
            "m_grouped_int8_gemm_contiguous", "m_grouped_int8_gemm_masked",
            "int8_gemm_plain", "grouped_contiguous_plain",
-           "grouped_masked_plain", "masked_plan", "contiguous_route"]
+           "grouped_masked_plain", "contiguous_route"]
 
 K7 = _kernels.COUNTERS["int8_gemm"]
 K9 = _kernels.COUNTERS["int8_grouped_contiguous"]
@@ -71,19 +81,12 @@ K6 = _kernels.COUNTERS["int8_grouped_masked"]
 # K7's route codes, and the tiles of its wgmma route (tile codes).
 ROUTES = ("int8_tile", "wgmma")
 WGMMA_TILES = analytic.WGMMA_TILES
-# K6's route codes, the tiles of its wgmma route (rows, columns), and the
-# rows an expert may be expected to hold for its ring route (16-row
-# tiles) and for the 64-row wgmma tile: the crossovers that
-# scripts/decode_sweep.py measures at V2_LITE's experts (ring ahead at 12
-# rows, 64 x 64 at 24 and 48, 128 x 256 level with it at 96 and ahead
-# from 192).
+# K6's route codes and the tiles of its wgmma route (rows, columns).
 MASKED_ROUTES = ("int8_tile", "ring", "wgmma")
-MASKED_WGMMA_TILES = ((64, 64), (128, 256))
-SMALL_ROWS = 16
-MEDIUM_ROWS = 64
+MASKED_WGMMA_TILES = analytic.GROUPED_WGMMA_TILES
 # K9 takes K7's route codes (ROUTES) and K6's wgmma tiles
-# (MASKED_WGMMA_TILES, by grouped_gemm.contiguous_tile: the rows of a tile
-# divide block_m, so that no tile spans two experts).
+# (MASKED_WGMMA_TILES; the rows of a tile divide block_m, so that no tile
+# spans two experts).
 
 
 def _layout(b_layout: str) -> bool:
@@ -186,17 +189,6 @@ def contiguous_route(a_q, b_q, b_layout: str = "n", block_m: int = 128) -> str:
     if route(a_q, b_q, b_layout) == "int8_tile" or block_m % 64:
         return "int8_tile"
     return "wgmma"
-
-
-def masked_plan(m_max: int, expected_m=None):
-    """(route, tile) of K6 on operands that take the TMA routes, by the
-    rows an expert is expected to hold — ``expected_m`` or, without it,
-    M_max: ``"ring"`` up to SMALL_ROWS, else ``"wgmma"`` on 64 × 64 tiles
-    (tile 0) up to MEDIUM_ROWS and on 128 × 256 (tile 1) beyond."""
-    rows = m_max if expected_m is None else max(0, min(m_max, expected_m))
-    if rows <= SMALL_ROWS:
-        return "ring", 0
-    return "wgmma", int(rows > MEDIUM_ROWS)
 
 
 def masked_plan_label(rt: str, tile: int) -> str:
@@ -419,15 +411,19 @@ def m_grouped_int8_gemm_contiguous(
             rows = torch.nonzero(row_gid == ei)[:, 0]
             y[rows] = torch.matmul(a[rows], b[ei])
         return y.to(out_dtype)
+    plan = None if config is None else caller_plan(
+        contiguous_op(b_t, int8=True),
+        contiguous_route(a_q, b_q, b_layout, block_m), config)
     return _launch_contiguous(a_q, a_scales, b_q, b_scales, ids, block_m,
-                              b_t, out_dtype)
+                              b_t, out_dtype, plan=plan)
 
 
 def _launch_contiguous(a_q, a_scales, b_q, b_scales, ids, block_m, b_t,
                        out_dtype, plan=None):
     """K9 on ``a_q``'s device. ``plan``: (route, tile) in place of
-    :func:`contiguous_route` and ``grouped_gemm.contiguous_tile``'s (an
-    index into MASKED_WGMMA_TILES; for tests and sweeps; the C entry
+    :func:`contiguous_route` and the tiers' tile (an index into
+    MASKED_WGMMA_TILES): a caller's config's
+    (``grouped_gemm.caller_plan``), or a test's or a sweep's (the C entry
     refuses what it cannot run)."""
     if not _on_device("m_grouped_int8_gemm_contiguous", a_q):
         return grouped_contiguous_plain(a_q, a_scales, b_q, b_scales, ids,
@@ -436,11 +432,16 @@ def _launch_contiguous(a_q, a_scales, b_q, b_scales, ids, block_m, b_t,
                               a_scales, b_q, b_scales, out_dtype)
     dev = a_q.device
     e, m, n, k, _ = _grouped_shapes(a_q, b_q, b_t)
-    ids_dev = ids.to(device=dev, dtype=torch.int32)
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if plan is None:
         rt = contiguous_route(a_q, b_q, "t" if b_t else "n", block_m)
-        plan = rt, contiguous_tile(block_m) if rt == "wgmma" else 0
+        op = contiguous_op(b_t, int8=True)
+        tile = selected_tile(op, rt, block_m, n, k, torch.int8, out_dtype,
+                             dev)
+        plan = rt, analytic.tile_code(op, rt, *tile)
+    # The ids' copy to the card waits for the stream: the host work above
+    # runs before it.
+    ids_dev = ids.to(device=dev, dtype=torch.int32)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     rc = _kernels.entry("int8_grouped_contiguous")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
         ids_dev.data_ptr(), out.data_ptr(), m, n, k, block_m, n * k,
@@ -471,8 +472,11 @@ def m_grouped_int8_gemm_masked(
     (E, 1, N) f32; masked_m (E,) int. Rows ≥ masked_m[e] are unspecified
     (whole inactive tiles are zeroed), as in the fp8 twin.
     ``expected_m``: the rows an expert is expected to hold, a hint that
-    picks the kernel's route and tile (:func:`masked_plan`) and changes no
+    picks the kernel's route and tile (the selection key carries it; the
+    analytic rule is ``tiling.analytic.masked_plan``) and changes no
     result.
+    ``config``: its tile (16 × 64 runs the ring kernel), or
+    ``KernelType.XLA``.
     """
     b_t = _layout(b_layout)
     e, m_max, n, k, k2 = _grouped_shapes(a_q, b_q, b_t)
@@ -502,15 +506,18 @@ def m_grouped_int8_gemm_masked(
         y = torch.where(rows < masked_m.to(a_q.device)[:, None, None], y,
                         0.0)
         return y.to(out_dtype)
+    plan = None if config is None else caller_plan(
+        masked_op(b_t, int8=True), route(a_q, b_q, b_layout), config)
     return _launch_masked(a_q, a_scales, b_q, b_scales, masked_m, b_t,
-                          out_dtype, expected_m=expected_m)
+                          out_dtype, plan=plan, expected_m=expected_m)
 
 
 def _launch_masked(a_q, a_scales, b_q, b_scales, masked_m, b_t, out_dtype,
                    plan=None, expected_m=None):
-    """K6 on ``a_q``'s device. ``plan``: (route, tile) in place of
-    :func:`route` and :func:`masked_plan`'s (for tests and sweeps; the C
-    entry refuses what it cannot run)."""
+    """K6 on ``a_q``'s device. ``plan``: (kernel route, tile) in place of
+    :func:`route` and the tiers' tile (``grouped_gemm.selected_tile``): a
+    caller's config's (``grouped_gemm.caller_plan``), or a test's or a
+    sweep's (the C entry refuses what it cannot run)."""
     if not _on_device("m_grouped_int8_gemm_masked", a_q):
         return grouped_masked_plain(a_q, a_scales, b_q, b_scales, masked_m,
                                     b_t=b_t, out_dtype=out_dtype)
@@ -524,9 +531,11 @@ def _launch_masked(a_q, a_scales, b_q, b_scales, masked_m, b_t, out_dtype,
     if out.numel() == 0:
         return out
     if plan is None:
-        plan = (("int8_tile", 0)
-                if route(a_q, b_q, "t" if b_t else "n") == "int8_tile"
-                else masked_plan(m_max, expected_m))
+        rt = route(a_q, b_q, "t" if b_t else "n")
+        op = masked_op(b_t, int8=True)
+        tile = selected_tile(op, rt, m_max, n, k, torch.int8, out_dtype, dev,
+                             expected_m)
+        plan = analytic.kernel_plan(op, rt, *tile)
     rc = _kernels.entry("int8_grouped_masked")(
         a_q.data_ptr(), a_s.data_ptr(), b_q.data_ptr(), b_s.data_ptr(),
         mm.data_ptr(), out.data_ptr(), e, m_max, n, k, n * k,

@@ -4,10 +4,29 @@ Port of ``scripts/autotune_sweep.py`` (≙ the reference's
 ``framework/benchmark/benchmark.py`` flow), restricted to the ported ops
 whose kernels have tile variants: the dense GEMM (``gemm``, ``gemm_nt``,
 ``gemm_tn``, ``gemm_tt``: K10/K11), W8A8 (``int8_gemm_nt``, ``int8_gemm``:
-K7) and blockwise fp8 (``fp8_gemm_nt``, ``fp8_gemm``: K1). The suites are
-JAX's (``reference``, ``dynamic``, ``headline``) and ``v2_lite`` (the
-port's serving rows: V2_LITE's projections at 16 and 2048 rows), or
-``--shapes M N K ...``.
+K7), blockwise fp8 (``fp8_gemm_nt``, ``fp8_gemm``: K1) and the grouped
+GEMMs under JAX's sweep names: ``grouped_gemm_masked[_nt]`` (K3),
+``grouped_gemm_contiguous[_nt]`` (K8, whose key is the selector's op
+``grouped_gemm[_nt]``), ``int8_grouped_gemm_masked[_nt]`` (K6) and
+``int8_grouped_gemm_contiguous[_nt]`` (K9, op ``int8_grouped_gemm[_nt]``).
+The suites are JAX's (``reference``, ``dynamic``, ``headline``; for the
+grouped ops ``grouped``, JAX's (E, M, N, K) prefill and decode shapes)
+and ``v2_lite`` (the port's serving rows: V2_LITE's projections at 16 and
+2048 rows), or ``--shapes M N K ...`` (E M N K quadruples for a grouped
+op).
+
+A grouped op runs on routed loads (``bench.loads``: tokens that each
+pick 6 distinct experts at random, as the MoE layer's router sends them),
+so that its winner is timed on the skewed traffic it will serve. A
+masked op's shape is E experts of M_max rows; ``--expected-m`` sweeps it
+at each given count of rows an expert is expected to hold: the tokens
+that give an expert that many rows on average (M_max without the hint),
+an expert's rows past M_max dropped; the winner's key carries the hint,
+as the selector keys it. A contiguous op's shape is E experts of M
+tokens on average, routed the same way or with ``--uneven`` JAX's
+lognormal split of E·M tokens, laid out in min(128, M)-row m-tiles; its
+key's m is the layout's m-tile, and its candidates are the route's
+compiled tiles whose rows divide it.
 
 Each shape runs in a child process (this script with ``--child``), so a
 candidate that faults the CUDA context ends that child alone: the parent
@@ -38,10 +57,13 @@ import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+GROUPED_OPS = tuple(f"{p}grouped_gemm_{kind}{sfx}" for p in ("", "int8_")
+                    for kind in ("masked", "contiguous") for sfx in ("", "_nt"))
 OPS = ("gemm", "gemm_nt", "gemm_tn", "gemm_tt", "int8_gemm_nt", "int8_gemm",
-       "fp8_gemm_nt", "fp8_gemm")
+       "fp8_gemm_nt", "fp8_gemm") + GROUPED_OPS
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 # The port's serving rows: V2_LITE's dense projections (n, k) at a decode
 # batch of 16 and a 2048-token prefill chunk.
@@ -50,19 +72,44 @@ V2_LITE_NK = ((2048, 2048), (512, 2048), (22016, 2048), (2048, 11008),
 GEMM_REL_TOL = 1e-5
 
 
-def suite(name: str) -> List[Tuple[int, int, int]]:
+def suite(name: str) -> List[Tuple[int, ...]]:
     from ..bench import shapes
     return {"reference": shapes.REFERENCE_SUITE,
             "dynamic": shapes.DYNAMIC_SWEEP,
             "headline": [shapes.HEADLINE],
+            "grouped": shapes.GROUPED_PREFILL + shapes.GROUPED_DECODE,
             "v2_lite": [(m, n, k) for n, k in V2_LITE_NK
                         for m in (16, 2048)]}[name]
 
 
+def selector_op(op: str) -> str:
+    """The selector's op of a sweep op: a contiguous op is keyed as
+    ``[int8_]grouped_gemm[_nt]`` (JAX's names)."""
+    return op.replace("grouped_gemm_contiguous", "grouped_gemm")
+
+
+def uneven_tokens(e: int, m_per: int) -> List[int]:
+    """JAX's ``--uneven`` split: a lognormal split of E·M tokens (seed
+    12345), at least one an expert, drift repaired on the largest."""
+    rng = np.random.default_rng(12345)
+    w = rng.lognormal(0.0, 1.0, e)
+    toks = np.maximum((w / w.sum() * e * m_per).astype(int), 1)
+    drift = e * m_per - int(toks.sum())
+    order = np.argsort(-toks)
+    i = 0
+    while drift != 0:
+        j = order[i % e]
+        step = 1 if drift > 0 else (-1 if toks[j] > 1 else 0)
+        toks[j] += step
+        drift -= step
+        i += 1
+    return [int(t) for t in toks]
+
+
 def io_dtypes(op: str, dtype: str):
     """(input, output) types of an op's sweep: the types its callers use
-    (K1 and K7 bf16 out, K10 f32 out)."""
-    if op.startswith("fp8"):
+    (K1, K7 and the grouped GEMMs bf16 out, K10 f32 out)."""
+    if op.startswith(("fp8", "grouped")):
         return torch.float8_e4m3fn, torch.bfloat16
     if op.startswith("int8"):
         return torch.int8, torch.bfloat16
@@ -120,6 +167,86 @@ def problem(op: str, m: int, n: int, k: int, dtype: str, seed: int, dev):
                                    <= GEMM_REL_TOL * mag).all()))
 
 
+def grouped_problem(op: str, e: int, m: int, n: int, k: int, seed: int,
+                    dev, expected_m: Optional[int] = None,
+                    uneven: bool = False):
+    """(call(config), plain(), close(got, ref), key m, flops scale) of one
+    grouped shape on routed loads (module docstring): ``op``'s wrapper on
+    its operands with a candidate tile
+    (a masked op's config; a contiguous op's tile as the plan of its
+    launch, since a caller's config there names the layout), the op's
+    plain version, the gate on the rows the kernels define (K3 and K8
+    within one bf16 ulp, K6 and K9 bit for bit), the selection key's m
+    (M_max, or the layout's m-tile) and the experts or m-tiles the
+    light-speed screen counts (the valid rows over M_max)."""
+    from ..bench import loads
+    from ..ops import grouped_gemm as gg
+    from ..ops import int8_gemm as i8mod
+    from ..ops import quant
+    from ..tiling import analytic
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b_t = op.endswith("_nt")
+    lay = "t" if b_t else "n"
+    int8 = op.startswith("int8")
+    masked = "masked" in op
+    if masked:
+        rows = m if expected_m is None else max(0, min(m, expected_m))
+        mm = loads.routed_masked_m(e, m, rows, generator=g, device=dev)
+        a_shape = (e, m, k)
+    else:
+        toks = uneven_tokens(e, m) if uneven else loads.routed_counts(
+            e, m, generator=g, device=dev)
+        m_total, ids, _ = gg.make_contiguous_layout(toks, min(128, m))
+        ids = torch.from_numpy(ids)
+        a_shape = (m_total, k)
+    b_shape = (e, n, k) if b_t else (e, k, n)
+    if int8:
+        a_q = torch.randint(-127, 128, a_shape, generator=g, device=dev,
+                            dtype=torch.int8)
+        b_q = torch.randint(-127, 128, b_shape, generator=g, device=dev,
+                            dtype=torch.int8)
+        a_s = torch.rand(*a_shape[:-1], 1, generator=g, device=dev) / 127
+        b_s = torch.rand(e, 1, n, generator=g, device=dev) / 127
+        bs_view, close = b_s, torch.equal
+    else:
+        a_q, a_s = quant.quantize_fp8_act(torch.randn(
+            *a_shape, generator=g, device=dev))
+        w = torch.randn(e, n, k, generator=g, device=dev) / k ** 0.5
+        b_q, b_s = quant.quantize_fp8_weight(w if b_t else w.transpose(
+            1, 2).contiguous())
+        bs_view = b_s.transpose(1, 2) if b_t else b_s
+        close = _within_one_bf16_ulp
+    if masked:
+        valid = torch.arange(m, device=dev)[None, :] < mm[:, None]
+        fn = i8mod.m_grouped_int8_gemm_masked if int8 \
+            else gg.m_grouped_gemm_masked
+        call = lambda cfg: fn(a_q, a_s, b_q, b_s, mm, config=cfg,
+                              b_layout=lay, expected_m=expected_m)
+        plain = ((lambda: i8mod.grouped_masked_plain(
+            a_q, a_s, b_q, b_s, mm, b_t=b_t)) if int8 else
+            (lambda: gg.grouped_gemm_masked_plain(a_q, a_s, b_q, bs_view,
+                                                  mm, b_t=b_t)))
+        return (call, plain, lambda got, ref: close(got[valid], ref[valid]),
+                m, float(mm.sum()) / max(m, 1))
+    key_m = m_total // ids.numel()
+    sop = selector_op(op)
+    if int8:
+        rt = i8mod.contiguous_route(a_q, b_q, lay, key_m)
+        call = lambda cfg: i8mod._launch_contiguous(
+            a_q, a_s, b_q, b_s, ids, key_m, b_t, torch.bfloat16,
+            plan=(rt, analytic.tile_code(sop, rt, cfg.block_m, cfg.block_n)))
+        plain = lambda: i8mod.grouped_contiguous_plain(a_q, a_s, b_q, b_s,
+                                                       ids, b_t=b_t)
+    else:
+        rt = gg.contiguous_route(a_q, b_q, lay, key_m)
+        call = lambda cfg: gg._launch_contiguous(
+            a_q, a_s, b_q, bs_view, 7, ids, key_m, b_t, torch.bfloat16,
+            plan=(rt, analytic.tile_code(sop, rt, cfg.block_m, cfg.block_n)))
+        plain = lambda: gg.grouped_gemm_contiguous_plain(
+            a_q, a_s, b_q, bs_view, ids, b_t=b_t)
+    return call, plain, close, key_m, ids.numel()
+
+
 def _within_one_bf16_ulp(got, ref) -> bool:
     """Each element within one bf16 ulp of the larger magnitude, plus 1e-6
     of the largest |ref| for values near zero (``chip_smoke.py``'s fp8
@@ -142,11 +269,13 @@ def _host_ms(fn: Callable, reps: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def sweep_one(op: str, m: int, n: int, k: int, *, dtype: str = "bf16",
+def sweep_one(op: str, *shape: int, dtype: str = "bf16",
               out_dir: str, cache_path: str, seed: int = 0,
               device: str = "cuda", max_candidates: Optional[int] = None,
-              retry_failed: bool = False) -> Dict:
-    """Sweep one shape in this process; returns its summary."""
+              retry_failed: bool = False, expected_m: Optional[int] = None,
+              uneven: bool = False) -> Dict:
+    """Sweep one shape — (M, N, K), or a grouped op's (E, M, N, K) — in
+    this process; returns its summary."""
     from ..bench.timing import cold_ms
     from ..tiling import analytic, autotune, platform
     from ..tiling.cache import TilingCache
@@ -154,7 +283,21 @@ def sweep_one(op: str, m: int, n: int, k: int, *, dtype: str = "bf16",
     dev = resolve_device(device)
     info = platform.detect(dev)
     in_dt, out_dt = io_dtypes(op, dtype)
-    call, plain, close = problem(op, m, n, k, dtype, seed, dev)
+    grouped = op in GROUPED_OPS
+    sop = selector_op(op)
+    if grouped:
+        e, m_in, n, k = shape
+        call, plain, close, m, scale = grouped_problem(
+            op, e, m_in, n, k, seed, dev, expected_m, uneven)
+        tag = (f"{op}_{e}x{m_in}x{n}x{k}"
+               + (f"_e{expected_m}" if expected_m is not None else "")
+               + ("_uneven" if uneven else ""))
+    else:
+        m, n, k = shape
+        call, plain, close = problem(op, m, n, k, dtype, seed, dev)
+        scale = 1.0
+        tag = f"{op}_{m}x{n}x{k}" + ("" if op.startswith(("fp8", "int8"))
+                                     else f"_{dtype}")
     ref = plain()
     cuda = dev.type == "cuda"
 
@@ -169,24 +312,25 @@ def sweep_one(op: str, m: int, n: int, k: int, *, dtype: str = "bf16",
             lambda: call(cfg))
         return ms / 1e3
 
-    tag = f"{op}_{m}x{n}x{k}" + ("" if op.startswith(("fp8", "int8"))
-                                 else f"_{dtype}")
     tuner = autotune.Autotuner(
-        time_s, op=op, check_fn=check, info=info,
+        time_s, op=sop, check_fn=check, info=info,
         results_path=os.path.join(out_dir, f"{tag}.jsonl"),
         checkpoint_path=os.path.join(out_dir, f"{tag}.ckpt.json"),
         cache=TilingCache(cache_path), retry_failed=retry_failed)
     win = tuner.sweep_shape(m, n, k, in_dtype=in_dt, out_dtype=out_dt,
-                            max_candidates=max_candidates, verbose=True)
-    default = analytic.get_best_config(m, n, k, in_dt, out_dt, op=op,
-                                       info=info)
+                            max_candidates=max_candidates, verbose=True,
+                            flops_scale=scale, expected_m=expected_m)
+    default = analytic.get_best_config(m, n, k, in_dt, out_dt, op=sop,
+                                       info=info, expected_m=expected_m)
     rows = {}
     with open(os.path.join(out_dir, f"{tag}.jsonl")) as f:
         for line in f:
             r = autotune.SweepResult.from_json(line)
             rows[autotune.describe(type(default).from_dict(r.config))] = (
                 r.time_s * 1e3 if r.time_s > 0 else None)
-    return {"op": op, "m": m, "n": n, "k": k, "dtype": str(in_dt),
+    extra = ({"e": shape[0], "shape_m": shape[1],
+              "expected_m": expected_m, "uneven": uneven} if grouped else {})
+    return {"op": op, "m": m, "n": n, "k": k, **extra, "dtype": str(in_dt),
             "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
             "clock": "cold_ms" if cuda else "host (rehearsal)",
             "candidates_ms": rows,
@@ -198,7 +342,7 @@ def sweep_one(op: str, m: int, n: int, k: int, *, dtype: str = "bf16",
             "winner_config": None if win is None else win.to_dict()}
 
 
-def _child_argv(args, shape) -> List[str]:
+def _child_argv(args, shape, expected_m) -> List[str]:
     argv = [sys.executable, "-m", __spec__.name if __spec__ else
             "deepgemm_ascend_tpu_torch.scripts.autotune_sweep", "--child",
             "--op", args.op, "--dtype", args.dtype, "--out-dir",
@@ -206,6 +350,10 @@ def _child_argv(args, shape) -> List[str]:
             "--device", args.device, "--shapes", *map(str, shape)]
     if args.max_candidates:
         argv += ["--max-candidates", str(args.max_candidates)]
+    if expected_m is not None:
+        argv += ["--expected-m", str(expected_m)]
+    if args.uneven:
+        argv.append("--uneven")
     return argv
 
 
@@ -214,10 +362,19 @@ def main(argv=None) -> int:
     ap.add_argument("--op", default="gemm", choices=OPS)
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES),
                     help="the dense GEMM's input type")
-    ap.add_argument("--suite", default="headline",
-                    choices=["reference", "dynamic", "headline", "v2_lite"])
+    ap.add_argument("--suite", default=None,
+                    choices=["reference", "dynamic", "headline", "grouped",
+                             "v2_lite"],
+                    help="default: headline, or grouped for a grouped op")
     ap.add_argument("--shapes", nargs="*", type=int, default=None,
-                    help="explicit M N K triples (a flat list)")
+                    help="explicit M N K triples (a flat list; E M N K "
+                         "quadruples for a grouped op)")
+    ap.add_argument("--expected-m", nargs="*", type=int, default=None,
+                    help="masked grouped ops: sweep each shape at each of "
+                         "these rows an expert is expected to hold")
+    ap.add_argument("--uneven", action="store_true",
+                    help="contiguous grouped ops: JAX's lognormal split of "
+                         "E*M tokens over the experts, 128-row m-tiles")
     ap.add_argument("--out-dir", default="autotune_results_port")
     ap.add_argument("--cache", default=None,
                     help="tiling cache (default <out-dir>/tilings.jsonl)")
@@ -239,20 +396,27 @@ def main(argv=None) -> int:
                            "kernels on the card; --device cpu rehearses)")
     args.cache = args.cache or os.path.join(args.out_dir, "tilings.jsonl")
     os.makedirs(args.out_dir, exist_ok=True)
-    shapes = ([tuple(args.shapes[i:i + 3])
-               for i in range(0, len(args.shapes), 3)]
+    grouped = args.op in GROUPED_OPS
+    args.suite = args.suite or ("grouped" if grouped else "headline")
+    if not args.shapes and (args.suite == "grouped") != grouped:
+        ap.error(f"--suite {args.suite} is not a suite of --op {args.op}")
+    width = 4 if grouped else 3
+    shapes = ([tuple(args.shapes[i:i + width])
+               for i in range(0, len(args.shapes), width)]
               if args.shapes else suite(args.suite))
-    for shape in shapes:
+    hints = (args.expected_m or [None]) if "masked" in args.op else [None]
+    for shape, hint in ((s, h) for s in shapes for h in hints):
         if args.child or args.in_process:
             row = sweep_one(args.op, *shape, dtype=args.dtype,
                             out_dir=args.out_dir, cache_path=args.cache,
                             seed=args.seed, device=args.device,
                             max_candidates=args.max_candidates,
-                            retry_failed=args.retry_poisoned)
+                            retry_failed=args.retry_poisoned,
+                            expected_m=hint, uneven=args.uneven)
             print(json.dumps(row), flush=True)
             continue
         for attempt in range(args.retries + 1):
-            proc = subprocess.run(_child_argv(args, shape),
+            proc = subprocess.run(_child_argv(args, shape, hint),
                                   capture_output=True, text=True,
                                   timeout=args.child_timeout)
             sys.stdout.write(proc.stdout)

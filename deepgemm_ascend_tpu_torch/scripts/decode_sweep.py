@@ -13,9 +13,9 @@ n, k, expected_m) row, loads of routing M_max / 6 tokens to 6 distinct
 experts at random, every route and tile — int8_tile (the route before),
 ring 16x64, wgmma 64x64 and 128x256 — timed the same way and each equal
 bit for bit to int8_tile on the valid rows, beside ``Tensor.zero_`` on
-the output buffer (its write rate). One JSON line per row, with
-what ``live_blocks`` / ``masked_plan`` pick there: the data those plan
-functions are chosen from. The card only.
+the output buffer (its write rate). One JSON line per row, with what
+``live_blocks`` / ``tiling.analytic.masked_plan`` pick there: the data
+those plan functions are chosen from. The card only.
 
     python -m deepgemm_ascend_tpu_torch.scripts.decode_sweep \\
         [--k2 16x4x4x4096 16x4x4x4096:serving ...] \\
@@ -32,12 +32,12 @@ import sys
 import numpy as np
 import torch
 
-from ..bench import timing
+from ..bench import loads, timing
 from ..ops import flash_decode as fdmod
 from ..ops import int8_gemm as i8mod
-from ..tiling import platform
+from ..tiling import analytic, platform
 
-TOP_K = 6
+TOP_K = loads.TOP_K
 # K2: V2_LITE (group 4) at phase 2's and phase 4's lengths, V2_LITE_FULL
 # (group 1) and V3_STYLE (group 8) at phase 2's, serve_bench scan's batch
 # 64, and V2_LITE with one key a sequence and with full caches. K6:
@@ -126,9 +126,7 @@ def measure_k6(e: int, cap: int, n: int, k: int, expected_m, seed: int = 0
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     tokens = max(1, cap // TOP_K)
-    picks = torch.rand(tokens, e, generator=g, device=dev).argsort(
-        dim=1)[:, :min(TOP_K, e)]
-    masked_m = torch.bincount(picks.flatten(), minlength=e).to(torch.int32)
+    masked_m = loads.routed_loads(e, tokens, TOP_K, g, dev)
     a_q = torch.randint(-127, 128, (e, cap, k), generator=g, device=dev,
                         dtype=torch.int8)
     b_q = torch.randint(-127, 128, (e, n, k), generator=g, device=dev,
@@ -142,8 +140,8 @@ def measure_k6(e: int, cap: int, n: int, k: int, expected_m, seed: int = 0
     row = {"kernel": "K6", "e": e, "cap": cap, "n": n, "k": k,
            "expected_m": expected_m, "valid_rows": sum(rows),
            "max_rows": max(rows),
-           "plan": i8mod.masked_plan_label(*i8mod.masked_plan(cap,
-                                                              expected_m)),
+           "plan": i8mod.masked_plan_label(*analytic.masked_plan(
+               cap, expected_m)),
            "route_ms": {}}
     for plan in (("int8_tile", 0), ("ring", 0), ("wgmma", 0), ("wgmma", 1)):
         got = run(plan)()

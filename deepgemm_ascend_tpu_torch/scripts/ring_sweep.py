@@ -9,10 +9,11 @@ of 10). Without splits the ring must equal the tile route bit for bit;
 with them each output must lie within one bf16 ulp (plus 1e-6 of the
 largest) of the plain version, or the run fails. The same for K3 (E
 experts, M_max rows each, loads of routing M_max / top_k tokens to top_k
-distinct experts at random) at every ring tile, bit-equal on the valid
-rows. Prints one JSON line per shape, with what ``ring_plan`` (or
-``ring_tile``, given the MoE layer's ``expected_m``) picks there: the data
-those functions are chosen from. The card only.
+distinct experts at random: ``bench.loads``) at every ring tile,
+bit-equal on the valid rows. Prints one JSON line per shape, with what
+``ring_plan`` (or ``tiling.analytic.masked_ring_tile``, given the MoE
+layer's ``expected_m``) picks there: the data those functions are chosen
+from. The card only.
 
     python -m deepgemm_ascend_tpu_torch.scripts.ring_sweep \\
         [--k1 16x2048x2048 ...] [--k3 32x96x2816x2048 ...] [--splits 1 2 4]
@@ -28,11 +29,11 @@ import sys
 
 import torch
 
-from ..bench import timing
+from ..bench import loads, timing
 from ..ops import fp8_gemm as fp8mod
 from ..ops import grouped_gemm as ggmod
 from ..ops import quant
-from ..tiling import platform
+from ..tiling import analytic, platform
 
 # V2_LITE's projections (n, k) at decode, the scripts' batch and prefill;
 # its experts at decode (16 and 32 tokens × top-6), the scripts' batch
@@ -43,7 +44,7 @@ K1 = tuple(f"{m}x{nk}" for m in (16, 64, 2048)
 K3 = tuple(f"32x{cap}x{nk}" for cap in (96, 192, 384, 768, 1536, 12288)
            for nk in ("2816x2048", "2048x1408"))
 SPLITS = (1, 2, 3, 4, 6, 8)
-TOP_K = 6
+TOP_K = loads.TOP_K
 
 
 def _within_one_ulp(got, ref) -> bool:
@@ -106,9 +107,7 @@ def measure_k3(e: int, cap: int, n: int, k: int, seed: int = 0,
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     tokens = max(1, cap // TOP_K)
-    picks = torch.rand(tokens, e, generator=g, device=dev).argsort(
-        dim=1)[:, :min(TOP_K, e)]
-    masked_m = torch.bincount(picks.flatten(), minlength=e).to(torch.int32)
+    masked_m = loads.routed_loads(e, tokens, TOP_K, g, dev)
     expected_m = None if full else -(-tokens * min(TOP_K, e) // e)
     if full:
         masked_m = torch.full((e,), cap, dtype=torch.int32, device=dev)
@@ -124,7 +123,7 @@ def measure_k3(e: int, cap: int, n: int, k: int, seed: int = 0,
     row = {"kernel": "K3", "e": e, "cap": cap, "n": n, "k": k,
            "valid_rows": sum(rows), "max_rows": max(rows), "full": full,
            "expected_m": expected_m, "ring_ms": {},
-           "plan": ggmod.ring_tile(cap, expected_m),
+           "plan": analytic.masked_ring_tile(cap, expected_m),
            "tile_ms": timing.cold_ms(tile)}
     for t, (bm, bn) in enumerate(fp8mod.RING_TILES):
         if n % bn:

@@ -15,8 +15,11 @@ each variant as µs and % of the row's H100 light speed
   Pallas blocks), its XLA family (plain torch ops), K12
   (``scale_mode="folded"``), and the scale fold plus ``torch.matmul`` as
   the library yardstick;
-* ``masked`` (E=8, 128×2048×512): K3, K8 on the same tokens (one 128-row
-  tile per expert), and the fold plus a batched ``torch.matmul``;
+* ``masked`` (E=8, 128×2048×512): K3 (the selector's tile, then each of
+  its compiled tiles under its plan label, in place of the JAX probe's
+  Pallas blocks, whose six tags print as not expressible), K8 on the same
+  tokens (one 128-row tile per expert), and the fold plus a batched
+  ``torch.matmul``;
 * ``primes`` (three prime shapes): K10 or K11 as ``select_config`` picks
   (the padding tier pads K and N's pitch where it pays:
   ``tiling/padding.py``), the unpadded mma_tile route, the selector's
@@ -27,9 +30,10 @@ each variant as µs and % of the row's H100 light speed
   ``torch.matmul``.
 
 The fp8 rows take B K-major, (n, k) with (n/128, k/128) scales, as the
-port's weights are stored. The masked row's block-size and coalescing
-variants belong to K3, which has no tile variants yet (ROADMAP.md); each
-prints as "n/a: fixed tile". There is no
+port's weights are stored. The JAX masked row's block-size and
+coalescing variants are Pallas blocks and expert coalescing, which no
+compiled K3 tile expresses; each prints as "n/a: a TPU block". There is
+no
 ``try``/``except`` around a variant: the JAX probe's ``timed()`` survives
 Mosaic rejecting a block, which has no counterpart here, so a failure
 fails the run.
@@ -66,7 +70,7 @@ FP8SMALL = (64, 512, 2048)
 MASKED = (8, 128, 2048, 512)
 PRIMES = ((1279, 5003, 7681), (3511, 6151, 8191), (5119, 6997, 9901))
 BF16CUBE = 4096
-FIXED_TILE = "n/a: fixed tile"
+TPU_BLOCK = "n/a: a TPU block"
 FP8 = torch.float8_e4m3fn
 BF16 = torch.bfloat16
 
@@ -85,7 +89,7 @@ def _report(tag: str, t: timing.Timing, ls: float) -> Dict:
     return {"tag": tag, "us": t.seconds * 1e6, "pct_ls": 100 * ls / t.seconds}
 
 
-def _not_expressible(tag: str, why: str = FIXED_TILE) -> Dict:
+def _not_expressible(tag: str, why: str = TPU_BLOCK) -> Dict:
     print(f"[probe]   {tag:38s} {why}", flush=True)
     return {"tag": tag, "na": why}
 
@@ -195,6 +199,16 @@ def row_masked(e: int, m: int, n: int, k: int, dev, t_kw: Dict) -> List[Dict]:
     k3 = functools.partial(gg.m_grouped_gemm_masked, b_layout="t")
     res.append(_report("K3 masked", timing.time_fn(
         k3, (a_q, a_s, b_q, b_s, mm), **t_kw), ls))
+    op = gg.masked_op(True)
+    rt = gg.route(a_q, b_q, "t") if dev.type == "cuda" else \
+        analytic.expected_route(op, m, n, k, FP8)
+    for cfg in analytic.enumerate_candidates(op, m, n, k, FP8, BF16,
+                                             platform.detect(dev), route=rt):
+        label = fp8mod.plan_label(rt, analytic.tile_code(
+            op, rt, cfg.block_m, cfg.block_n))
+        res.append(_report(f"K3 {label}", timing.time_fn(
+            functools.partial(k3, config=cfg), (a_q, a_s, b_q, b_s, mm),
+            **t_kw), ls))
     # K8 on the same tokens: the E blocks of m rows laid end to end, one
     # m-row tile per expert.
     ids = torch.arange(e, dtype=torch.int32)

@@ -18,15 +18,32 @@ the op's kernel (:data:`TILES`), judged against the Hopper envelope
   (k, n)): route "int8_tile" 64 × 64;
 * K1 (``fp8_gemm_nt``): route "ring" 16 × 64 and 64 × 64, with 1-8 CTAs
   of a cluster splitting the 128-deep scale groups; ``fp8_gemm``: route
-  "tile" 64 × 64.
+  "tile" 64 × 64. K12 (the folded scale mode of the same ops) has a route
+  of its own, "folded": 64 × 64, 128 × 128 and 128 × 256;
+* the grouped GEMMs, under JAX's op names with ``_nt`` for B stored
+  K-major (the int8 ones too, where JAX's names carry no layout): K3
+  (``grouped_gemm_masked[_nt]``) on K1's routes, ring 16 × 64 / 64 × 64,
+  tile 64 × 64, never split; K8 (``grouped_gemm[_nt]``, the contiguous
+  layout) on route "wgmma16" 64 × 128 / 128 × 128, tile 64 × 64; K6
+  (``int8_grouped_gemm_masked[_nt]``) on operands TMA reads (route
+  "wgmma" of ``ops.int8_gemm.route``) takes its ring kernel on 16 × 64 and
+  its wgmma kernel on 64 × 64 / 128 × 256 (:data:`KERNEL_ROUTES`: the
+  tile decides), else int8_tile 64 × 64; K9 (``int8_grouped_gemm[_nt]``)
+  route wgmma 64 × 64 / 128 × 256, int8_tile 64 × 64. A contiguous op's
+  key has the layout's m-tile as m (JAX's), and its tiles' rows divide
+  it on the Hopper routes.
 
 :func:`get_best_config` returns the config that the kernels picked before
-their tiles became selectable — the rule that used to live inside the C
-entries (``sm90::large_tile``, K1's ``ring_plan``) and the fitted split
+their tiles became selectable — the rules that used to live inside the C
+entries (``sm90::large_tile``: K10's, K7's and K12's; K1's
+``ring_plan``) and in the grouped wrappers (K3's and K6's rows an expert
+is expected to hold, K8's and K9's layout rule), and the fitted split
 gate below — so that with no cache and no predictor every shape runs as
-it did. :func:`estimate_time` is the fitted model of K10 and K11 extended
-over the variants; it ranks candidates for the autotuner's pruning and
-the predictor's guardrail, never the default. The padding tag
+it did. The masked ops' answer depends on ``expected_m`` (the rows an
+expert is expected to hold), which their selection key carries.
+:func:`estimate_time` is the fitted model of K10 and K11 extended over
+the variants; it ranks candidates for the autotuner's pruning and the
+predictor's guardrail, never the default. The padding tag
 (``tiling/padding.py``) is attached to the dense GEMM's configs.
 
 The split gate
@@ -89,6 +106,10 @@ from .platform import PlatformInfo
 WGMMA_TILES = ((64, 64), (128, 128), (128, 256))
 FFMA_TILES = ((16, 128), (64, 64), (128, 128))
 RING_TILES = ((16, 64), (64, 64))
+# K8's wgmma16 tiles, K6's and K9's wgmma tiles, K12's folded tiles.
+WGMMA16_TILES = ((64, 128), (128, 128))
+GROUPED_WGMMA_TILES = ((64, 64), (128, 256))
+FOLDED_TILES = WGMMA_TILES
 TILES = {
     ("gemm", "mma_tile"): ((64, 64),),
     ("gemm", "wgmma"): WGMMA_TILES,
@@ -97,13 +118,28 @@ TILES = {
     ("int8", "wgmma"): WGMMA_TILES,
     ("fp8", "tile"): ((64, 64),),
     ("fp8", "ring"): RING_TILES,
+    ("fp8", "folded"): FOLDED_TILES,
+    ("fp8_masked", "tile"): ((64, 64),),
+    ("fp8_masked", "ring"): RING_TILES,
+    ("fp8_contiguous", "tile"): ((64, 64),),
+    ("fp8_contiguous", "wgmma16"): WGMMA16_TILES,
+    ("int8_masked", "int8_tile"): ((64, 64),),
+    ("int8_masked", "ring"): ((16, 64),),
+    ("int8_masked", "wgmma"): GROUPED_WGMMA_TILES,
+    ("int8_contiguous", "int8_tile"): ((64, 64),),
+    ("int8_contiguous", "wgmma"): GROUPED_WGMMA_TILES,
 }
+# The kernel routes that operands of a route open, where the config's tile
+# picks one: K6's TMA operands run its ring kernel or its wgmma kernel.
+KERNEL_ROUTES = {("int8_masked", "wgmma"): ("ring", "wgmma")}
 # The K depth of a family's stage: 64 16-bit elements (K11 splits K in
 # whole 64-deep blocks on every route), 128 int8, one 128-deep fp8 scale
 # group. A config's block_k is this depth; the kernels read no other.
-K_STEP = {"gemm": 64, "int8": 128, "fp8": 128}
+K_STEP = {"gemm": 64, "int8": 128, "fp8": 128, "fp8_masked": 128,
+          "fp8_contiguous": 128, "int8_masked": 128, "int8_contiguous": 128}
 # (stages, threads, blocks an SM) of each compiled instance; the stages
-# set its shared memory (smem_footprint).
+# set its shared memory (smem_footprint). K3 runs K1's ring instances, K6
+# and K9 K7's wgmma ones; K6's ring ("ring8") and K12's are their own.
 _INSTANCES = {
     ("wgmma", (64, 64)): (6, 256, 2),
     ("wgmma", (128, 128)): (6, 384, 1),
@@ -116,7 +152,15 @@ _INSTANCES = {
     ("tile", (64, 64)): (1, 128, 4),
     ("ring", (16, 64)): (4, 160, 4),
     ("ring", (64, 64)): (4, 288, 2),
+    ("ring8", (16, 64)): (6, 160, 3),
+    ("wgmma16", (64, 128)): (2, 128, 2),
+    ("wgmma16", (128, 128)): (4, 256, 1),
+    ("folded", (64, 64)): (3, 256, 3),
+    ("folded", (128, 128)): (3, 384, 1),
+    ("folded", (128, 256)): (3, 384, 1),
 }
+# K12's raw e4m3 stages (csrc/fp8_gemm.cu: run_folded's RAW), 3 elsewhere.
+_FOLDED_RAW = {(128, 128): 6}
 # Register share a thread of these kernels keeps at least: a block fits the
 # card only if its threads can each hold that many.
 MIN_REGS = 64
@@ -132,18 +176,71 @@ _GEMM_LAYOUTS = {"gemm": "nn", "bgemm": "nn", "gemm_nt": "nt",
                  "gemm_tn": "tn", "gemm_tt": "tt"}
 # The ops whose K11 path exists: split-K is nn only (ops/gemm.py).
 KSPLIT_OPS = ("gemm", "bgemm")
+_FAMILIES = {"int8_gemm": "int8", "fp8_gemm": "fp8",
+             "grouped_gemm_masked": "fp8_masked",
+             "grouped_gemm": "fp8_contiguous",
+             "int8_grouped_gemm_masked": "int8_masked",
+             "int8_grouped_gemm": "int8_contiguous"}
+# The grouped ops (JAX's names and their "_nt" twins).
+GROUPED_OPS = tuple(op + sfx for op in _FAMILIES if "grouped" in op
+                    for sfx in ("", "_nt"))
+MASKED = ("fp8_masked", "int8_masked")
+CONTIGUOUS = ("fp8_contiguous", "int8_contiguous")
 
 
 def family(op: str) -> str:
-    """The kernel family of a selector op: "gemm" (K10/K11), "int8" (K7)
-    or "fp8" (K1)."""
+    """The kernel family of a selector op: "gemm" (K10/K11), "int8" (K7),
+    "fp8" (K1, and K12 on its route), "fp8_masked" (K3),
+    "fp8_contiguous" (K8), "int8_masked" (K6) or "int8_contiguous"
+    (K9)."""
     if op in _GEMM_LAYOUTS:
         return "gemm"
-    if op in ("int8_gemm", "int8_gemm_nt"):
-        return "int8"
-    if op in ("fp8_gemm", "fp8_gemm_nt"):
-        return "fp8"
-    raise ValueError(f"no tile variants for op {op!r}")
+    fam = _FAMILIES.get(op[:-3] if op.endswith("_nt") else op)
+    if fam is None:
+        raise ValueError(f"no tile variants for op {op!r}")
+    return fam
+
+
+def route_tiles(op: str, route: str) -> List[Tuple[str, Tuple[int, int]]]:
+    """(kernel route, tile) of every compiled tile that operands taking
+    ``route`` can run, in tile-code order a kernel route."""
+    fam = family(op)
+    return [(kr, t) for kr in KERNEL_ROUTES.get((fam, route), (route,))
+            for t in TILES[(fam, kr)]]
+
+
+def kernel_plan(op: str, route: str, block_m: int,
+                block_n: int) -> Tuple[str, int]:
+    """(kernel route, tile code) of a block_m × block_n tile on operands
+    that take ``route``: the tile's index in its kernel route's compiled
+    set. A tile outside them raises ``ValueError`` naming the compiled
+    tiles (nothing is substituted)."""
+    pairs = route_tiles(op, route)
+    for kr, t in pairs:
+        if t == (block_m, block_n):
+            return kr, TILES[(family(op), kr)].index(t)
+    raise ValueError(
+        f"{op}: no compiled {block_m}x{block_n} tile on route {route!r}; "
+        f"compiled: {', '.join('%dx%d' % t for _, t in pairs)}")
+
+
+def instance(op: str, route: str, bm: int, bn: int):
+    """(kernel route, (stages, threads, blocks an SM)) of a compiled
+    tile."""
+    kr, _ = kernel_plan(op, route, bm, bn)
+    if family(op) == "int8_masked" and kr == "ring":
+        kr = "ring8"
+    return kr, _INSTANCES[(kr, (bm, bn))]
+
+
+def expected_rows(op: str, m: int, expected_m: Optional[int]):
+    """The ``expected_m`` a selection keys on: for a masked op the rows an
+    expert is expected to hold, below M_max (``m``) and at least 0 — None
+    where it is not given or not below M_max, which picks as M_max does;
+    None for every other op, whose tile no hint moves."""
+    if expected_m is None or family(op) not in MASKED or expected_m >= m:
+        return None
+    return max(0, int(expected_m))
 
 
 def _itemsize(dtype) -> int:
@@ -153,14 +250,21 @@ def _itemsize(dtype) -> int:
 def expected_route(op: str, m: int, n: int, k: int, in_dtype) -> str:
     """The route a launch of ``op`` takes on operands of this shape stored
     contiguously with 16-byte aligned bases (``ops.gemm.route``,
-    ``ops.int8_gemm.route``, ``ops.fp8_gemm.route``): only an offset view
-    takes another."""
+    ``ops.int8_gemm.route``, ``ops.fp8_gemm.route`` and the grouped
+    wrappers' routes; a contiguous op's m is the layout's m-tile): only an
+    offset view takes another. K12's route "folded" is the scale mode's,
+    never expected."""
     fam = family(op)
-    if fam == "int8":
-        return ("wgmma" if op.endswith("_nt") and k > 0 and k % 16 == 0
-                else "int8_tile")
-    if fam == "fp8":
-        return "ring" if op.endswith("_nt") and k > 0 else "tile"
+    nt = op.endswith("_nt")
+    if fam in ("int8", "int8_masked", "int8_contiguous"):
+        tma = nt and k > 0 and k % 16 == 0
+        if fam == "int8_contiguous":
+            tma = tma and m % 64 == 0
+        return "wgmma" if tma else "int8_tile"
+    if fam in ("fp8", "fp8_masked"):
+        return "ring" if nt and k > 0 else "tile"
+    if fam == "fp8_contiguous":
+        return "wgmma16" if nt and k > 0 and m % 64 == 0 else "tile"
     a_t, b_t = (c == "t" for c in _GEMM_LAYOUTS[op])
     pitch_a = m if a_t else k
     pitch_b = k if b_t else n
@@ -176,13 +280,7 @@ def tile_code(op: str, route: str, block_m: int, block_n: int) -> int:
     """The C entry's tile code of (block_m, block_n) on ``route``; a tile
     outside the route's compiled set raises ``ValueError`` (nothing is
     substituted)."""
-    tiles = TILES[(family(op), route)]
-    try:
-        return tiles.index((block_m, block_n))
-    except ValueError:
-        raise ValueError(
-            f"{op}: no compiled {block_m}x{block_n} tile on route {route!r}; "
-            f"compiled: {', '.join('%dx%d' % t for t in tiles)}") from None
+    return kernel_plan(op, route, block_m, block_n)[1]
 
 
 # ---------------------------------------------------------------- envelope
@@ -195,8 +293,15 @@ def smem_footprint(route: str, bm: int, bn: int, stages: int,
     16-deep f32 stages with their raw transpose buffers; K1's ring of
     128-byte scale groups with their scales), or the tile routes' one
     stage."""
-    if route == "wgmma":
+    if route in ("wgmma", "ring8"):
         return stages * (bm + bn) * 128 + 2 * stages * 8 + 1024
+    if route == "wgmma16":       # two f16 B stages, raw e4m3 A and B
+        return 2 * 2 * bn * 128 + stages * (bm + bn) * 128 \
+            + stages * 8 + 1008
+    if route == "folded":        # the bf16 ring, then the raw e4m3 one
+        raw = _FOLDED_RAW.get((bm, bn), 3)
+        return stages * (bm + bn) * 128 + raw * (bm + bn) * 64 \
+            + (2 * stages + 2 * raw) * 8 + 1024
     if route == "ffma":
         return stages * 16 * ((bm + 4) + (bn + 4)) * 4 * 2
     if route == "ring":
@@ -220,11 +325,6 @@ def judge_space(route: str, bm: int, bn: int,
     return (smem <= info.smem_per_block
             and smem * blocks <= info.smem_per_sm
             and threads * blocks * MIN_REGS <= info.regs_per_sm)
-
-
-def slots_per_sm(route: str, bm: int, bn: int) -> int:
-    """Blocks of the instance an SM holds (its launch bounds)."""
-    return _INSTANCES[(route, (bm, bn))][2]
 
 
 # ---------------------------------------------------------------- K1's plan
@@ -259,10 +359,91 @@ def ring_plan(m: int, n: int, k: int, sms: int = plat.H100_SMS):
     return tile, ring_splits(m, n, k, tile, sms)
 
 
+# ---------------------------------------------------------------- grouped rules
+
+# The rows an expert is expected to hold that the masked kernels' tiles
+# follow: K3 and K6 take 16-row ring tiles up to SMALL_ROWS (at decode: no
+# padded fragments, a CTA walks its few valid tiles and zeroes the rest;
+# scripts/ring_sweep.py: 16 rows ahead up to a mean of 12 rows an expert);
+# beyond, K3 its 64-row ring tile and K6 its wgmma kernel, 64 x 64 up to
+# MEDIUM_ROWS and 128 x 256 past them (scripts/decode_sweep.py at
+# V2_LITE's experts: 64 x 64 ahead at 24 and 48 rows, 128 x 256 level at
+# 96 and ahead from 192).
+SMALL_ROWS = 16
+MEDIUM_ROWS = 64
+
+
+def _rows(m_max: int, expected_m: Optional[int]) -> int:
+    return m_max if expected_m is None else max(0, min(m_max, expected_m))
+
+
+def masked_ring_tile(m_max: int, expected_m: Optional[int] = None) -> int:
+    """Index into :data:`RING_TILES` of K3's ring tile: 16 rows where an
+    expert is expected to hold at most SMALL_ROWS rows — ``expected_m``
+    (the caller's hint, DeepGEMM's name for it) or, without one, M_max —
+    else 64."""
+    return 0 if _rows(m_max, expected_m) <= SMALL_ROWS else 1
+
+
+def masked_plan(m_max: int, expected_m: Optional[int] = None):
+    """(kernel route, tile code) of K6 on operands that take the TMA
+    routes, by the rows an expert is expected to hold (``expected_m`` or,
+    without it, M_max): ``"ring"`` up to SMALL_ROWS, else ``"wgmma"`` on
+    64 × 64 tiles (code 0) up to MEDIUM_ROWS and on 128 × 256 (code 1)
+    beyond."""
+    rows = _rows(m_max, expected_m)
+    if rows <= SMALL_ROWS:
+        return "ring", 0
+    return "wgmma", int(rows > MEDIUM_ROWS)
+
+
+def contiguous_tile(block_m: int) -> int:
+    """The tile code of the contiguous kernels' Hopper routes (K8's
+    wgmma16, K9's wgmma): 1, the 128-row tile, where 128 divides the
+    layout's ``block_m`` (the MoE prefill's and DeepGEMM's layout), else
+    0, the 64-row one."""
+    return int(block_m % 128 == 0)
+
+
+def folded_tile(m: int, n: int) -> Tuple[int, int]:
+    """K12's tile (the rule ``csrc/fp8_gemm.cu`` compiled in before its
+    tile became selectable): a 128-row tile where m > 64 and the grid of
+    them reaches FULL_GRID blocks — 128 × 256 where 256 divides n, else
+    128 × 128 — otherwise 64 × 64, three blocks an SM."""
+    rows = ceil_div(m, 128)
+    if n % 256 == 0:
+        if m > 64 and rows * (n // 256) >= FULL_GRID:
+            return 128, 256
+    elif m > 64 and rows * (n // 128) >= FULL_GRID:
+        return 128, 128
+    return 64, 64
+
+
+def grouped_tile(op: str, route: str, m: int,
+                 expected_m: Optional[int] = None) -> Tuple[int, int]:
+    """The tile a grouped op's wrapper picked before its tile became
+    selectable, on ``route`` (``m``: M_max of a masked op, the layout's
+    m-tile of a contiguous one): :func:`masked_ring_tile` (K3),
+    :func:`masked_plan` (K6), :func:`contiguous_tile` (K8, K9); the tile
+    routes their one 64 × 64."""
+    fam = family(op)
+    if fam == "fp8_masked" and route == "ring":
+        return RING_TILES[masked_ring_tile(m, expected_m)]
+    if fam == "int8_masked" and route == "wgmma":
+        kr, code = masked_plan(m, expected_m)
+        return TILES[(fam, kr)][code]
+    if fam == "fp8_contiguous" and route == "wgmma16":
+        return WGMMA16_TILES[contiguous_tile(m)]
+    if fam == "int8_contiguous" and route == "wgmma":
+        return GROUPED_WGMMA_TILES[contiguous_tile(m)]
+    return 64, 64
+
+
 # ---------------------------------------------------------------- the model
 
-# sm90::large_tile (csrc/sm90_gemm.cuh): K10's 128 × 256 tile where m > 64
-# and there are at least FULL_GRID of them.
+# The large-tile rule the C entries once compiled in (sm90::large_tile):
+# K10's 128 × 256 tile where m > 64 and there are at least FULL_GRID of
+# them.
 LARGE_TILE = (128, 256)
 FULL_GRID = 100
 # Blocks of the 64 × 64 wgmma instance an SM holds (its launch bounds).
@@ -284,7 +465,7 @@ STAGE_EFF = (2 * 2 * 64 ** 3) / (STAGE_S * plat.BF16_OPS_PER_S
 
 
 def large_tile(m: int, n: int) -> bool:
-    """K10 runs 128 × 256 tiles (``sm90::large_tile``)."""
+    """K10 runs 128 × 256 tiles (the large-tile rule above)."""
     return m > 64 and (ceil_div(m, LARGE_TILE[0])
                        * ceil_div(n, LARGE_TILE[1])) >= FULL_GRID
 
@@ -388,9 +569,9 @@ class _Estimate:
 
 
 def _peak(fam: str, in_dtype) -> float:
-    if fam == "int8":
+    if fam.startswith("int8"):
         return plat.INT8_OPS_PER_S
-    if fam == "fp8":
+    if fam.startswith("fp8"):
         return plat.FP8_OPS_PER_S
     return plat.peak_ops(in_dtype)
 
@@ -427,7 +608,11 @@ def estimate_time(op: str, m: int, n: int, k: int, config: GemmConfig,
     splits = config.k_split
     tiles = ceil_div(m, bm) * ceil_div(n, bn) * max(batch, 1)
     nk = ceil_div(k, bk)
-    slots = slots_per_sm(route, bm, bn) * info.num_cores
+    if config.kernel_type == KernelType.XLA:   # priced as the mma_tile
+        kroute, (stages, _, per_sm) = route, _INSTANCES[(route, (bm, bn))]
+    else:
+        kroute, (stages, _, per_sm) = instance(op, route, bm, bn)
+    slots = per_sm * info.num_cores
     isz = _itemsize(in_dtype)
     nbytes = (m * k + k * n) * isz * max(batch, 1) \
         + m * n * _itemsize(out_dtype) * max(batch, 1)
@@ -442,15 +627,13 @@ def estimate_time(op: str, m: int, n: int, k: int, config: GemmConfig,
         eff = params.stage_eff * 0.8
     else:
         eff = params.stage_eff
-    stage_s = max(params.stage_s, slots_per_sm(route, bm, bn)
-                  * 2 * bm * bn * bk / (sm_peak * eff))
+    stage_s = max(params.stage_s, per_sm * 2 * bm * bn * bk / (sm_peak * eff))
     stream = ceil_div(splits * tiles, slots) * ceil_div(nk, splits) * stage_s
     memory_s = nbytes / params.hbm_rate
     limits = stream ** NORM + memory_s ** NORM
     time_s = params.launch_s + extra + limits ** (1 / NORM) + pad_s
     return _Estimate(time_s, stream, memory_s,
-                     smem_footprint(route, bm, bn,
-                                    _INSTANCES[(route, (bm, bn))][0]))
+                     smem_footprint(kroute, bm, bn, stages))
 
 
 # ---------------------------------------------------------------- candidates
@@ -459,6 +642,20 @@ def _fits_shape(bm: int, bn: int, m: int, n: int) -> bool:
     """A tile the shape can use: no more rows than m rounded up to 64, no
     more columns than n rounded up to 64 (the smallest tile always)."""
     return bm <= max(round_up(m, 64), 16) and bn <= max(round_up(n, 64), 64)
+
+
+def tile_admits(op: str, route: str, bm: int, bn: int, m: int,
+                n: int) -> bool:
+    """Whether a compiled tile can run this problem at all: a contiguous
+    op's Hopper tiles only where their rows divide the layout's m-tile
+    (``m``: no tile spans two experts), K12's 128 × 256 only where 256
+    divides n (its grid covers n / 256 tiles)."""
+    fam = family(op)
+    if fam in CONTIGUOUS and route not in ("tile", "int8_tile"):
+        return m % bm == 0
+    if route == "folded" and bn == 256:
+        return n % 256 == 0
+    return True
 
 
 def enumerate_candidates(op: str, m: int, n: int, k: int,
@@ -484,16 +681,18 @@ def enumerate_candidates(op: str, m: int, n: int, k: int,
     bk = K_STEP[fam]
     out: List[GemmConfig] = []
     sms = info.num_cores
-    for bm, bn in TILES[(fam, route)]:
-        if not (_fits_shape(bm, bn, m, n) and judge_space(route, bm, bn,
-                                                          info)):
+    for _, (bm, bn) in route_tiles(op, route):
+        kroute, (_, _, per_sm) = instance(op, route, bm, bn)
+        if not (_fits_shape(bm, bn, m, n) and judge_space(kroute, bm, bn,
+                                                          info)
+                and tile_admits(op, route, bm, bn, m, n)):
             continue
         base = GemmConfig(block_m=bm, block_n=bn, block_k=bk)
         out.append(base)
         if not splits:
             continue
         tiles = ceil_div(m, bm) * ceil_div(n, bn) * max(batch, 1)
-        slots = slots_per_sm(route, bm, bn) * sms
+        slots = per_sm * sms
         if fam == "gemm" and op in KSPLIT_OPS and tiles < slots:
             nk = ceil_div(k, bk)
             out += [base.replace(kernel_type=KernelType.KSPLIT, k_split=s)
@@ -520,7 +719,7 @@ def default_tile(op: str, route: str, m: int, n: int, batch: int = 1,
                  splits: int = 1, sms: int = plat.H100_SMS) -> Tuple[int, int]:
     """The tile the kernels picked before it became selectable: on route
     wgmma (K10, K11, K7) 128 × 256 where m > 64 and the grid of such tiles
-    (batch and splits counted) fills the card (``sm90::large_tile``), else
+    (batch and splits counted) fills the card (the large-tile rule), else
     64 × 64; on route ffma 16 × 128 at m ≤ 16, 128 × 128 where m > 64 and
     such tiles fill the card, else 64 × 64; K1's ring :func:`ring_tile`;
     the tile routes their one 64 × 64."""
@@ -546,6 +745,7 @@ def get_best_config(
     info: Optional[PlatformInfo] = None,
     batch: int = 1,
     route: Optional[str] = None,
+    expected_m: Optional[int] = None,
 ) -> GemmConfig:
     """The analytic config of an (m, n, k) problem of ``op`` (≙ JAX
     ``get_best_config``, ``csrc/jit/get_best_config.hpp:33`` in the
@@ -557,15 +757,19 @@ def get_best_config(
     N-major rule for n > m is not taken: it would move today's launches)
     — and, for the dense GEMM, the padding tag (:func:`_apply_padding_tag`:
     ``pad_k`` where padding the ragged pitches beats the mma_tile route,
-    and then the padded problem's tile). Memoized per (shape, op, device)."""
+    and then the padded problem's tile). The grouped ops: the tile of
+    :func:`grouped_tile` (by ``expected_m`` for a masked op), never split;
+    K12 (``route="folded"``): :func:`folded_tile`. Memoized per (shape,
+    op, device)."""
     info = info or plat.H100
-    key = (m, n, k, str(in_dtype), str(out_dtype), op, info, batch, route)
+    key = (m, n, k, str(in_dtype), str(out_dtype), op, info, batch, route,
+           expected_rows(op, m, expected_m))
     return _best(key)
 
 
 @functools.lru_cache(maxsize=4096)
 def _best(key) -> GemmConfig:
-    m, n, k, in_s, out_s, op, info, batch, route = key
+    m, n, k, in_s, out_s, op, info, batch, route, expected_m = key
     in_dtype = getattr(torch, in_s.replace("torch.", ""))
     out_dtype = getattr(torch, out_s.replace("torch.", ""))
     fam = family(op)
@@ -575,11 +779,16 @@ def _best(key) -> GemmConfig:
                                     batch)
         if padded is not None:
             return padded
-    return _rule_config(op, route, m, n, k, info, batch)
+    return _rule_config(op, route, m, n, k, info, batch, expected_m)
 
 
-def _rule_config(op, route, m, n, k, info, batch) -> GemmConfig:
+def _rule_config(op, route, m, n, k, info, batch,
+                 expected_m=None) -> GemmConfig:
     fam = family(op)
+    if fam not in ("gemm", "int8", "fp8") or route == "folded":
+        bm, bn = (folded_tile(m, n) if route == "folded"
+                  else grouped_tile(op, route, m, expected_m))
+        return GemmConfig(block_m=bm, block_n=bn, block_k=K_STEP[fam])
     if fam == "fp8":
         if route == "ring":
             tile, s = ring_plan(m, n, k, info.num_cores)

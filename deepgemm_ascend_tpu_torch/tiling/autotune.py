@@ -46,6 +46,7 @@ from ..config import GemmConfig, KernelType
 from . import analytic
 from . import platform as plat
 from .cache import TilingCache, cache_key, dtype_name, global_cache
+from .selector import FOLDED, key_extra
 
 
 @dataclasses.dataclass
@@ -243,23 +244,31 @@ class Autotuner:
         verbose: bool = False,
         flops_scale: float = 1.0,
         batch: int = 1,
+        expected_m: Optional[int] = None,
+        route: Optional[str] = None,
     ) -> Optional[GemmConfig]:
         """Sweep one shape; returns the winning kernel config (None if
         every kernel candidate failed). ``max_candidates`` keeps the
         analytically fastest prefix (``analytic.estimate_time``); the XLA
         yardstick is appended where :func:`xla_candidate_ok` admits it
-        (last, so that resumed indices stay aligned) and never wins."""
+        (last, so that resumed indices stay aligned) and never wins. A
+        grouped op's ``flops_scale`` is its experts (masked) or m-tiles
+        (contiguous), counted in the light-speed screen; ``expected_m``
+        (a masked op's hint) and ``route`` (K12's "folded") go into the
+        winner's key as the selector keys them."""
         info = self._info
         if candidates is None:
             candidates = analytic.enumerate_candidates(
-                self._op, m, n, k, in_dtype, out_dtype, info, batch)
+                self._op, m, n, k, in_dtype, out_dtype, info, batch,
+                route=route)
         candidates = list(candidates)
         if max_candidates:
             candidates.sort(key=lambda c: analytic.estimate_time(
                 self._op, m, n, k, c, info, in_dtype, out_dtype,
-                batch).time_s)
+                batch, route=route).time_s)
             candidates = candidates[:max_candidates]
-        if xla_candidate_ok(self._op, m, n, k, flops_scale):
+        if route != FOLDED and xla_candidate_ok(self._op, m, n, k,
+                                                flops_scale):
             xcfg = GemmConfig(kernel_type=KernelType.XLA)
             if xcfg not in candidates:
                 candidates.append(xcfg)
@@ -315,9 +324,10 @@ class Autotuner:
         if best is None:
             return None
         win = GemmConfig.from_dict(best.config)
-        extra = f"g{k_granularity}" + (f"b{batch}" if batch > 1 else "")
         key = cache_key(self._op, m, n, k, dtype_name(in_dtype),
-                        dtype_name(out_dtype), extra)
+                        dtype_name(out_dtype),
+                        key_extra(self._op, m, k_granularity, batch,
+                                  expected_m, route))
         self._cache.set(key, win, persist=True)
         return win
 

@@ -187,15 +187,19 @@ class TilingPredictor:
 
     def predict(self, m: int, n: int, k: int, in_dtype, out_dtype,
                 *, op: str = "gemm", info: Optional[plat.PlatformInfo] = None,
-                batch: int = 1) -> Optional[GemmConfig]:
-        """Best config by predicted time, or None to decline (fallback)."""
+                batch: int = 1,
+                expected_m: Optional[int] = None) -> Optional[GemmConfig]:
+        """Best config by predicted time, or None to decline (fallback).
+        ``expected_m``: a masked grouped op's hint, which moves its
+        analytic config (the features are JAX's and do not carry it)."""
         if op != self.op:
             return None
         if self.weights.mean.shape[0] != FEATURES:
             return None   # stale weights (older feature schema) → decline
         info = info or plat.H100
         native = analytic.get_best_config(m, n, k, in_dtype, out_dtype, op=op,
-                                          info=info, batch=batch)
+                                          info=info, batch=batch,
+                                          expected_m=expected_m)
         if native.pad_k:
             return None   # the padding tier's answer stands
         cands = {(c.block_m, c.block_n, c.block_k)

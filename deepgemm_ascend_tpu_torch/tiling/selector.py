@@ -31,8 +31,21 @@ tiers' metrics count its first selection only.
 
 The key is JAX's (``cache_key``; ``extra`` = ``g{k_granularity}``, and
 ``b{batch}`` after it for a batch of more than one, whose tile the whole
-grid decides). The device's kind picks the cache and the predictor, and
-its envelope the analytic answer (a CPU tensor: one core, as before).
+grid decides), with two additions (:func:`key_extra`): ``e{expected_m}``
+for a masked grouped op given the rows an expert is expected to hold
+below M_max (the tile follows them: decode and prefill at one capacity
+are two keys; JAX keys on M_max alone), and ``/folded`` for K12, whose
+tiles are not K1's though its op is. The device's kind picks the cache
+and the predictor, and its envelope the analytic answer (a CPU tensor:
+one core, as before).
+
+The grouped ops are keyed as JAX keys them: a masked op on M_max, a
+contiguous one on the layout's m-tile (``block_m``), which the layout
+fixes. A contiguous op's selected config names its kernel tile itself —
+``block_m × block_n`` one of the route's compiled tiles, whose rows
+divide the key's m-tile (:func:`analytic.tile_admits`) — where a caller's
+config keeps JAX's meaning of block_m, the layout's m-tile
+(``ops.grouped_gemm.contiguous_tiles``).
 """
 
 from __future__ import annotations
@@ -55,7 +68,9 @@ _default_predictor_tried = False
 
 # Ops a predictor may serve: the ops whose kernels have tile variants.
 PREDICTOR_OPS = ("gemm", "gemm_nt", "gemm_tn", "gemm_tt", "bgemm",
-                 "int8_gemm_nt", "fp8_gemm_nt")
+                 "int8_gemm_nt", "fp8_gemm_nt") + analytic.GROUPED_OPS
+# The route with a key of its own: K12's, the fp8 ops' folded scale mode.
+FOLDED = "folded"
 
 
 # launch_config's answers, valid while cache.generation() is _memo_gen.
@@ -97,6 +112,19 @@ def _maybe_enable_default_predictor(kind: str) -> None:
         enable_default_predictor(op=op, strategy="topk_median", kind=kind)
 
 
+def key_extra(op: str, m: int, k_granularity: int = 128, batch: int = 1,
+              expected_m: Optional[int] = None,
+              route: Optional[str] = None) -> str:
+    """The ``extra`` field of a selection's cache key (module docstring):
+    ``g{k_granularity}``, ``b{batch}`` for a batch of more than one,
+    ``e{expected_m}`` for a masked op's hint below M_max, ``/folded`` on
+    K12's route."""
+    em = analytic.expected_rows(op, m, expected_m)
+    return (f"g{k_granularity}" + (f"b{batch}" if batch > 1 else "")
+            + (f"e{em}" if em is not None else "")
+            + ("/" + FOLDED if route == FOLDED else ""))
+
+
 def select_config(
     m: int, n: int, k: int,
     in_dtype=torch.bfloat16,
@@ -108,17 +136,23 @@ def select_config(
     override: Optional[GemmConfig] = None,
     device="cuda",
     batch: int = 1,
+    expected_m: Optional[int] = None,
+    route: Optional[str] = None,
 ) -> GemmConfig:
     """The tile config of an (m, n, k) problem of ``op`` on ``device``
     (tiers as in the module docstring). ``batch``: the batch of a
-    ``bgemm``, counted in the tile's grid."""
+    ``bgemm``, counted in the tile's grid; ``expected_m``: a masked
+    grouped op's rows an expert is expected to hold; ``route="folded"``:
+    K12's tile for an fp8 op (no predictor serves it: the op's was
+    trained on K1)."""
     if override is not None:
         return override
     from ..utils.logging import metrics
 
     in_name, out_name = dtype_name(in_dtype), dtype_name(out_dtype)
-    extra = f"g{k_granularity}" + (f"b{batch}" if batch > 1 else "")
-    key = cache_key(op, m, n, k, in_name, out_name, extra)
+    folded = route == FOLDED
+    key = cache_key(op, m, n, k, in_name, out_name,
+                    key_extra(op, m, k_granularity, batch, expected_m, route))
     info = plat.detect(device)
     kind = info.device_kind
     cache = cache if cache is not None else global_cache(kind)
@@ -130,10 +164,11 @@ def select_config(
     metrics.inc("tiling.cache_miss")
 
     _maybe_enable_default_predictor(kind)
-    pred = _predictors.get(op)
+    pred = None if folded else _predictors.get(op)
     if pred is not None:
+        hint = {} if expected_m is None else {"expected_m": expected_m}
         cfg = pred.predict(m, n, k, in_dtype, out_dtype, op=op,
-                           info=info, batch=batch)
+                           info=info, batch=batch, **hint)
         if cfg is not None:
             metrics.inc("tiling.predictor_pick")
             metrics.inc(f"tiling.predictor_pick.{op}")
@@ -144,39 +179,47 @@ def select_config(
 
     metrics.inc("tiling.analytic_pick")
     cfg = analytic.get_best_config(m, n, k, in_dtype, out_dtype, op=op,
-                                   info=info, batch=batch)
+                                   info=info, batch=batch,
+                                   route=route if folded else None,
+                                   expected_m=expected_m)
     cache.set(key, cfg, persist=False)  # analytic results are re-derivable
     return cfg
 
 
 def fit_route(cfg: GemmConfig, route: str, m: int, n: int, k: int,
               in_dtype, out_dtype, *, op: str, device,
-              batch: int = 1) -> GemmConfig:
+              batch: int = 1, expected_m: Optional[int] = None) -> GemmConfig:
     """A selected config for operands that take ``route``: ``cfg`` where
-    its tile is one of that route's compiled tiles (and K1's tile route is
-    not asked to split), else the route's analytic config — the case of an
-    offset view or a forced plan, which the shape-keyed tiers cannot see.
-    The XLA family and a padded config (whose operands are new tensors)
-    pass unchanged."""
+    its tile is one of that route's compiled tiles that can run the
+    problem (:func:`analytic.tile_admits`), unsplit on K1's tile route,
+    K12's and the grouped kernels', else the route's analytic config — the case of an
+    offset view or a forced plan, which the shape-keyed tiers cannot see,
+    or of an entry no kernel on the route can run. The XLA family and a
+    padded config (whose operands are new tensors) pass unchanged."""
     if cfg.kernel_type == KernelType.XLA or cfg.pad_k:
         return cfg
     fam = analytic.family(op)
-    if ((cfg.block_m, cfg.block_n) in analytic.TILES[(fam, route)]
-            and not (route == "tile" and cfg.k_split > 1)):
+    tile = (cfg.block_m, cfg.block_n)
+    splits_ok = cfg.k_split == 1 or (fam in ("gemm", "int8", "fp8")
+                                     and route not in ("tile", FOLDED))
+    if (tile in [t for _, t in analytic.route_tiles(op, route)]
+            and analytic.tile_admits(op, route, *tile, m, n) and splits_ok):
         return cfg
     return analytic.get_best_config(m, n, k, in_dtype, out_dtype, op=op,
                                     info=plat.detect(device), batch=batch,
-                                    route=route)
+                                    route=route, expected_m=expected_m)
 
 
 def launch_config(m: int, n: int, k: int, in_dtype, out_dtype, *, op: str,
                   device, route: Optional[str] = None,
-                  k_granularity: int = 128, batch: int = 1) -> GemmConfig:
+                  k_granularity: int = 128, batch: int = 1,
+                  expected_m: Optional[int] = None) -> GemmConfig:
     """The config a wrapper launches when its caller gives none:
     :func:`select_config`'s on ``device``, fitted to the ``route`` the
-    operands take on the card (:func:`fit_route`; None on the CPU).
-    Memoised while no cache entry changes value, no cache is cleared or
-    replaced and no predictor is registered or cleared
+    operands take on the card (:func:`fit_route`; None on the CPU, but
+    K12's "folded" always). Memoised, by everything the tiers read —
+    ``expected_m`` too —, while no cache entry changes value, no cache is
+    cleared or replaced and no predictor is registered or cleared
     (``cache.generation``)."""
     global _memo_gen
     gen = cachemod.generation()
@@ -184,14 +227,15 @@ def launch_config(m: int, n: int, k: int, in_dtype, out_dtype, *, op: str,
         _memo.clear()
         _memo_gen = gen
     key = (op, m, n, k, in_dtype, out_dtype, k_granularity, batch, device,
-           route)
+           route, expected_m)
     cfg = _memo.get(key)
     if cfg is None:
         cfg = select_config(m, n, k, in_dtype, out_dtype, op=op,
                             k_granularity=k_granularity, device=device,
-                            batch=batch)
+                            batch=batch, expected_m=expected_m, route=route)
         if route is not None:
             cfg = fit_route(cfg, route, m, n, k, in_dtype, out_dtype, op=op,
-                            device=device, batch=batch)
+                            device=device, batch=batch,
+                            expected_m=expected_m)
         _memo[key] = cfg
     return cfg

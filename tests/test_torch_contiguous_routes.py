@@ -22,6 +22,7 @@ from deepgemm_ascend_tpu.ops import int8_gemm as ji
 from deepgemm_ascend_tpu.ops import quant as jq
 from deepgemm_ascend_tpu_torch.ops import grouped_gemm as tg
 from deepgemm_ascend_tpu_torch.ops import int8_gemm as ti
+from deepgemm_ascend_tpu_torch.tiling import analytic
 from torch_bridge import bf16_within_one_ulp, f32_close, to_numpy, to_torch
 
 
@@ -102,7 +103,7 @@ def test_contiguous_tile_divides_block_m(block_m):
     divides block_m, else the 64-row one; either way the tile's rows
     divide block_m, for K8's tiles (rows x 128) and K9's (64 x 64, 128 x
     256)."""
-    tile = tg.contiguous_tile(block_m)
+    tile = analytic.contiguous_tile(block_m)
     assert tile == int(block_m % 128 == 0)
     for tiles in (tg.CONTIGUOUS_TILES, ti.MASKED_WGMMA_TILES):
         assert block_m % tiles[tile][0] == 0

@@ -15,9 +15,9 @@ against the JAX op (its Pallas kernel in interpret mode, eagerly) within
 from the plain version run on |v|), plus 1e-4 of the output for l's f32
 sum order.
 
-K6 (``ops.int8_gemm``): ``masked_plan`` picks the route and tile from the
-rows an expert is expected to hold; the hint changes no result, and the
-MoE layer passes it.
+K6 (``ops.int8_gemm``): ``tiling.analytic.masked_plan`` picks the route
+and tile from the rows an expert is expected to hold; the hint changes no
+result, and the MoE layer passes it.
 """
 
 import math
@@ -35,6 +35,7 @@ from deepgemm_ascend_tpu_torch.models import moe as tm
 from deepgemm_ascend_tpu_torch.ops import flash_decode as td
 from deepgemm_ascend_tpu_torch.ops import int8_gemm as ti
 from deepgemm_ascend_tpu_torch.ops.flash_common import NEG_INF, PV_ROUNDING
+from deepgemm_ascend_tpu_torch.tiling import analytic
 from torch_bridge import to_numpy, to_torch, tree_of
 
 H100_SMS = 132
@@ -317,7 +318,7 @@ def test_live_schedule_matches_jax(kvh, g, extra):
     (12288, 0, ("ring", 0)),
 ])
 def test_masked_plan(m_max, expected_m, want):
-    assert ti.masked_plan(m_max, expected_m) == want
+    assert analytic.masked_plan(m_max, expected_m) == want
 
 
 def test_masked_plan_labels():

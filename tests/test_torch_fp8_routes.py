@@ -27,6 +27,7 @@ from deepgemm_ascend_tpu_torch.models import moe as tm
 from deepgemm_ascend_tpu_torch.ops import _kernels
 from deepgemm_ascend_tpu_torch.ops import fp8_gemm as tf
 from deepgemm_ascend_tpu_torch.ops import grouped_gemm as tg
+from deepgemm_ascend_tpu_torch.tiling import analytic
 from torch_bridge import (bf16_within_one_ulp, f32_close, to_numpy, to_torch,
                           tree_of)
 
@@ -151,7 +152,7 @@ def test_grouped_ring_tile_by_rows(m_max, expected_m, want):
     the MoE layer's hints at 16, 32 and 64 tokens (top-6 over 32 experts)
     alike; 128 tokens, and the probe's 128 rows, all valid, on 64-row
     tiles."""
-    assert tg.ring_tile(m_max, expected_m) == want
+    assert analytic.masked_ring_tile(m_max, expected_m) == want
 
 
 @pytest.mark.parametrize("plan,want", [

@@ -234,7 +234,7 @@ def test_grouped_masked_ring_equals_tile_bit_for_bit(dev, m_max, tile,
     got = ggmod._launch(a_q, a_s, b_q, b_s.transpose(1, 2), fp8mod._SHIFT,
                         masked_m, True, out_dtype, plan=plan)
     torch.cuda.synchronize()
-    bm = fp8mod.RING_TILES[ggmod.ring_tile(m_max) if tile is None
+    bm = fp8mod.RING_TILES[analytic.masked_ring_tile(m_max) if tile is None
                            else tile][0]
     for e, rows in enumerate(loads):
         assert torch.equal(got[e, :rows], want[e, :rows]), e
@@ -1466,7 +1466,7 @@ def test_grouped_contiguous_wgmma16_matches_plain_and_tile(dev, block_m,
         a_q, a_s, b_q, b_s.transpose(1, 2), gids, b_t=True,
         out_dtype=out_dtype)
     torch.cuda.synchronize()
-    rows = ggmod.CONTIGUOUS_TILES[ggmod.contiguous_tile(block_m)][0]
+    rows = ggmod.CONTIGUOUS_TILES[analytic.contiguous_tile(block_m)][0]
     assert k8.plans == {f"wgmma16 {rows}x128": 1, "tile": 1}
     assert torch.equal(got, tile)
     for pad in (slice(block_m, 2 * block_m), slice(m - block_m, m)):
@@ -1546,7 +1546,7 @@ def test_int8_contiguous_wgmma_matches_plain_and_tile(dev, block_m,
                                          out_dtype=out_dtype)
     torch.cuda.synchronize()
     label = i8mod.masked_plan_label("wgmma",
-                                        ggmod.contiguous_tile(block_m))
+                                    analytic.contiguous_tile(block_m))
     assert k9.plans == {label: 1, "int8_tile": 1}
     assert torch.equal(got, ref) and torch.equal(got, tile)
     for pad in (slice(block_m, 2 * block_m), slice(m - block_m, m)):
@@ -2455,3 +2455,153 @@ def test_mesh_engine_on_a_local_mesh_serves_the_one_device_tokens(
     finally:
         sharded.clear_program_memo()
         dist.destroy_process_group()
+
+
+# ---- the grouped GEMMs' and K12's tiles from the tiling tiers
+
+
+def _grouped_case(op, dev, seed):
+    """(call(plan) → output, default call, rows, plans, counter) of one
+    grouped op on the card: routed-like loads (0, 1, 15, 16, 40, 96 rows
+    of M_max 96; expected_m 3) for the masked ops, the layout of 70, 0 and
+    130 rows in 128-row m-tiles plus a padding tile for the contiguous
+    ones; each compiled tile of the route as its (route, tile code)."""
+    e, n, k = 6, 256, 384
+    int8 = op.startswith("int8")
+    masked = "masked" in op
+    g = _gen(seed, dev)
+    if masked:
+        loads = [0, 1, 15, 16, 40, 96]
+        a = torch.randn(e, 96, k, generator=g, device=dev)
+        mm = torch.tensor(loads, dtype=torch.int32, device=dev)
+    else:
+        _, gids, _ = ggmod.make_contiguous_layout([70, 0, 130, 0, 0, 0], 128)
+        ids = torch.from_numpy(np.append(gids, -1).astype(np.int32))
+        a = torch.randn(ids.numel() * 128, k, generator=g, device=dev)
+    w = torch.randn(e, n, k, generator=g, device=dev) / k ** 0.5
+    if int8:
+        a_q, a_s = quant.quantize_int8(a * 3, axis=-1)
+        b_q, b_s = quant.quantize_int8(w, axis=-1)
+        b_s = b_s.transpose(-1, -2)
+        bs_view = b_s
+    else:
+        a_q, a_s = quant.quantize_fp8_act(a)
+        b_q, b_s = quant.quantize_fp8_weight(w)
+        bs_view = b_s.transpose(1, 2)
+    rt = analytic.expected_route(op, 96 if masked else 128, n, k, a_q.dtype)
+    plans = [analytic.kernel_plan(op, rt, *t)
+             for _, t in analytic.route_tiles(op, rt)]
+    bf16 = torch.bfloat16
+    if masked and int8:
+        call = lambda p: i8mod._launch_masked(a_q, a_s, b_q, b_s, mm, True,
+                                              bf16, plan=p, expected_m=3)
+        default = lambda: i8mod.m_grouped_int8_gemm_masked(
+            a_q, a_s, b_q, b_s, mm, b_layout="t", expected_m=3)
+        return call, default, loads, plans, i8mod.K6
+    if masked:
+        call = lambda p: ggmod._launch(a_q, a_s, b_q, bs_view, fp8mod._SHIFT,
+                                       mm, True, bf16, plan=p, expected_m=3)
+        default = lambda: ggmod.m_grouped_gemm_masked(
+            a_q, a_s, b_q, b_s, mm, b_layout="t", expected_m=3)
+        return call, default, loads, plans, ggmod.COUNTER
+    if int8:
+        call = lambda p: i8mod._launch_contiguous(a_q, a_s, b_q, b_s, ids,
+                                                  128, True, bf16, plan=p)
+        default = lambda: i8mod.m_grouped_int8_gemm_contiguous(
+            a_q, a_s, b_q, b_s, ids, b_layout="t")
+        return call, default, None, plans, i8mod.K9
+    call = lambda p: ggmod._launch_contiguous(a_q, a_s, b_q, bs_view,
+                                              fp8mod._SHIFT, ids, 128, True,
+                                              bf16, plan=p)
+    default = lambda: ggmod.m_grouped_gemm_contiguous(a_q, a_s, b_q, b_s,
+                                                      ids, b_layout="t")
+    return call, default, None, plans, ggmod.K8
+
+
+@pytest.mark.parametrize("op", ["grouped_gemm_masked_nt",
+                                "int8_grouped_gemm_masked_nt",
+                                "grouped_gemm_nt", "int8_grouped_gemm_nt"])
+def test_every_grouped_tile_equals_the_default_tile(dev, op):
+    """Each compiled tile of K3, K6, K8 and K9 on the card gives the
+    default tile's bits on every row the kernel defines (a masked op's
+    valid rows; every row of a contiguous one): the K step is the same on
+    every tile and the int8 sums are exact."""
+    call, default, loads, plans, _ = _grouped_case(op, dev, seed=90)
+    want = default()
+    for p in plans:
+        got = call(p)
+        torch.cuda.synchronize()
+        if loads is None:
+            assert torch.equal(got, want), p
+        else:
+            for e, rows in enumerate(loads):
+                assert torch.equal(got[e, :rows], want[e, :rows]), (p, e)
+
+
+@pytest.mark.parametrize("m", [16, 200, 2048])
+@pytest.mark.parametrize("n", [512, 2944])
+@pytest.mark.parametrize("b_layout", ["t", "n"])
+def test_k12_tile_codes_each_match_the_plain_version(dev, m, n, b_layout):
+    """K12 on every compiled tile (tile codes 0-2; 128 × 256 where 256
+    divides n, and refused where it does not, by the wrapper and by the C
+    entry) within the plain version's tolerance, through a caller's config
+    and through the tile code alike."""
+    b_t = b_layout == "t"
+    k = 512
+    a_q, a_s, b_q, b_s = _operands(m, n, k, b_t, dev, seed=91)
+    bs_view = b_s.t() if b_t else b_s
+    ref = fp8mod.fp8_gemm_folded_plain(a_q, a_s, b_q, bs_view, b_t=b_t)
+    a_sc, b_sc = fp8mod.fold_operands(a_q, a_s, b_q, bs_view, b_t=b_t)
+    kw = dict(b_layout=b_layout, scale_mode="folded", allow_relaxed=True)
+    for code, (bm, bn) in enumerate(analytic.FOLDED_TILES):
+        cfg = GemmConfig(bm, bn, 128)
+        if n % bn:
+            with pytest.raises(ValueError, match="256"):
+                fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, config=cfg, **kw)
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fp8mod._launch(a_q, a_s, b_q, bs_view, fp8mod._SHIFT, b_t,
+                               torch.bfloat16, folded=True, plan=code)
+            continue
+        got = fp8mod.fp8_gemm(a_q, a_s, b_q, b_s, config=cfg, **kw)
+        by_code = fp8mod._launch(a_q, a_s, b_q, bs_view, fp8mod._SHIFT, b_t,
+                                 torch.bfloat16, folded=True, plan=code)
+        torch.cuda.synchronize()
+        assert torch.equal(got, by_code)
+        assert_gemm_close(got, ref, a_sc, b_sc)
+
+
+def test_memoised_grouped_selection_moves_the_tiers_once_a_shape(dev):
+    """A grouped wrapper called again at a shape it has seen pays a lookup:
+    the tiers' counters move once a (shape, expected_m), the launches take
+    the analytic tile (K3 16 × 64 at decode, 64 × 64 past 16 rows), and a
+    cache entry for the shape moves the next launch to its tile."""
+    from deepgemm_ascend_tpu_torch.tiling import platform, selector
+    from deepgemm_ascend_tpu_torch.utils.logging import metrics
+    a_q, a_s, b_q, b_s, mm = _masked_operands(96, [3] * 4, dev, seed=92)
+    kind = platform.detect(dev).device_kind
+    cachemod.reset_global_cache(None, kind=kind)
+    selector.clear_predictors()
+    try:
+        metrics.reset()
+        ggmod.COUNTER.plans.clear()
+        for _ in range(4):
+            for em in (3, 24):
+                ggmod.m_grouped_gemm_masked(a_q, a_s, b_q, b_s, mm,
+                                            b_layout="t", expected_m=em)
+        torch.cuda.synchronize()
+        snap = metrics.snapshot()
+        assert snap.get("tiling.cache_miss") == 2
+        assert snap.get("tiling.analytic_pick") == 2
+        assert dict(ggmod.COUNTER.plans) == {"ring 16x64": 4,
+                                             "ring 64x64": 4}
+        key = cachemod.cache_key("grouped_gemm_masked_nt", 96, 256, 384,
+                                 "float8_e4m3fn", "bfloat16", "g128e3")
+        cachemod.global_cache(kind).set(key, GemmConfig(64, 64, 128),
+                                        persist=False)
+        ggmod.COUNTER.plans.clear()
+        ggmod.m_grouped_gemm_masked(a_q, a_s, b_q, b_s, mm, b_layout="t",
+                                    expected_m=3)
+        torch.cuda.synchronize()
+        assert dict(ggmod.COUNTER.plans) == {"ring 64x64": 1}
+    finally:
+        cachemod.reset_global_cache(None, kind=kind)

@@ -139,7 +139,8 @@ def test_contiguous_matches_jax(block_m, b_layout, out):
 @pytest.mark.parametrize("source", ["expanded", "config"])
 def test_contiguous_expanded_scales_and_config_block_m(source):
     """b_scales_expanded (the (E, K/128, N) panel) and a config whose
-    block_m fixes the m-tile give what JAX gives."""
+    block_m fixes the m-tile give what JAX gives (the config's block_n
+    names a compiled tile of the route, 'n': the tile route's 64 × 64)."""
     a_q, a_s, b_q, b_s, gids = _contiguous(128, False, seed=5)
     kw_j, kw_t, bs_j = {}, {}, b_s
     if source == "expanded":
@@ -149,7 +150,7 @@ def test_contiguous_expanded_scales_and_config_block_m(source):
         from deepgemm_ascend_tpu.config import GemmConfig as JConfig
         from deepgemm_ascend_tpu_torch.config import GemmConfig
         kw_j = {"config": JConfig(block_m=128, block_n=128, block_k=128)}
-        kw_t = {"config": GemmConfig(block_m=128)}
+        kw_t = {"config": GemmConfig(block_m=128, block_n=64)}
     want = np.asarray(jg.m_grouped_gemm_contiguous(
         a_q, a_s, b_q, bs_j, jnp.asarray(gids), out_dtype=jnp.float32,
         **kw_j))
@@ -208,3 +209,65 @@ def test_contiguous_raises_as_jax(case):
     with pytest.raises(ValueError):
         tg.m_grouped_gemm_contiguous(*(to_torch(x) for x in args[:4]),
                                      torch.from_numpy(args[4]), **kw_t)
+
+
+@pytest.mark.parametrize("kw", [{"expected_m": 3}, {"expected_m": 200},
+                                {"config": "ring 16x64"},
+                                {"config": "ring 64x64"}])
+def test_masked_hint_and_caller_tile_change_no_result(kw):
+    """``expected_m`` and a caller's config naming a compiled K3 tile pick
+    the kernel's tile and change no result: JAX's output (no hint, no
+    config) on the valid rows, within the file's fp8 tolerance."""
+    from deepgemm_ascend_tpu_torch.config import GemmConfig
+    masked = [0, 3, 40, 64]
+    a_q, a_s, b_q, b_s = _operands(4, 64, 256, 256, True, seed=11)
+    mm = np.asarray(masked, np.int32)
+    want = np.asarray(jg.m_grouped_gemm_masked(
+        a_q, a_s, b_q, b_s, jnp.asarray(mm), out_dtype=jnp.float32,
+        b_layout="t"))
+    if "config" in kw:
+        tile = tuple(int(x) for x in kw["config"].split()[1].split("x"))
+        kw = {"config": GemmConfig(*tile, 128)}
+    got = to_numpy(tg.m_grouped_gemm_masked(
+        to_torch(a_q), to_torch(a_s), to_torch(b_q), to_torch(b_s),
+        torch.from_numpy(mm), out_dtype=torch.float32, b_layout="t", **kw))
+    for e, rows in enumerate(masked):
+        if rows:
+            res = f32_close(got[e, :rows], want[e, :rows])
+            assert res.ok, (e, res)
+
+
+# (op, b_layout, block_m, block_n) of caller configs no kernel of the
+# route compiles: JAX's default GemmConfig() (256 x 256), a 128-row ring
+# tile, and K8's tile route ('n') and wgmma16 route ('t') at 128-row
+# m-tiles with 256 and 64 columns.
+UNCOMPILED = [("masked", "t", 256, 256), ("masked", "t", 128, 64),
+              ("masked", "n", 16, 64), ("contiguous", "n", 128, 128),
+              ("contiguous", "t", 128, 256), ("contiguous", "t", 128, 64)]
+
+
+@pytest.mark.parametrize("kind,b_layout,block_m,block_n", UNCOMPILED)
+def test_an_uncompiled_caller_tile_raises_on_the_cpu(kind, b_layout, block_m,
+                                                     block_n):
+    """A caller's config naming a tile outside the route's compiled set
+    raises ValueError naming the compiled tiles on a CPU tensor as on the
+    card, before the plain version runs."""
+    from deepgemm_ascend_tpu_torch.config import GemmConfig
+    b_t = b_layout == "t"
+    cfg = GemmConfig(block_m, block_n, 128)
+    if kind == "masked":
+        ops = [to_torch(x) for x in _operands(2, 32, 256, 256, b_t, seed=12)]
+        call = lambda: tg.m_grouped_gemm_masked(
+            *ops, torch.tensor([5, 32], dtype=torch.int32), config=cfg,
+            b_layout=b_layout)
+        counter = tg.COUNTER
+    else:
+        *ops, gids = _contiguous(128, b_t, seed=13)
+        call = lambda: tg.m_grouped_gemm_contiguous(
+            *(to_torch(x) for x in ops), torch.from_numpy(gids), config=cfg,
+            b_layout=b_layout)
+        counter = tg.K8
+    before = counter.plain_calls
+    with pytest.raises(ValueError, match="compiled"):
+        call()
+    assert counter.plain_calls == before

@@ -312,3 +312,79 @@ def test_xla_kernel_type_arrives_with_the_tiling_slice(op):
                      config=jcfg)
     assert (ti.K7.plain_calls, ti.K6.plain_calls) == before   # no kernel
     assert np.array_equal(_bits(to_numpy(got)), _bits(want))
+
+
+@pytest.mark.parametrize("kw", [{"expected_m": 3}, {"expected_m": 40},
+                                {"config": (16, 64)}, {"config": (128, 256)},
+                                {"contiguous": (128, 256)},
+                                {"contiguous": (128, 64)}])
+def test_grouped_hint_and_caller_tile_change_no_result(kw):
+    """``expected_m`` and a caller's config naming a compiled K6 or K9 tile
+    (a contiguous config names the layout's block_m and the tile's
+    columns) change no bit of the result: JAX's output with no hint and no
+    config."""
+    from deepgemm_ascend_tpu_torch.config import GemmConfig
+    if "contiguous" in kw:
+        m, gids = _layout([40, 0, 100], 128, pad_tiles=1)
+        a_q, a_s = _acts((m, 256), 14)
+        b_q, b_s = _weights((3, 256, 192), 15)
+        want = _bits(ji.m_grouped_int8_gemm_contiguous(
+            a_q, a_s, b_q, b_s, jnp.asarray(gids), out_dtype=jnp.float32))
+        got = ti.m_grouped_int8_gemm_contiguous(
+            to_torch(a_q), to_torch(a_s), _b_port(b_q, "t"), to_torch(b_s),
+            gids, out_dtype=torch.float32, b_layout="t",
+            config=GemmConfig(*kw["contiguous"], 128))
+        np.testing.assert_array_equal(to_numpy(got), want)
+        return
+    masked = [0, 3, 40, 64]
+    a_q, a_s = _acts((4, 64, 256), 16)
+    b_q, b_s = _weights((4, 256, 192), 17)
+    mm = np.asarray(masked, np.int32)
+    want = _bits(ji.m_grouped_int8_gemm_masked(a_q, a_s, b_q, b_s,
+                                               jnp.asarray(mm),
+                                               out_dtype=jnp.float32))
+    if "config" in kw:
+        kw = {"config": GemmConfig(*kw["config"], 128)}
+    got = to_numpy(ti.m_grouped_int8_gemm_masked(
+        to_torch(a_q), to_torch(a_s), _b_port(b_q, "t"), to_torch(b_s),
+        torch.from_numpy(mm), out_dtype=torch.float32, b_layout="t", **kw))
+    for ei, rows in enumerate(masked):
+        np.testing.assert_array_equal(got[ei, :rows], want[ei, :rows])
+
+
+# (op, b_layout, block_m, block_n) of caller configs no kernel of the
+# route compiles: JAX's default GemmConfig() (256 x 256), K6's ring at 64
+# columns past its 16 rows, its int8_tile route ('n') at 16 x 64, and K9's
+# wgmma route at 128-row m-tiles with 128 columns and its int8_tile route
+# with 256.
+UNCOMPILED = [("masked", "t", 256, 256), ("masked", "t", 64, 128),
+              ("masked", "n", 16, 64), ("contiguous", "t", 128, 128),
+              ("contiguous", "n", 128, 256)]
+
+
+@pytest.mark.parametrize("kind,b_layout,block_m,block_n", UNCOMPILED)
+def test_an_uncompiled_caller_tile_raises_on_the_cpu(kind, b_layout, block_m,
+                                                     block_n):
+    """A caller's config naming a tile outside the route's compiled set
+    raises ValueError naming the compiled tiles on a CPU tensor as on the
+    card, before the plain version runs."""
+    cfg = GemmConfig(block_m, block_n, 128)
+    b_q, b_s = _weights((2, 256, 192), 18)
+    if kind == "masked":
+        a_q, a_s = _acts((2, 32, 256), 19)
+        call = lambda: ti.m_grouped_int8_gemm_masked(
+            to_torch(a_q), to_torch(a_s), _b_port(b_q, b_layout),
+            to_torch(b_s), torch.tensor([5, 32], dtype=torch.int32),
+            config=cfg, b_layout=b_layout)
+        counter = ti.K6
+    else:
+        m, gids = _layout([40, 100], 128)
+        a_q, a_s = _acts((m, 256), 20)
+        call = lambda: ti.m_grouped_int8_gemm_contiguous(
+            to_torch(a_q), to_torch(a_s), _b_port(b_q, b_layout),
+            to_torch(b_s), gids, config=cfg, b_layout=b_layout)
+        counter = ti.K9
+    before = counter.plain_calls
+    with pytest.raises(ValueError, match="compiled"):
+        call()
+    assert counter.plain_calls == before

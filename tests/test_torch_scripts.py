@@ -70,8 +70,11 @@ def test_probe_rows_at_small_shapes(row, capsys):
     assert timed and all(r["us"] > 0 and r["pct_ls"] > 0 for r in timed)
     na = [r for r in res if "na" in r]
     assert all(r["tag"] in out for r in res)
-    if row == "masked":          # K3 has no tile variants yet
-        assert na and all(r["na"] == straggler_probe.FIXED_TILE for r in na)
+    if row == "masked":          # JAX's six Pallas blocks; K3's own tiles
+        assert len(na) == 6 and all(r["na"] == straggler_probe.TPU_BLOCK
+                                    for r in na)
+        assert {r["tag"] for r in timed} >= {"K3 ring 16x64",
+                                             "K3 ring 64x64"}
     else:                        # the kernels' compiled variants now run
         assert not na
     if row in ("fp8small", "bf16cube"):
@@ -410,6 +413,66 @@ def test_autotune_sweep_then_the_tiling_scripts(op, tmp_path, capsys):
                                       cal]) == 0
     fit = json.load(open(cal))["cpu"][op]
     assert fit["mean_abs_log_err"] <= fit["default_mean_abs_log_err"]
+
+
+@pytest.mark.parametrize("op,argv,keys", [
+    ("grouped_gemm_masked_nt", ["2", "32", "256", "256", "--expected-m",
+                                "3", "20"],
+     ["grouped_gemm_masked_nt:m32n256k256:float8_e4m3fn->bfloat16:g128e3",
+      "grouped_gemm_masked_nt:m32n256k256:float8_e4m3fn->bfloat16:g128e20"]),
+    ("int8_grouped_gemm_masked", ["2", "32", "256", "128"],
+     ["int8_grouped_gemm_masked:m32n256k128:int8->bfloat16:g128"]),
+    ("grouped_gemm_contiguous_nt", ["2", "64", "256", "128", "--uneven"],
+     ["grouped_gemm_nt:m64n256k128:float8_e4m3fn->bfloat16:g128"])])
+def test_autotune_sweep_grouped_ops(op, argv, keys, tmp_path, capsys):
+    """The grouped ops on the CPU (plain versions, a host clock): E M N K
+    quadruples, a masked op at each ``--expected-m`` (two keys at one
+    M_max), a contiguous op keyed on its layout's m-tile; each winner a
+    compiled tile of the op's route, written under the selector's key."""
+    from deepgemm_ascend_tpu_torch.scripts import autotune_sweep
+    from deepgemm_ascend_tpu_torch.tiling import analytic
+    from deepgemm_ascend_tpu_torch.tiling.cache import TilingCache
+    out = str(tmp_path / "sw")
+    assert autotune_sweep.main(["--op", op, "--shapes", *argv, "--out-dir",
+                                out, "--in-process"] + CPU) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert len(rows) == len(keys)
+    sop = autotune_sweep.selector_op(op)
+    for r in rows:
+        rt = analytic.expected_route(sop, r["m"], r["n"], r["k"], torch.int8
+                                     if op.startswith("int8") else
+                                     torch.float8_e4m3fn)
+        tiles = [f"{bm}x{bn}" for _, (bm, bn) in analytic.route_tiles(sop,
+                                                                      rt)]
+        assert r["winner"] in tiles and r["default"] in r["candidates_ms"]
+        assert r["clock"] == "host (rehearsal)"
+    cache = TilingCache(str(tmp_path / "sw" / "tilings.jsonl"))
+    assert sorted(key for key, _ in cache) == sorted(keys)
+
+
+def test_grouped_sweep_runs_on_routed_loads():
+    """The grouped sweep times its candidates on routed top-6 loads
+    (``bench.loads``): a masked op's valid rows an expert and a contiguous
+    op's layout are those of routing the tokens, skewed, not one count
+    for every expert."""
+    from deepgemm_ascend_tpu_torch.bench import loads
+    from deepgemm_ascend_tpu_torch.ops import grouped_gemm as gg
+    from deepgemm_ascend_tpu_torch.scripts import autotune_sweep as sw
+    cpu = torch.device("cpu")
+    _, plain, _, key_m, _ = sw.grouped_problem(
+        "grouped_gemm_masked_nt", 8, 64, 128, 128, 3, cpu, expected_m=12)
+    want = loads.routed_masked_m(8, 64, 12, generator=torch.Generator(
+        ).manual_seed(3))
+    valid = (plain().float().abs().sum(-1) > 0).sum(-1)
+    assert key_m == 64 and valid.tolist() == want.tolist()
+    assert len(set(want.tolist())) > 1 and int(want.sum()) == 8 * 12
+    _, _, _, key_m, tiles = sw.grouped_problem(
+        "int8_grouped_gemm_contiguous_nt", 8, 128, 128, 128, 3, cpu)
+    counts = loads.routed_counts(8, 128, generator=torch.Generator(
+        ).manual_seed(3))
+    _, ids, _ = gg.make_contiguous_layout(counts, 128)
+    assert key_m == 128 and tiles == ids.size and len(set(counts)) > 1
 
 
 def test_publish_tilings_never_publishes_the_xla_yardstick():

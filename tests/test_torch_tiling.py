@@ -11,6 +11,9 @@ the kernels made before their tiles became selectable.
   fitted split gate, the tile of the rule that lived in the C entries
   (``sm90::large_tile``, the ffma rule, K1's ``ring_plan``) — over a grid
   of the shapes the serving path, phase 2 and phase 5 call;
+* the grouped ops and K12's folded route: with no cache, the tile the
+  wrappers' and the C entry's rules picked; the masked ops' key carries
+  ``expected_m``; a cached grouped tile is what the wrappers select;
 * the padding tag on aligned and prime shapes, and a padded GEMM equal to
   the unpadded one (the plain version on the CPU, bit for bit);
 * the packaged table's path never points into the JAX package's data.
@@ -76,6 +79,32 @@ def _parent_ring_plan(m, n, k, sms=132):
         return tile, 1
     return tile, max(1, min(8, groups // 2, max(sms // tiles,
                                                  ceil_div(groups, 12))))
+
+
+def _parent_grouped_tile(op, m, expected_m):
+    """The tile the parent's grouped wrappers chose on their Hopper routes
+    (ops/grouped_gemm.py: ring_tile, contiguous_tile; ops/int8_gemm.py:
+    masked_plan) for M_max or the layout's block_m ``m``."""
+    rows = m if expected_m is None else max(0, min(m, expected_m))
+    if op.startswith("grouped_gemm_masked"):
+        return (16, 64) if rows <= 16 else (64, 64)
+    if op.startswith("int8_grouped_gemm_masked"):
+        if rows <= 16:
+            return 16, 64
+        return (128, 256) if rows > 64 else (64, 64)
+    if op.startswith("grouped_gemm"):
+        return (128, 128) if m % 128 == 0 else (64, 128)
+    return (128, 256) if m % 128 == 0 else (64, 64)
+
+
+def _parent_folded_tile(m, n):
+    """The tile of the parent's csrc/fp8_gemm.cu:tile_folded."""
+    rows128 = -(-m // 128)
+    if n % 256 == 0 and m > 64 and rows128 * (n // 256) >= 100:
+        return 128, 256
+    if n % 256 != 0 and m > 64 and rows128 * (n // 128) >= 100:
+        return 128, 128
+    return 64, 64
 
 
 LITE_GEMMS = [(2048, 2048), (512, 2048), (22016, 2048), (2048, 11008),
@@ -161,6 +190,186 @@ def test_select_config_with_no_cache_and_no_predictor_is_the_parent(
                                                info=H100, batch=batch)
         kt, s = _parent_split(op, m, n, k)
         assert (got.kernel_type, got.k_split) == (kt, s)
+
+
+GROUPED = [op + sfx for op in ("grouped_gemm_masked", "grouped_gemm",
+                                "int8_grouped_gemm_masked",
+                                "int8_grouped_gemm") for sfx in ("", "_nt")]
+
+
+@pytest.mark.parametrize("op", GROUPED)
+def test_grouped_select_config_with_no_cache_is_the_parent_rule(
+        op, monkeypatch):
+    """Every grouped op, with an empty cache and no predictor, answers the
+    tile its wrapper's rule picked, on the route its stored operands take
+    (B K-major: the Hopper routes; else the tile routes' 64 × 64), over
+    M_max / block_m × expected_m; never split."""
+    monkeypatch.setattr(platform, "detect", lambda device="cuda": H100)
+    selector.clear_predictors()
+    masked = "masked" in op
+    dt = INT8 if op.startswith("int8") else FP8
+    ms = (1, 16, 96, 768, 3072, 12288) if masked else (64, 96, 128, 192,
+                                                       256)
+    hints = (None, -1, 0, 3, 16, 17, 24, 64, 65, 384, 20000) if masked \
+        else (None,)
+    for m, em, (n, k) in itertools.product(ms, hints, ((2816, 2048),
+                                                       (2048, 1408))):
+        got = selector.select_config(m, n, k, dt, BF16, op=op,
+                                     cache=cache.TilingCache(),
+                                     expected_m=em)
+        rt = analytic.expected_route(op, m, n, k, dt)
+        hopper = op.endswith("_nt") and (masked or m % 64 == 0)
+        want = _parent_grouped_tile(op, m, em) if hopper else (64, 64)
+        assert (got.block_m, got.block_n) == want, (m, em, n, k)
+        assert rt in (("tile", "int8_tile") if not hopper else
+                      ("ring", "wgmma", "wgmma16"))
+        assert (got.kernel_type, got.k_split) == (KernelType.COMMON, 1)
+        assert got.block_k == 128
+
+
+@pytest.mark.parametrize("op", ["fp8_gemm", "fp8_gemm_nt"])
+def test_folded_route_with_no_cache_is_the_kernels_rule(op, monkeypatch):
+    """K12's tile from the tiers (route "folded") is the rule that the C
+    entry compiled in (sm90::large_tile), whatever K1 picked at the shape
+    before it: the route has a key of its own."""
+    monkeypatch.setattr(platform, "detect", lambda device="cuda": H100)
+    monkeypatch.setattr(selector, "_memo", {})
+    selector.clear_predictors()
+    c = cache.TilingCache()
+    monkeypatch.setattr(selector, "global_cache", lambda kind=None: c)
+    for m, (n, k) in itertools.product((1, 16, 64, 65, 200, 2048, 4096),
+                                       LITE_GEMMS[:6] + [(2944, 2048),
+                                                         (1408, 2048)]):
+        k1 = selector.launch_config(m, n, k, FP8, BF16, op=op, device="cuda",
+                                    route="ring" if op.endswith("_nt")
+                                    else "tile", k_granularity=128)
+        got = selector.launch_config(m, n, k, FP8, BF16, op=op,
+                                     device="cuda", route="folded",
+                                     k_granularity=128)
+        assert (got.block_m, got.block_n) == _parent_folded_tile(m, n)
+        assert k1.block_k == got.block_k == 128
+    assert any(key.endswith("g128/folded") for key, _ in c)
+
+
+def test_two_expected_m_at_one_m_max_get_two_keys(monkeypatch):
+    """Decode and prefill at one capacity are two keys (and two tiles);
+    without a hint, or with one not below M_max, the key is JAX's."""
+    monkeypatch.setattr(platform, "detect", lambda device="cuda": H100)
+    selector.clear_predictors()
+    c = cache.TilingCache()
+    picks = {em: selector.select_config(768, 2816, 2048, INT8, BF16,
+                                        op="int8_grouped_gemm_masked_nt",
+                                        cache=c, expected_m=em)
+             for em in (3, 96, None, 768, 5000)}
+    keys = sorted(key for key, _ in c)
+    base = "int8_grouped_gemm_masked_nt:m768n2816k2048:int8->bfloat16:g128"
+    assert keys == sorted([base, base + "e3", base + "e96"])
+    assert base == jcache.cache_key("int8_grouped_gemm_masked_nt", 768, 2816,
+                                    2048, "int8", "bfloat16", "g128")
+    assert (picks[3].block_m, picks[96].block_m, picks[None].block_m) == \
+        (16, 128, 128)
+    assert picks[768] == picks[5000] == picks[None]
+
+
+@pytest.mark.parametrize("op,em,cached,label", [
+    ("grouped_gemm_masked_nt", 3, (64, 64), "ring 64x64"),
+    ("int8_grouped_gemm_masked_nt", 3, (128, 256), "wgmma 128x256"),
+    ("int8_grouped_gemm_masked_nt", 96, (16, 64), "ring 16x64"),
+    ("grouped_gemm_nt", None, (64, 128), "wgmma16 64x128"),
+    ("int8_grouped_gemm_nt", None, (64, 64), "wgmma 64x64")])
+def test_a_cached_grouped_tile_is_what_the_wrapper_launches(
+        op, em, cached, label, monkeypatch):
+    """A cache entry under the grouped op's key (the autotuner's winner) is
+    what ``launch_config`` returns for the wrapper's route and what the
+    wrapper selects and counts (``grouped_gemm.selected_tile``, the tile
+    code and the plan label of its launch); the analytic pick before it
+    was another tile. A contiguous op keys on the layout's block_m."""
+    from deepgemm_ascend_tpu_torch.ops import fp8_gemm as tf
+    from deepgemm_ascend_tpu_torch.ops import grouped_gemm as gg
+    from deepgemm_ascend_tpu_torch.ops import int8_gemm as i8
+    monkeypatch.setattr(platform, "detect", lambda device="cuda": H100)
+    selector.clear_predictors()
+    c = cache.TilingCache()
+    monkeypatch.setattr(selector, "global_cache", lambda kind=None: c)
+    monkeypatch.setattr(selector, "_memo", {})
+    int8 = op.startswith("int8")
+    dt = INT8 if int8 else FP8
+    m = 96 if "masked" in op else 128
+    rt = analytic.expected_route(op, m, 2816, 2048, dt)
+    dev = torch.device("cuda")
+    before = gg.selected_tile(op, rt, m, 2816, 2048, dt, BF16, dev, em)
+    assert before != cached
+    c.set(cache.cache_key(op, m, 2816, 2048, cache.dtype_name(dt),
+                          "bfloat16", selector.key_extra(op, m, 128, 1, em)),
+          GemmConfig(*cached, 128), persist=False)
+    got = selector.launch_config(m, 2816, 2048, dt, BF16, op=op, device=dev,
+                                 route=rt, k_granularity=128, expected_m=em)
+    assert (got.block_m, got.block_n) == cached
+    tile = gg.selected_tile(op, rt, m, 2816, 2048, dt, BF16, dev, em)
+    assert tile == cached
+    kr, code = analytic.kernel_plan(op, rt, *tile)
+    if op.startswith("grouped_gemm_masked"):
+        assert tf.plan_label(kr, code) == label
+    elif op.startswith("int8"):
+        assert i8.masked_plan_label(kr, code) == label
+    else:
+        assert gg.contiguous_plan_label(kr, code) == label
+
+
+def test_grouped_launch_config_counts_the_tiers_once_a_shape(monkeypatch):
+    """The wrappers' memoised grouped selection: the tiers' counters move
+    once for each (shape, expected_m), and a repeated launch is a lookup."""
+    monkeypatch.setattr(platform, "detect", lambda device="cuda": H100)
+    selector.clear_predictors()
+    c = cache.TilingCache()
+    monkeypatch.setattr(selector, "global_cache", lambda kind=None: c)
+    monkeypatch.setattr(selector, "_memo", {})
+    metrics.reset()
+    for _ in range(5):
+        for em in (3, 24, 384):
+            selector.launch_config(12288, 2816, 2048, FP8, BF16,
+                                   op="grouped_gemm_masked_nt",
+                                   device="cuda", route="ring",
+                                   k_granularity=128, expected_m=em)
+    assert _tiling_counts(metrics.snapshot()) == {
+        "tiling.cache_miss": 3, "tiling.analytic_pick": 3}
+
+
+@pytest.mark.parametrize("op,rt,tile,why", [
+    ("grouped_gemm_masked_nt", "ring", (128, 128), "no compiled"),
+    ("grouped_gemm_masked", "tile", (16, 64), "no compiled"),
+    ("grouped_gemm_nt", "wgmma16", (128, 256), "no compiled"),
+    ("int8_grouped_gemm_masked_nt", "wgmma", (128, 128), "no compiled"),
+    ("int8_grouped_gemm_nt", "wgmma", (16, 64), "no compiled"),
+    ("fp8_gemm_nt", "folded", (16, 64), "no compiled")])
+def test_an_uncompiled_grouped_or_folded_tile_raises(op, rt, tile, why):
+    with pytest.raises(ValueError, match=why) as e:
+        analytic.kernel_plan(op, rt, *tile)
+    for _, t in analytic.route_tiles(op, rt):
+        assert "%dx%d" % t in str(e.value)
+
+
+@pytest.mark.parametrize("op,rt,block_m,block_n,want", [
+    ("grouped_gemm_nt", "wgmma16", 128, 128, (128, 128)),
+    ("grouped_gemm_nt", "wgmma16", 192, 128, (64, 128)),
+    ("grouped_gemm_nt", "wgmma16", 128, 256, None),
+    ("grouped_gemm", "tile", 96, 64, (64, 64)),
+    ("grouped_gemm", "tile", 96, 256, None),
+    ("int8_grouped_gemm_nt", "wgmma", 256, 256, (128, 256)),
+    ("int8_grouped_gemm_nt", "wgmma", 192, 256, None),
+    ("int8_grouped_gemm_nt", "wgmma", 192, 64, (64, 64))])
+def test_a_caller_contiguous_config_names_a_compiled_tile(op, rt, block_m,
+                                                          block_n, want):
+    """A caller's config on a contiguous op: block_m the layout's m-tile,
+    the tile the compiled one of block_n columns whose rows are the
+    largest that divide it; none such raises, naming the compiled
+    tiles."""
+    from deepgemm_ascend_tpu_torch.ops import grouped_gemm as gg
+    if want is None:
+        with pytest.raises(ValueError, match="compiled"):
+            gg.caller_contiguous_tile(op, rt, block_m, block_n)
+    else:
+        assert gg.caller_contiguous_tile(op, rt, block_m, block_n) == want
 
 
 # ---- cache ---------------------------------------------------------------
@@ -389,7 +598,11 @@ def test_launch_config_memoises_until_an_answer_may_change(monkeypatch):
 
 @pytest.mark.parametrize("op,dt", [("gemm", BF16), ("gemm", F32),
                                    ("gemm_tt", F32), ("int8_gemm_nt", INT8),
-                                   ("fp8_gemm_nt", FP8), ("bgemm", BF16)])
+                                   ("fp8_gemm_nt", FP8), ("bgemm", BF16),
+                                   ("grouped_gemm_masked_nt", FP8),
+                                   ("int8_grouped_gemm_masked_nt", INT8),
+                                   ("grouped_gemm_nt", FP8),
+                                   ("int8_grouped_gemm_nt", INT8)])
 @pytest.mark.parametrize("m,n,k", [(16, 2048, 11008), (2048, 22016, 2048),
                                    (200, 1024, 640)])
 def test_candidates_are_compiled_variants_that_fit(op, dt, m, n, k):
@@ -398,10 +611,14 @@ def test_candidates_are_compiled_variants_that_fit(op, dt, m, n, k):
     rt = analytic.expected_route(op, m, n, k, dt)
     assert cands
     for c in cands:
-        assert (c.block_m, c.block_n) in analytic.TILES[(fam, rt)]
-        assert analytic.judge_space(rt, c.block_m, c.block_n, H100)
+        kr, _ = analytic.instance(op, rt, c.block_m, c.block_n)
+        assert (c.block_m, c.block_n) in [t for _, t in
+                                          analytic.route_tiles(op, rt)]
+        assert analytic.judge_space(kr, c.block_m, c.block_n, H100)
         assert c.block_k == analytic.K_STEP[fam]
         assert c.block_m <= max(-(-m // 64) * 64, 16)
+        if fam in analytic.CONTIGUOUS and rt not in ("tile", "int8_tile"):
+            assert m % c.block_m == 0
         if c.kernel_type == KernelType.KSPLIT:
             assert fam == "fp8" or op in analytic.KSPLIT_OPS
     assert analytic.get_best_config(m, n, k, dt, BF16, op=op,
@@ -422,7 +639,14 @@ def test_judge_space_holds_each_instance_to_the_card():
                                         ("gemm", "ffma", (16, 128)),
                                         ("gemm", "mma_tile", (64, 64)),
                                         ("int8_gemm_nt", "wgmma", (128, 256)),
-                                        ("fp8_gemm_nt", "ring", (16, 64))])
+                                        ("fp8_gemm_nt", "ring", (16, 64)),
+                                        ("fp8_gemm", "folded", (128, 256)),
+                                        ("grouped_gemm_masked_nt", "ring",
+                                         (64, 64)),
+                                        ("grouped_gemm_nt", "wgmma16",
+                                         (64, 128)),
+                                        ("int8_grouped_gemm_nt", "wgmma",
+                                         (128, 256))])
 def test_tile_code_is_the_index_of_a_compiled_tile(op, rt, tile):
     fam = analytic.family(op)
     assert analytic.tile_code(op, rt, *tile) == \
