@@ -2166,7 +2166,6 @@ def _profiled_kernels(fn) -> tuple:
     """``fn`` once under torch.profiler, ended by a synchronize: its CUDA
     kernels as (name, device ms, launches), most time first, and the host
     wall ms around it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2174,12 +2173,7 @@ def _profiled_kernels(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernel events only: an operator's own row repeats its kernels' time.
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(key=lambda r: -r[1])
-    return rows, wall_ms
+    return prefill_profile.kernel_rows(prof), wall_ms
 
 
 def _profile_decode_step(eng: Engine) -> dict:

@@ -32,11 +32,13 @@ REQUESTS = 24
 def kernel_rows(prof):
     """(name, device ms, launches) of every kernel in a finished profile,
     most device time first (kernel events only: an operator's own row
-    repeats its kernels' time)."""
+    repeats its kernels' time, and a ``record_function`` range's device
+    row spans the kernels launched inside it)."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and not e.is_user_annotation]
     rows.sort(key=lambda r: -r[1])
     return rows
 

@@ -41,6 +41,7 @@ import torch
 
 from ..ops import quant
 from ..utils.common import resolve_device
+from ..utils.logging import metrics
 from .attention import AttentionParams
 from .config import ModelConfig
 from .layers import BF16Linear, Fp8Linear
@@ -66,8 +67,14 @@ def _fused_w1(gate: torch.Tensor, up: torch.Tensor) -> Fp8Linear:
 def load_params(state: Mapping[str, Any], cfg: ModelConfig, *,
                 device="cuda") -> ModelParams:
     """Build quantized ModelParams on ``device`` from an HF-style state dict
-    (numpy arrays or tensors of any float type)."""
-    dev = resolve_device(device)
+    (numpy arrays or tensors of any float type). Its host seconds are
+    added to the counter ``setup.load_params_s``."""
+    with metrics.timer("setup.load_params_s"):
+        return _load_params(state, cfg, resolve_device(device))
+
+
+def _load_params(state: Mapping[str, Any], cfg: ModelConfig,
+                 dev: torch.device) -> ModelParams:
 
     def get(name: str) -> torch.Tensor:
         if name not in state:

@@ -5,7 +5,8 @@ quantized parameters on the device from a ``torch.Generator``;
 ``params_with_int8_experts`` re-quantizes the MoE experts to W8A8 int8;
 ``forward`` runs prefill or decode over an int8 KV cache, updating it in
 place. The first ``first_dense_layers`` layers use a dense SwiGLU FFN, the
-rest MoE.
+rest MoE. Under a running ``torch.profiler`` each layer's attention and FFN
+are the spans ``model.attention`` and ``model.ffn``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from ..utils.common import resolve_device
+from ..utils.logging import span
 from .attention import AttentionParams, KVCache, attention
 from .config import ModelConfig
 from .layers import Fp8Linear, rms_norm
@@ -140,19 +142,21 @@ def forward(
     new_caches = []
     for layer, cache in zip(params.layers, caches):
         h = rms_norm(x, layer.attn_norm, cfg.rms_eps)
-        attn_out, cache = attention(layer.attn, h, cache, positions,
-                                    seq_lens, cfg,
-                                    prefill_start=prefill_start,
-                                    **(attn_kw or {}))
+        with span("model.attention"):
+            attn_out, cache = attention(layer.attn, h, cache, positions,
+                                        seq_lens, cfg,
+                                        prefill_start=prefill_start,
+                                        **(attn_kw or {}))
         new_caches.append(cache)
         x = x + attn_out
         h = rms_norm(x, layer.ffn_norm, cfg.rms_eps)
-        if isinstance(layer.ffn, MoEParams):
-            flat = h.reshape(b * s, cfg.hidden_size)
-            ffn_out = moe_block(layer.ffn, flat, cfg,
-                                **(moe_kw or {})).reshape(b, s, -1)
-        else:
-            ffn_out = layer.ffn(h)
+        with span("model.ffn"):
+            if isinstance(layer.ffn, MoEParams):
+                flat = h.reshape(b * s, cfg.hidden_size)
+                ffn_out = moe_block(layer.ffn, flat, cfg,
+                                    **(moe_kw or {})).reshape(b, s, -1)
+            else:
+                ffn_out = layer.ffn(h)
         x = x + ffn_out
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     logits = torch.matmul(x.to(torch.float32),

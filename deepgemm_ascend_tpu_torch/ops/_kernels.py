@@ -179,8 +179,10 @@ class _Libraries:
     def get(self) -> Dict[str, Callable[..., int]]:
         with self._lock:
             if not self._fns:
-                self.build_dir = BUILD_ROOT / _source_hash()
-                self._fns = self._build_all(self.build_dir)
+                from ..utils.logging import metrics
+                with metrics.timer("setup.kernel_libraries_s"):
+                    self.build_dir = BUILD_ROOT / _source_hash()
+                    self._fns = self._build_all(self.build_dir)
             return self._fns
 
     def _build_all(self, out: Path) -> Dict[str, Callable[..., int]]:

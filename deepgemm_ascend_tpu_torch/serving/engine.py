@@ -35,6 +35,14 @@ The engine's state (caches, lengths, last tokens) is updated in place, so
 that a captured graph reads and writes one storage for each. PyTorch runs
 eagerly, so the JAX package's per-shape program memo has no counterpart
 here (the sharded steps keep a memo of their set-up).
+
+Under a running ``torch.profiler`` the engine's phases are named spans
+(``utils.logging.span``): ``engine.step`` around an iteration; inside it
+``engine.admit``, one ``engine.prefill`` per bucket group,
+``engine.prefix_insert``, ``engine.decode`` and ``engine.emit``;
+``engine.readback`` around each blocking copy to the host
+in them. A replayed chunk records no host span of its own: it sits under
+``engine.decode``.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from ..models.config import ModelConfig
 from ..models.model import ModelParams, decode_step, forward, init_cache
 from ..ops._kernels import COUNTERS
 from ..utils.common import resolve_device
-from ..utils.logging import get_logger, metrics
+from ..utils.logging import get_logger, metrics, span
 from .scheduler import Scheduler
 
 
@@ -325,6 +333,13 @@ class Engine:
                       # decode's utilization.
                       "decode_slot_steps": 0, "prefill_time_s": 0.0,
                       "prefill_tokens": 0,
+                      # tokens the prefill forwards ran (rows × bucket) and
+                      # those of them that were padding (padded rows whole)
+                      "prefill_tokens_run": 0, "prefill_tokens_padding": 0,
+                      # requests admitted, and the sums over them of
+                      # admit_t − submit_t and first_token_t − admit_t
+                      "admitted": 0, "queue_wait_s": 0.0,
+                      "first_token_wait_s": 0.0,
                       # host time of the CUDA graph capture, outside
                       # decode_time_s, and the graph's replays.
                       "graph_capture_s": 0.0, "graph_replays": 0}
@@ -433,7 +448,8 @@ class Engine:
                 self._decode_chunk(self._mask, out)
             torch.cuda.current_stream(self.device).wait_stream(
                 self._capture_stream)
-        return out.cpu().numpy()
+        with span("engine.readback"):
+            return out.cpu().numpy()
 
     def _capture(self) -> None:
         """Capture one chunk of ``decode_chunk`` steps as a CUDA graph on
@@ -479,10 +495,12 @@ class Engine:
         caller then takes a plain step)."""
         k = self.spec_k
         w = _VERIFY_WINDOW
-        lens_np = self.seq_lens.cpu().numpy()
+        with span("engine.readback"):
+            lens_np = self.seq_lens.cpu().numpy()
         if int(lens_np[active].max()) + w > self.max_seq_len:
             return False
-        last_np = self.last_tokens.cpu().numpy()
+        with span("engine.readback"):
+            last_np = self.last_tokens.cpu().numpy()
         mask = np.zeros((self.max_slots,), bool)
         mask[active] = True
         toks = np.zeros((self.max_slots, w), np.int32)
@@ -499,7 +517,8 @@ class Engine:
             torch.from_numpy(toks).to(self.device),
             torch.from_numpy(np.where(mask, lens_np, 0).astype(
                 np.int32)).to(self.device))
-        g_np = greedy.cpu().numpy()                    # (slots, w)
+        with span("engine.readback"):
+            g_np = greedy.cpu().numpy()                # (slots, w)
         self.stats["decode_time_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         self.stats["decode_slot_steps"] += w * len(active)
@@ -512,8 +531,9 @@ class Engine:
             acc[slot] = a
             metrics.inc("engine.spec_proposed", k)
             metrics.inc("engine.spec_accepted", a)
-        counts = self._emit_tokens(g_np[:, :k + 1].T, active, sched, emitted,
-                                   row_limit=acc)
+        with span("engine.emit"):
+            counts = self._emit_tokens(g_np[:, :k + 1].T, active, sched,
+                                       emitted, row_limit=acc)
         new_lens, new_last = lens_np.copy(), last_np.copy()
         for slot in active:
             n_em = counts[slot]
@@ -522,7 +542,6 @@ class Engine:
                 new_last[slot] = g_np[slot, n_em - 1]
         self.seq_lens.copy_(torch.from_numpy(new_lens))
         self.last_tokens.copy_(torch.from_numpy(new_last))
-        metrics.gauge("engine.active_slots", len(sched.running))
         return True
 
     def _emit_tokens(self, out_rows, active, sched, emitted,
@@ -548,26 +567,20 @@ class Engine:
                 break
             self.stats["tokens_out"] += len(slot_tokens)
             self.stats["decode_tokens"] += len(slot_tokens)
-            metrics.inc("engine.tokens_out", len(slot_tokens))
             for rid in sched.record_tokens(slot_tokens):
                 get_logger().info("req %d finished", rid)
         return counts
 
     # -- main loop -------------------------------------------------------------
-    def step(self) -> Dict[int, List[int]]:
-        """One engine iteration: admit + prefill new requests, then decode
-        every active slot: one step, a chunk, or a speculative window.
-        Returns {req_id: [tokens]} emitted this iteration."""
-        sched = self.scheduler
-        emitted: Dict[int, List[int]] = {}
-
-        # Batched admission: one prefill forward per (suffix) bucket, the
-        # row count padded to a power of two. Prefix-cache hits copy their
-        # stored rows in first and prefill only the suffix window.
-        prefill_tokens: Dict[int, int] = {}
+    def _admit(self) -> Dict[int, list]:
+        """This step's admissions, grouped by the bucket of the suffix each
+        prefills past its prefix-cache hit: {bucket: [(admission, hit_len,
+        store_idx)]}."""
         groups: Dict[int, list] = {}
-        pending_inserts: list = []
-        for adm in sched.admissions():
+        for adm in self.scheduler.admissions():
+            req = self.scheduler.running[adm.slot]
+            self.stats["admitted"] += 1
+            self.stats["queue_wait_s"] += req.admit_t - req.submit_t
             hit_len, store_idx = self._prefix_lookup(adm.prompt)
             sfx = len(adm.prompt) - hit_len
             bucket = self._prompt_bucket(sfx)
@@ -576,95 +589,136 @@ class Engine:
                 # lookup made sure it fits).
                 bucket = -(-sfx // 16) * 16
             groups.setdefault(bucket, []).append((adm, hit_len, store_idx))
+        return groups
+
+    def _prefill_group(self, bucket: int, group: list,
+                       emitted: Dict[int, List[int]],
+                       prefill_tokens: Dict[int, int]) -> None:
+        """One prefill forward of a bucket's admissions, the row count
+        padded to a power of two; each row's first token sampled, read back
+        and set as its slot's last token."""
+        s_pad = 1
+        while s_pad < len(group):
+            s_pad *= 2
+        toks = np.zeros((s_pad, bucket), np.int32)
+        total = np.ones((s_pad,), np.int32)     # padding rows: len 1
+        last_i = np.zeros((s_pad,), np.int32)
+        pstart = np.zeros((s_pad,), np.int32)
+        slots = np.full((s_pad,), -1, np.int32)
+        hit_dst, hit_src = [], []
+        for i, (adm, hit_len, store_idx) in enumerate(group):
+            sfx_toks = adm.prompt[hit_len:]
+            toks[i, :len(sfx_toks)] = sfx_toks
+            total[i] = len(adm.prompt)
+            last_i[i] = len(sfx_toks) - 1
+            pstart[i] = hit_len
+            slots[i] = adm.slot
+            if hit_len:
+                hit_dst.append(adm.slot)
+                hit_src.append(store_idx)
+                metrics.inc("engine.prefix_hits")
+                metrics.inc("engine.prefix_tokens_reused", hit_len)
+        t0 = time.perf_counter()
+        if hit_dst:
+            # The stored prefix rows into the slots (the suffix prefill
+            # overwrites [hit, hit + bucket); later rows are rewritten by
+            # decode before they are attended).
+            _copy_cache_rows(self.caches, self._prefix_store,
+                             self._index(hit_dst), self._index(hit_src))
+        if self._mesh is not None:
+            from ..parallel.sharded import make_sharded_prefill_step
+            last_logits, _ = make_sharded_prefill_step(
+                self._mesh, self.cfg, self.params, bucket, s_pad)(
+                self.params, self.caches, toks, slots, total)
+        else:
+            last_logits = _prefill(self.params, self.caches, self.cfg,
+                                   toks, total, last_i, pstart, slots)
+        metrics.inc("engine.prefill_dispatches")
+        sampled = self._sample(last_logits)
+        with span("engine.readback"):
+            firsts = sampled.cpu().numpy()               # (s_pad,)
+        now = time.perf_counter()
+        g = len(group)
+        self.stats["prefill_time_s"] += now - t0
+        self.stats["prefill_tokens"] += int(total[:g].sum())
+        self.stats["prefill_tokens_run"] += s_pad * bucket
+        self.stats["prefill_tokens_padding"] += s_pad * bucket - int(
+            (total[:g] - pstart[:g]).sum())
+        v_slots = self._index(slots[:g])
+        self.seq_lens[v_slots] = torch.from_numpy(total[:g]).to(self.device)
+        self.last_tokens[v_slots] = torch.from_numpy(
+            firsts[:g].astype(np.int32)).to(self.device)
+        for i, (adm, hit_len, _) in enumerate(group):
+            req = self.scheduler.running[adm.slot]
+            req.first_token_t = now
+            self.stats["first_token_wait_s"] += now - req.admit_t
+            first_tok = int(firsts[i])
+            self.stats["prefills"] += 1
+            self.stats["tokens_out"] += 1
+            get_logger().info("admitted req %d → slot %d (prompt %d, "
+                              "prefix hit %d)", adm.req_id, adm.slot,
+                              len(adm.prompt), hit_len)
+            prefill_tokens[adm.slot] = first_tok
+            emitted.setdefault(adm.req_id, []).append(first_tok)
+
+    def step(self) -> Dict[int, List[int]]:
+        """One engine iteration: admit + prefill new requests, then decode
+        every active slot: one step, a chunk, or a speculative window.
+        Returns {req_id: [tokens]} emitted this iteration."""
+        with span("engine.step"):
+            return self._step()
+
+    def _step(self) -> Dict[int, List[int]]:
+        sched = self.scheduler
+        emitted: Dict[int, List[int]] = {}
+
+        # Batched admission: one prefill forward per (suffix) bucket, the
+        # row count padded to a power of two. Prefix-cache hits copy their
+        # stored rows in first and prefill only the suffix window.
+        with span("engine.admit"):
+            groups = self._admit()
+        prefill_tokens: Dict[int, int] = {}
         for bucket, group in groups.items():
-            s_pad = 1
-            while s_pad < len(group):
-                s_pad *= 2
-            toks = np.zeros((s_pad, bucket), np.int32)
-            total = np.ones((s_pad,), np.int32)     # padding rows: len 1
-            last_i = np.zeros((s_pad,), np.int32)
-            pstart = np.zeros((s_pad,), np.int32)
-            slots = np.full((s_pad,), -1, np.int32)
-            hit_dst, hit_src = [], []
-            for i, (adm, hit_len, store_idx) in enumerate(group):
-                sfx_toks = adm.prompt[hit_len:]
-                toks[i, :len(sfx_toks)] = sfx_toks
-                total[i] = len(adm.prompt)
-                last_i[i] = len(sfx_toks) - 1
-                pstart[i] = hit_len
-                slots[i] = adm.slot
-                if hit_len:
-                    hit_dst.append(adm.slot)
-                    hit_src.append(store_idx)
-                    metrics.inc("engine.prefix_hits")
-                    metrics.inc("engine.prefix_tokens_reused", hit_len)
-            t0 = time.perf_counter()
-            if hit_dst:
-                # The stored prefix rows into the slots (the suffix prefill
-                # overwrites [hit, hit + bucket); later rows are rewritten
-                # by decode before they are attended).
-                _copy_cache_rows(self.caches, self._prefix_store,
-                                 self._index(hit_dst), self._index(hit_src))
-            if self._mesh is not None:
-                from ..parallel.sharded import make_sharded_prefill_step
-                last_logits, _ = make_sharded_prefill_step(
-                    self._mesh, self.cfg, self.params, bucket, s_pad)(
-                    self.params, self.caches, toks, slots, total)
-            else:
-                last_logits = _prefill(self.params, self.caches, self.cfg,
-                                       toks, total, last_i, pstart, slots)
-            metrics.inc("engine.prefill_dispatches")
-            firsts = self._sample(last_logits).cpu().numpy()   # (s_pad,)
-            self.stats["prefill_time_s"] += time.perf_counter() - t0
-            self.stats["prefill_tokens"] += int(total[:len(group)].sum())
-            if self._prefix_slots:
-                pending_inserts.extend((adm.prompt, adm.slot)
-                                       for adm, _, _ in group)
-            g = len(group)
-            v_slots = self._index(slots[:g])
-            self.seq_lens[v_slots] = torch.from_numpy(total[:g]).to(
-                self.device)
-            self.last_tokens[v_slots] = torch.from_numpy(
-                firsts[:g].astype(np.int32)).to(self.device)
-            for i, (adm, hit_len, _) in enumerate(group):
-                first_tok = int(firsts[i])
-                self.stats["prefills"] += 1
-                self.stats["tokens_out"] += 1
-                metrics.inc("engine.prefills")
-                get_logger().info("admitted req %d → slot %d (prompt %d, "
-                                  "prefix hit %d)", adm.req_id, adm.slot,
-                                  len(adm.prompt), hit_len)
-                prefill_tokens[adm.slot] = first_tok
-                emitted.setdefault(adm.req_id, []).append(first_tok)
-        if pending_inserts:
+            with span("engine.prefill"):
+                self._prefill_group(bucket, group, emitted, prefill_tokens)
+        if self._prefix_slots and groups:
             # After every group's hits copied their rows out.
-            self._prefix_insert_batch(pending_inserts)
+            with span("engine.prefix_insert"):
+                self._prefix_insert_batch([(adm.prompt, adm.slot)
+                                           for group in groups.values()
+                                           for adm, _, _ in group])
         if prefill_tokens:
-            sched.record_tokens(prefill_tokens)
+            with span("engine.emit"):
+                sched.record_tokens(prefill_tokens)
 
         active = sched.active_slots()
         if active and self.spec_k:
-            if self._spec_decode(active, sched, emitted):
+            with span("engine.decode"):
+                done = self._spec_decode(active, sched, emitted)
+            if done:
                 return emitted
             # Too close to the cache's end for a window: a plain step.
         if active:
-            chunk = self.decode_chunk
-            if chunk > 1 and (int(self.seq_lens.cpu()[active].max()) + chunk
-                              > self.max_seq_len):
-                chunk = 1   # the tail of a long sequence: single steps
-            mask = np.zeros((self.max_slots,), bool)
-            mask[active] = True
-            t0 = time.perf_counter()
-            self._mask.copy_(torch.from_numpy(mask))
-            out_np = self._run_decode(chunk)            # (chunk, slots)
-            self.stats["decode_time_s"] += time.perf_counter() - t0
-            self.stats["decode_steps"] += chunk
-            self.stats["decode_slot_steps"] += chunk * len(active)
+            with span("engine.decode"):
+                chunk = self.decode_chunk
+                if chunk > 1:
+                    with span("engine.readback"):
+                        longest = int(self.seq_lens.cpu()[active].max())
+                    if longest + chunk > self.max_seq_len:
+                        chunk = 1   # the tail of a long sequence: single steps
+                mask = np.zeros((self.max_slots,), bool)
+                mask[active] = True
+                t0 = time.perf_counter()
+                self._mask.copy_(torch.from_numpy(mask))
+                out_np = self._run_decode(chunk)        # (chunk, slots)
+                self.stats["decode_time_s"] += time.perf_counter() - t0
+                self.stats["decode_steps"] += chunk
+                self.stats["decode_slot_steps"] += chunk * len(active)
             if chunk > 1 and not self._eager_chunks and \
                     self._graph is None:
                 self._capture()
-            self._emit_tokens(out_np, active, sched, emitted)
-            metrics.gauge("engine.active_slots", len(sched.running))
+            with span("engine.emit"):
+                self._emit_tokens(out_np, active, sched, emitted)
         return emitted
 
     def generate(

@@ -1,7 +1,9 @@
 """Continuous-batching scheduler (host-side, pure Python, hermetically
 testable).
 
-Port of ``deepgemm_ascend_tpu/serving/scheduler.py``, copied as it is.
+Port of ``deepgemm_ascend_tpu/serving/scheduler.py``, copied, with a
+request's clocks added (``submit_t``, ``admit_t``, ``first_token_t``:
+``time.perf_counter()`` readings).
 
 The reference has no serving layer (SURVEY.md §1); this realizes the
 north-star "continuous batching" requirement: a fixed pool of batch slots,
@@ -20,6 +22,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import time
 from typing import Deque, Dict, List, Optional, Sequence
 
 
@@ -31,6 +34,11 @@ class Request:
     output: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
     done: bool = False
+    # Stamped by submit, by admissions and by the engine once the request's
+    # first token is on the host.
+    submit_t: Optional[float] = None
+    admit_t: Optional[float] = None
+    first_token_t: Optional[float] = None
 
     @property
     def total_len(self) -> int:
@@ -70,7 +78,8 @@ class Scheduler:
             raise ValueError(
                 f"prompt {len(prompt)} + max_new {max_new_tokens} exceeds "
                 f"max_seq_len {self.max_seq_len}")
-        req = Request(next(self._ids), list(prompt), max_new_tokens)
+        req = Request(next(self._ids), list(prompt), max_new_tokens,
+                      submit_t=time.perf_counter())
         self.waiting.append(req)
         return req.req_id
 
@@ -78,10 +87,12 @@ class Scheduler:
     def admissions(self) -> List[Admission]:
         """Requests to prefill this iteration (as many as slots allow)."""
         out = []
+        now = time.perf_counter()
         while self.waiting and self._free_slots:
             req = self.waiting.popleft()
             slot = self._free_slots.pop(0)
             req.slot = slot
+            req.admit_t = now
             self.running[slot] = req
             out.append(Admission(req.req_id, slot, list(req.prompt)))
         return out
