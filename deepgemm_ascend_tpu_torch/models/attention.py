@@ -77,8 +77,13 @@ class KVCache:
         """Scatter already-quantized rows (k_q (b,s,kvh,hd) int8, k_s
         (b,s,kvh,1) f32) at ``positions``, in place. Positions outside
         [0, max_seq) are dropped, as the JAX package's scatter drops them (a
-        freed slot whose length already equals the cache extent)."""
+        freed slot whose length already equals the cache extent). On the
+        CPU the rows in range are picked by ``nonzero``; elsewhere by
+        :meth:`write_quantized_no_sync`, which reads nothing back to the
+        host, so that a CUDA graph can hold it."""
         pos = positions.to(device=self.k_q.device, dtype=torch.int64)
+        if pos.device.type != "cpu":
+            return self.write_quantized_no_sync(k_q, k_s, v_q, v_s, pos)
         bi, si = torch.nonzero((pos >= 0) & (pos < self.max_seq),
                                as_tuple=True)
         p = pos[bi, si]
@@ -86,6 +91,31 @@ class KVCache:
         self.k_s[bi, :, p] = k_s[bi, si, :, 0]
         self.v_q[bi, :, p] = v_q[bi, si]
         self.v_s[bi, :, p] = v_s[bi, si, :, 0]
+        return self
+
+    def write_quantized_no_sync(self, k_q, k_s, v_q, v_s,
+                                positions: torch.Tensor) -> "KVCache":
+        """:meth:`write_quantized` in a fixed number of writes, with no
+        count read back: every one of the b·s rows is written. A row out
+        of range takes the place and the bytes of the first row in range,
+        so the same bytes land there twice; where no row is in range, each
+        writes back the bytes already at (batch 0, its position clamped
+        into the cache). No two writes to one place differ."""
+        pos = positions.to(device=self.k_q.device,
+                           dtype=torch.int64).reshape(-1)
+        s = k_q.shape[1]
+        ok = (pos >= 0) & (pos < self.max_seq)
+        first = torch.argmax(ok.to(torch.int32))   # first in range, or 0
+        row = torch.where(ok, torch.arange(pos.numel(), device=pos.device),
+                          first)
+        bi, si = row // s, row % s
+        p = pos[row].clamp(0, self.max_seq - 1)
+        any_ok = ok.any()
+        for dst, new in ((self.k_q, k_q[bi, si]),
+                         (self.k_s, k_s[bi, si, :, 0]),
+                         (self.v_q, v_q[bi, si]),
+                         (self.v_s, v_s[bi, si, :, 0])):
+            dst[bi, :, p] = torch.where(any_ok, new, dst[bi, :, p])
         return self
 
 

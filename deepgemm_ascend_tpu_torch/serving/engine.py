@@ -20,6 +20,13 @@ The JAX engine's serving features, with its semantics:
 * greedy speculative decoding (``speculative_k``, ``draft_fn``): every
   slot's current token and k drafts verified in one 16-token forward.
 
+On CUDA without a mesh, a bucket group's prefill forward of at most
+``_PREFILL_GRAPH_TOKENS`` tokens is a CUDA graph too, with its sampling:
+kept by shape (padded rows, bucket), captured by the shape's second
+forward after an eager first, replayed from then on with the group's
+inputs copied into its static buffers; the read-back of the sampled
+tokens is the group's only sync.
+
 With ``mesh=`` (``parallel/sharded.py``) the engine runs the sharded dp/ep/tp
 steps: every rank of the mesh runs one engine on its own shard of the
 parameters and caches, with the same requests, and takes the same
@@ -76,6 +83,20 @@ _CACHE_FIELDS = ("k_q", "k_s", "v_q", "v_s")
 # gate), so that the verification forward runs K4 over the int8 cache; the
 # columns past k + 1 are padding, their cache rows invalid by length.
 _VERIFY_WINDOW = 16
+# Prefill forwards of at most this many tokens (padded rows × bucket) are
+# captured as CUDA graphs. Below it an eager forward waits on the host's
+# launches (Mistral-7B: ~4000 launches, ~100 ms of host, against ~28 ms of
+# K1 at 512 tokens); above it the card's work covers the host (≥ ~110 ms
+# of K1 at 2048 tokens), and a graph's memory pool would hold GBs.
+_PREFILL_GRAPH_TOKENS = 2048
+
+
+def prefill_graph_key(s_pad: int, bucket: int) -> Optional[tuple]:
+    """The shape a prefill forward's CUDA graph is kept under, or None for
+    a forward that always runs eagerly (over ``_PREFILL_GRAPH_TOKENS``)."""
+    if s_pad * bucket > _PREFILL_GRAPH_TOKENS:
+        return None
+    return (s_pad, bucket)
 
 
 def _draft_prompt_lookup(hist: List[int], k: int, n: int = 3) -> List[int]:
@@ -104,6 +125,52 @@ def _copy_cache_rows(dst: List[KVCache], src: List[KVCache],
                 0, dst_idx, getattr(s, name).index_select(0, src_idx))
 
 
+def _write_back_plan(slots: np.ndarray):
+    """The write-back of a prefill's rows into the slot caches as one
+    (src, dst) pair a row, int64, of the rows' fixed count: a row with a
+    slot writes into it; a padding row (slot < 0) repeats the first such
+    row's pair, which writes the same bytes again and touches no other
+    slot."""
+    valid = slots >= 0
+    if not valid.any():
+        raise ValueError("a prefill needs a row with a slot")
+    src = np.where(valid, np.arange(len(slots)), int(np.argmax(valid)))
+    return src.astype(np.int64), slots[src].astype(np.int64)
+
+
+def _prefill_forward(params: ModelParams, caches: List[KVCache],
+                     cfg: ModelConfig, tokens: torch.Tensor,
+                     total_lens: torch.Tensor, last_idx: torch.Tensor,
+                     pstart: torch.Tensor, rows: torch.Tensor,
+                     src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """:func:`_prefill` on device tensors (tokens, total_lens, pstart
+    int32; last_idx, the gathered cache rows ``rows`` and the write-back
+    plan ``src``/``dst`` int64), reading nothing back: what a prefill graph
+    captures."""
+    dev = tokens.device
+    s_pad, bucket = tokens.shape
+    sub = [KVCache(k_q=c.k_q[rows], k_s=c.k_s[rows], v_q=c.v_q[rows],
+                   v_s=c.v_s[rows]) for c in caches]
+    pos = pstart[:, None] + torch.arange(bucket, device=dev,
+                                         dtype=torch.int32)[None]
+    logits, sub = forward(params, tokens, sub, pos, total_lens, cfg,
+                          prefill_start=pstart)
+    for c, s in zip(caches, sub):
+        for name in _CACHE_FIELDS:
+            getattr(c, name)[dst] = getattr(s, name)[src]
+    return logits[torch.arange(s_pad, device=dev), last_idx]
+
+
+def _prefill_arrays(slots: np.ndarray, last_idx: np.ndarray,
+                    max_slots: int) -> tuple:
+    """The int64 inputs of :func:`_prefill_forward` made from the slots:
+    last indices, gathered cache rows (a padding row reads slot 0's) and
+    the write-back plan."""
+    src, dst = _write_back_plan(slots)
+    return (last_idx.astype(np.int64),
+            np.clip(slots, 0, max_slots - 1).astype(np.int64), src, dst)
+
+
 def _prefill(params: ModelParams, caches: List[KVCache], cfg: ModelConfig,
              tokens: np.ndarray, total_lens: np.ndarray, last_idx: np.ndarray,
              pstart: np.ndarray, slots: np.ndarray) -> torch.Tensor:
@@ -112,26 +179,53 @@ def _prefill(params: ModelParams, caches: List[KVCache], cfg: ModelConfig,
     back, and return each row's next-token logits (S, vocab) at its last
     real token. Rows with slot < 0 are padding and write nothing."""
     dev = params.device
-    s_pad, bucket = tokens.shape
-    max_slots = caches[0].k_q.shape[0]
-    idx_r = torch.from_numpy(np.clip(slots, 0, max_slots - 1)).to(
-        dev, torch.int64)
-    sub = [KVCache(k_q=c.k_q[idx_r], k_s=c.k_s[idx_r], v_q=c.v_q[idx_r],
-                   v_s=c.v_s[idx_r]) for c in caches]
-    pst = torch.from_numpy(pstart).to(dev)
-    pos = pst[:, None] + torch.arange(bucket, device=dev,
-                                      dtype=torch.int32)[None]
-    logits, sub = forward(params, torch.from_numpy(tokens).to(dev), sub, pos,
-                          torch.from_numpy(total_lens).to(dev), cfg,
-                          prefill_start=pst)
-    rows = np.nonzero(slots >= 0)[0]
-    src = torch.from_numpy(rows).to(dev, torch.int64)
-    dst = torch.from_numpy(slots[rows]).to(dev, torch.int64)
-    for c, s in zip(caches, sub):
-        for name in _CACHE_FIELDS:
-            getattr(c, name)[dst] = getattr(s, name)[src]
-    return logits[torch.arange(s_pad, device=dev),
-                  torch.from_numpy(last_idx).to(dev, torch.int64)]
+    last, rows, src, dst = (torch.from_numpy(a).to(dev) for a in
+                            _prefill_arrays(slots, last_idx,
+                                            caches[0].k_q.shape[0]))
+    return _prefill_forward(params, caches, cfg,
+                            torch.from_numpy(tokens).to(dev),
+                            torch.from_numpy(total_lens).to(dev), last,
+                            torch.from_numpy(pstart).to(dev), rows, src, dst)
+
+
+class _PrefillGraph:
+    """One prefill forward of shape (s_pad, bucket) captured with its
+    sampling as a CUDA graph: its inputs in static buffers on the card,
+    filled from pinned host staging by asynchronous copies (int32: tokens,
+    total lengths, prefill starts; int64: those of :func:`_prefill_arrays`),
+    and the tokens it samples."""
+
+    def __init__(self, s_pad: int, bucket: int, device):
+        self.shape = (s_pad, bucket)
+        n32, n64 = s_pad * (bucket + 2), 4 * s_pad
+        self._dev32 = torch.empty(n32, dtype=torch.int32, device=device)
+        self._dev64 = torch.empty(n64, dtype=torch.int64, device=device)
+        pin = self._dev32.is_cuda
+        self._host32 = torch.empty(n32, dtype=torch.int32, pin_memory=pin)
+        self._host64 = torch.empty(n64, dtype=torch.int64, pin_memory=pin)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.sampled: Optional[torch.Tensor] = None
+        # Launches and plain calls of each kernel in one replay.
+        self.launches: Dict[str, tuple] = {}
+
+    def stage(self, tokens, total_lens, last_idx, pstart, slots,
+              max_slots) -> None:
+        """Copy one group's inputs to the static buffers (queued on the
+        current stream; the host buffers are free again once the group's
+        tokens are read back)."""
+        h32, h64 = self._host32.numpy(), self._host64.numpy()
+        h32[:] = np.concatenate([tokens.reshape(-1), total_lens, pstart])
+        h64[:] = np.concatenate(_prefill_arrays(slots, last_idx, max_slots))
+        self._dev32.copy_(self._host32, non_blocking=True)
+        self._dev64.copy_(self._host64, non_blocking=True)
+
+    def inputs(self) -> tuple:
+        """The static buffers as :func:`_prefill_forward`'s arguments from
+        ``tokens`` on."""
+        s_pad, bucket = self.shape
+        tok, total, pst = self._dev32.split([s_pad * bucket, s_pad, s_pad])
+        last, rows, src, dst = self._dev64.split(s_pad)
+        return (tok.view(s_pad, bucket), total, last, pst, rows, src, dst)
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
@@ -282,6 +376,8 @@ class Engine:
                                  device=self.device)
         self._mesh = mesh
         self._eager_chunks = self.device.type != "cuda"
+        # The mesh's sharded prefill steps run eagerly.
+        self._prefill_graphs_on = self.device.type == "cuda" and mesh is None
         if mesh is not None:
             from ..parallel import mesh as meshmod
             from ..parallel import sharded
@@ -342,7 +438,29 @@ class Engine:
                       "first_token_wait_s": 0.0,
                       # host time of the CUDA graph capture, outside
                       # decode_time_s, and the graph's replays.
-                      "graph_capture_s": 0.0, "graph_replays": 0}
+                      "graph_capture_s": 0.0, "graph_replays": 0,
+                      # prefill forwards captured as CUDA graphs (their host
+                      # time inside prefill_time_s) and replayed: every
+                      # replayed forward, the capturing one included
+                      "prefill_graph_captures": 0,
+                      "prefill_graph_capture_s": 0.0,
+                      "prefill_graph_replays": 0}
+
+    @property
+    def caches(self) -> List[KVCache]:
+        return self._caches
+
+    @caches.setter
+    def caches(self, caches) -> None:
+        # Prefill graphs by shape (prefill_graph_key): a shape seen once
+        # maps to None (its next forward captures), then to its graph. All
+        # share one memory pool: each graph's sampled tokens are read back
+        # before another replays. A graph writes the caches' storage: new
+        # caches (or none, when the engine's state is freed) drop the graphs
+        # and their pool.
+        self._caches = caches
+        self._prefill_graphs: Dict[tuple, Optional[_PrefillGraph]] = {}
+        self._prefill_pool = None
 
     def _prompt_bucket(self, prompt_len: int) -> int:
         bucket = _bucket(prompt_len)
@@ -473,6 +591,60 @@ class Engine:
         for n, (launches, _) in self.graph_launches.items():
             COUNTERS[n].captured += launches
         self.stats["graph_capture_s"] += time.perf_counter() - t0
+
+    def _prefill_sampled(self, tokens: np.ndarray, total: np.ndarray,
+                         last_i: np.ndarray, pstart: np.ndarray,
+                         slots: np.ndarray) -> torch.Tensor:
+        """A bucket group's prefill forward and its sampled tokens (s_pad,)
+        on the device. On CUDA without a mesh, a shape under the graph cap
+        (:func:`prefill_graph_key`) runs eagerly the first time, is
+        captured by its second forward and replayed from then on; other
+        forwards run eagerly (:func:`_prefill`)."""
+        key = (prefill_graph_key(*tokens.shape)
+               if self._prefill_graphs_on else None)
+        if key is None or key not in self._prefill_graphs:
+            if key is not None:
+                self._prefill_graphs[key] = None
+            return self._sample(_prefill(self.params, self.caches, self.cfg,
+                                         tokens, total, last_i, pstart,
+                                         slots))
+        pg = self._prefill_graphs[key]
+        fresh = pg is None
+        if fresh:
+            pg = self._prefill_graphs[key] = _PrefillGraph(*key, self.device)
+        pg.stage(tokens, total, last_i, pstart, slots, self.max_slots)
+        if fresh:
+            self._capture_prefill(pg)
+        pg.graph.replay()
+        self.stats["prefill_graph_replays"] += 1
+        for n, (launches, _) in pg.launches.items():
+            COUNTERS[n].replayed += launches
+        return pg.sampled
+
+    def _capture_prefill(self, pg: _PrefillGraph) -> None:
+        """Capture ``pg``'s forward and sampling into the engine's prefill
+        pool, on its static inputs; the launches are counted as in
+        :meth:`_capture`. Capturing runs nothing on the card, and a host
+        sync inside the forward makes it raise: no forward falls back to
+        eager."""
+        t0 = time.perf_counter()
+        before = {n: (c.launches, c.plain_calls) for n, c in COUNTERS.items()}
+        graph = torch.cuda.CUDAGraph()
+        if self.temperature > 0.0:
+            graph.register_generator_state(self._gen)
+        if self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=self._prefill_pool):
+            pg.sampled = self._sample(_prefill_forward(
+                self.params, self.caches, self.cfg, *pg.inputs()))
+        pg.graph = graph
+        pg.launches = {
+            n: (c.launches - before[n][0], c.plain_calls - before[n][1])
+            for n, c in COUNTERS.items()}
+        for n, (launches, _) in pg.launches.items():
+            COUNTERS[n].captured += launches
+        self.stats["prefill_graph_captures"] += 1
+        self.stats["prefill_graph_capture_s"] += time.perf_counter() - t0
 
     def _verify(self, toks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         """Every slot's window ``toks`` (slots, W) through the model at
@@ -630,11 +802,11 @@ class Engine:
             last_logits, _ = make_sharded_prefill_step(
                 self._mesh, self.cfg, self.params, bucket, s_pad)(
                 self.params, self.caches, toks, slots, total)
+            sampled = self._sample(last_logits)
         else:
-            last_logits = _prefill(self.params, self.caches, self.cfg,
-                                   toks, total, last_i, pstart, slots)
+            sampled = self._prefill_sampled(toks, total, last_i, pstart,
+                                            slots)
         metrics.inc("engine.prefill_dispatches")
-        sampled = self._sample(last_logits)
         with span("engine.readback"):
             firsts = sampled.cpu().numpy()               # (s_pad,)
         now = time.perf_counter()

@@ -2605,3 +2605,202 @@ def test_memoised_grouped_selection_moves_the_tiers_once_a_shape(dev):
         assert dict(ggmod.COUNTER.plans) == {"ring 64x64": 1}
     finally:
         cachemod.reset_global_cache(None, kind=kind)
+
+
+# ---- serving on the card: prefill forwards captured as CUDA graphs ----
+
+# TINY with a dense FFN in every layer: the dense path at head_dim 128.
+def _tiny_dense128():
+    import dataclasses
+    from deepgemm_ascend_tpu_torch.models import TINY
+    return dataclasses.replace(TINY, num_experts=0, num_shared_experts=0,
+                               top_k=0, moe_intermediate=0,
+                               first_dense_layers=TINY.num_layers)
+
+
+def _prefill_engine(dev, cfg, **kw):
+    """An engine on the card whose caches hold random rows, so that a
+    prefix hit attends a history."""
+    from deepgemm_ascend_tpu_torch.models import init_params
+    from deepgemm_ascend_tpu_torch.serving import Engine
+    eng = Engine(init_params(0, cfg, device=dev), cfg, max_slots=8,
+                 max_seq_len=256, device=dev, **kw)
+    g = _gen(5, dev)
+    for c in eng.caches:
+        for q in (c.k_q, c.v_q):
+            q.copy_(torch.randint(-127, 128, q.shape, generator=g,
+                                  device=dev, dtype=torch.int8))
+        for s in (c.k_s, c.v_s):
+            s.uniform_(0.001, 0.02, generator=g)
+    return eng
+
+
+def _prefill_group_arrays(cfg, bucket, rows, seed, hit=0, max_slots=8,
+                          s_pad=1):
+    """A bucket group's prefill arrays: ``rows`` prompts in random slots
+    (the first with a prefix hit of ``hit`` tokens), padded to a power of
+    two rows, at least ``s_pad``."""
+    rng = np.random.default_rng(seed)
+    while s_pad < rows:
+        s_pad *= 2
+    toks = np.zeros((s_pad, bucket), np.int32)
+    total = np.ones((s_pad,), np.int32)
+    last = np.zeros((s_pad,), np.int32)
+    pstart = np.zeros((s_pad,), np.int32)
+    slots = np.full((s_pad,), -1, np.int32)
+    for i, slot in enumerate(rng.permutation(max_slots)[:rows]):
+        n = int(rng.integers(1, bucket + 1))
+        toks[i, :n] = rng.integers(1, cfg.vocab_size, size=n)
+        start = hit if i == 0 else 0
+        total[i], last[i], pstart[i], slots[i] = start + n, n - 1, start, slot
+    return toks, total, last, pstart, slots
+
+
+PREFILL_GROUPS = [(16, 1, 0), (32, 2, 0), (64, 3, 0), (32, 1, 64)]
+
+
+@pytest.mark.parametrize("moe", [True, False], ids=["moe", "dense"])
+@pytest.mark.parametrize("bucket,rows,hit", PREFILL_GROUPS,
+                         ids=["b16_s1", "b32_s2", "b64_s4", "b32_hit64"])
+def test_prefill_graph_replay_equals_eager_prefill(dev, moe, bucket, rows,
+                                                   hit):
+    """From one engine state, a bucket group's captured prefill replayed
+    and the eager ``_prefill`` (then the engine's sampling) give the same
+    sampled tokens and bit-equal caches, lengths and last tokens; a second
+    group of the shape, staged into the same graph, too."""
+    from deepgemm_ascend_tpu_torch.models import TINY
+    from deepgemm_ascend_tpu_torch.serving.engine import (_prefill,
+                                                          _PrefillGraph)
+    cfg = TINY if moe else _tiny_dense128()
+    eng = _prefill_engine(dev, cfg)
+    start = _state(eng)
+    pg = None
+    for seed in (1, 2):
+        arrays = _prefill_group_arrays(cfg, bucket, rows, seed, hit)
+        _restore(eng, start)
+        eager_tok = eng._sample(_prefill(eng.params, eng.caches, cfg,
+                                         *arrays)).clone()
+        eager = _state(eng)
+        _restore(eng, start)
+        if pg is None:
+            pg = _PrefillGraph(*arrays[0].shape, dev)
+            pg.stage(*arrays, eng.max_slots)
+            eng._capture_prefill(pg)
+        else:
+            pg.stage(*arrays, eng.max_slots)
+        pg.graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(pg.sampled, eager_tok)
+        graph = _state(eng)
+        for a, b in zip(eager[0], graph[0]):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert not all(torch.equal(x, y)
+                       for x, y in zip(graph[0][0], start[0][0]))
+    assert set(n for n, (l, _) in pg.launches.items() if l) == (
+        {"fp8_gemm", "grouped_gemm", "flash_prefill"} if moe
+        else {"fp8_gemm", "flash_prefill"})
+    assert all(calls == 0 for _, calls in pg.launches.values())
+
+
+def test_engine_prefill_runs_eager_then_captures_then_replays(dev):
+    """Three groups of one shape through the engine: the first eager, the
+    second captured and replayed, the third replayed; their tokens those
+    of the eager prefill from the same states, each replay counted with
+    its launches; a shape over the cap keeps no graph."""
+    from deepgemm_ascend_tpu_torch.serving.engine import _prefill
+    cfg = _tiny_dense128()
+    eng = _prefill_engine(dev, cfg)
+    _kernels.reset_counters()
+    for i, seed in enumerate((1, 2, 3)):
+        arrays = _prefill_group_arrays(cfg, 32, 2, seed)
+        start = _state(eng)
+        want = eng._sample(_prefill(eng.params, eng.caches, cfg,
+                                    *arrays)).clone()
+        eager = _state(eng)
+        _restore(eng, start)
+        got = eng._prefill_sampled(*arrays).clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for a, b in zip(eager[0], _state(eng)[0]):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert eng.stats["prefill_graph_replays"] == i
+        assert eng.stats["prefill_graph_captures"] == min(i, 1)
+    pg = eng._prefill_graphs[(2, 32)]
+    for n, (per_replay, _) in pg.launches.items():
+        assert _kernels.COUNTERS[n].captured == per_replay
+        assert _kernels.COUNTERS[n].replayed == 2 * per_replay
+    assert eng.stats["prefill_graph_capture_s"] > 0
+    big = _prefill_group_arrays(cfg, 256, 8, 4, s_pad=16)  # 16 rows × 256
+    eng._prefill_sampled(*big)
+    eng._prefill_sampled(*big)
+    assert list(eng._prefill_graphs) == [(2, 32)]
+    eng.caches = None
+    assert eng._prefill_graphs == {} and eng._prefill_pool is None
+
+
+def test_engine_serves_through_prefill_graphs(dev):
+    """An engine whose admissions repeat their shapes replays prefill
+    graphs and serves the tokens of an engine that keeps none."""
+    from deepgemm_ascend_tpu_torch.models import TINY, init_params
+    from deepgemm_ascend_tpu_torch.serving import Engine
+    params = init_params(0, TINY, device=dev)
+    prompts = [[5, 17, 301, 2, 44], list(range(100, 120)), [7] * 17,
+               [9, 8, 7], list(range(200, 221)), [3] * 9, [1, 2]]
+
+    def serve(graphs):
+        eng = Engine(params, TINY, max_slots=2, max_seq_len=128,
+                     decode_chunk=4, device=dev)
+        eng._prefill_graphs_on = graphs
+        return eng, eng.generate(prompts, max_new_tokens=6)
+
+    eng, got = serve(True)
+    _, want = serve(False)
+    assert got == want
+    assert eng.stats["prefill_graph_replays"] >= 1
+
+
+@pytest.mark.parametrize("positions", [
+    [[0, 1, 2, 3], [8, 9, 10, 11]], [[28, 29, 30, 31], [30, 31, 32, 33]],
+    [[32, 33, 34, 35], [40, 41, 42, 43]], [[-2, -1, 0, 1], [-4, -3, -2, -1]],
+    [[31], [32]]], ids=["in_range", "straddle", "all_past", "negative",
+                        "decode"])
+def test_cache_write_on_the_card_equals_the_cpu_scatter(dev, positions):
+    """The card's cache write (no count read back) leaves the cache as the
+    CPU's ``nonzero`` scatter does, rows past the end dropped."""
+    from deepgemm_ascend_tpu_torch.models.attention import KVCache
+    pos = torch.tensor(positions, dtype=torch.int32)
+    b, s = pos.shape
+    g = torch.Generator().manual_seed(1)
+    k, v = (torch.randn((b, s, 2, 128), generator=g) for _ in range(2))
+    caches = {}
+    for d in ("cpu", dev):
+        c = KVCache.create(b, 32, 2, 128, device=d)
+        c.k_q.fill_(3)
+        c.v_s.fill_(0.5)
+        caches[str(d)] = c.update(k.to(d), v.to(d), pos.to(d))
+    for n in ("k_q", "k_s", "v_q", "v_s"):
+        assert torch.equal(getattr(caches["cpu"], n),
+                           getattr(caches["cuda"], n).cpu())
+
+
+def test_a_host_sync_in_a_prefill_capture_raises(dev, monkeypatch):
+    """A forward that reads a count back cannot be captured: the capture
+    raises, and no forward falls back to eager. (Last in the file: the
+    failed capture is left behind.)"""
+    from deepgemm_ascend_tpu_torch.models.attention import KVCache
+    from deepgemm_ascend_tpu_torch.serving.engine import _PrefillGraph
+    cfg = _tiny_dense128()
+    eng = _prefill_engine(dev, cfg)
+    arrays = _prefill_group_arrays(cfg, 16, 1, 1)
+    real = KVCache.write_quantized_no_sync
+
+    def synced(self, k_q, k_s, v_q, v_s, positions):
+        torch.nonzero(positions >= 0)
+        return real(self, k_q, k_s, v_q, v_s, positions)
+
+    monkeypatch.setattr(KVCache, "write_quantized_no_sync", synced)
+    pg = _PrefillGraph(*arrays[0].shape, dev)
+    pg.stage(*arrays, eng.max_slots)
+    with pytest.raises(RuntimeError):
+        eng._capture_prefill(pg)
+    assert pg.graph is None
