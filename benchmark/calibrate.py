@@ -5,14 +5,15 @@
 
 For each seed, in one process (kernels built and the card set up once):
 a run's set-up and a window at the cell's own load, then the check's
-sample judged by the stated reference (the program's readings), and for
-the first ``--control`` seeds also by the control, the reference in int4
-in the program's place (its readings prefixed ``control_``). One JSON line
-a seed. Then, for each of ``--faults`` and each of ``--fault-seeds``, a
-whole run (:func:`benchmark.run.run`) with that fault planted
-(:mod:`benchmark.faults`; ``control`` puts the control in the program's
-place in the run's own comparison): one JSON line each, with the run's
-``correct`` and the numbers it compared. The benchmark's own runs never
+sample judged by the configuration's reference in its stated precision
+(the program's readings), and for the first ``--control`` seeds also by
+the control, that reference in its ``CONTROL`` precision (int4 for fp8
+and int8) in the program's place (its readings prefixed ``control_``).
+One JSON line a seed. Then, for each of ``--faults`` and each of
+``--fault-seeds``, a whole run (:func:`benchmark.run.run`) with that fault
+planted (:mod:`benchmark.faults`; ``control`` puts the control in the
+program's place in the run's own comparison): one JSON line each, with the
+run's ``correct`` and the numbers it compared. The benchmark's own runs never
 run the control or a fault.
 """
 

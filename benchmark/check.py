@@ -2,8 +2,9 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the finished requests, drawn from the seed with the longest among them, is
-run through the plain reference (:mod:`benchmark.reference.model`) as
-prompt + served tokens. At every served position the reference's logits
+run through the configuration's plain reference (:func:`reference`:
+:mod:`benchmark.reference.model` unless the configuration names another)
+as prompt + served tokens. At every served position the reference's logits
 say how far the served token's logit lies below its best. Each request's
 mean gap is read, and the worst request's mean is the number compared: a
 fault confined to one slot or one request is not diluted by the others.
@@ -17,25 +18,48 @@ window are covered; every other request of the sample over its first
 (and slots) for the reference's time.
 
 The control is the reference in the next precision below the
-configuration's (int4 for fp8 and int8), in the program's place: at each
-of the same positions, the gap of the token that it puts first.
+configuration's (the reference module's ``CONTROL``: int4 for fp8 and
+int8), in the program's place: at each of the same positions, the gap of
+the token that it puts first.
 """
 
 from __future__ import annotations
 
+import importlib
 import random
+import re
 import types
 from typing import Dict, List, Sequence
 
 import torch
 
-from benchmark.reference.model import CONTROL, STATED, Reference
 from benchmark.weights import derive_seed
 
 MIN_SERVED = 16          # a request with fewer served tokens is not sampled
 PER_REQUEST = 64         # served tokens compared of each request but the longest
 MAX_REQUESTS = 96
 MAX_SEQ_TOKENS = 32768   # prompt + compared tokens of a sample, at most
+
+
+def reference(hf: dict):
+    """The configuration's reference: the module
+    ``benchmark/reference/<name>.py`` that its ``reference`` key names
+    (``model`` where it names none), which exposes ``Reference``,
+    ``STATED`` and ``CONTROL``. Raises for a name that is no such module."""
+    name = hf.get("reference", "model")
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise ValueError(f"reference {name!r} is not the name of a module")
+    try:
+        mod = importlib.import_module(f"benchmark.reference.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"benchmark.reference.{name}":
+            raise
+        raise ValueError(f"no reference {name!r}: benchmark/reference/{name}.py "
+                         f"is missing") from None
+    missing = [k for k in ("Reference", "STATED", "CONTROL") if not hasattr(mod, k)]
+    if missing:
+        raise ValueError(f"reference {name!r} does not expose {', '.join(missing)}")
+    return mod
 
 
 def sample(finished: Sequence, seed: int) -> List:
@@ -84,12 +108,13 @@ def judge(hf: dict, seed: int, device, reqs: Sequence, *, control: bool = False)
     ``control`` the control's, each prefixed ``control_``."""
     if not reqs:
         return {"served_compared": 0}
+    plain = reference(hf)
     seqs, wanted = _inputs(reqs)
-    ref = Reference(hf, seed, device, STATED).logits(seqs, wanted)
+    ref = plain.Reference(hf, seed, device, plain.STATED).logits(seqs, wanted)
     served = [torch.as_tensor(r.tokens, dtype=torch.int64) for r in reqs]
     out = {**summary(gaps(ref, served)), "requests_compared": len(reqs)}
     if control:
-        low = Reference(hf, seed, device, CONTROL).logits(seqs, wanted)
+        low = plain.Reference(hf, seed, device, plain.CONTROL).logits(seqs, wanted)
         cg = summary(gaps(ref, [lg.argmax(dim=-1) for lg in low]))
         out.update({"control_" + k: v for k, v in cg.items()})
     return out

@@ -67,7 +67,8 @@ PLANTS = {"altered_token": altered_token, "state_unchanged": state_unchanged,
 
 def control_judge(hf, seed, device, reqs):
     """The check's readings with the control in the program's place: at each
-    served position, the token that the reference in int4 puts first."""
+    served position, the token that the configuration's reference puts
+    first in its ``CONTROL`` precision (int4 for fp8 and int8)."""
     from benchmark import check
     r = check.judge(hf, seed, device, reqs, control=True)
     return {k[len("control_"):]: v for k, v in r.items() if k.startswith("control_")}

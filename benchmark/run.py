@@ -163,9 +163,10 @@ def serve(cell, seed: int, seconds: float, trace: bool, device, *, t_setup0=None
     """Set-up and window of one run. Returns the record the result and the
     check are made from; the engine is still alive in it."""
     import torch
-    from benchmark import program
+    from benchmark import check, program
     from benchmark.accounting import PrefixReplica
     hf, srv = cell.config, cell.config["serving"]
+    check.reference(hf)     # a reference that is not there fails here, not after the window
     torch.manual_seed(seed)
     engine = program.build(hf, cell.settings, seed, device)
     kind = cell.kind()
