@@ -62,23 +62,60 @@ def test_dsmoe16b_builds_once_the_port_declares_norm_topk_prob(monkeypatch):
     assert (cfg.num_experts, cfg.num_shared_experts, cfg.top_k, cfg.moe_intermediate,
             cfg.dense_intermediate, cfg.first_dense_layers,
             cfg.vocab_size) == (64, 2, 6, 1408, 11008, 1, 102400)
+    if "norm_topk_prob" in {f.name for f in dataclasses.fields(ModelConfig)}:
+        monkeypatch.setattr(program, "ModelConfig", ModelConfig)
+        real = program.model_config(hf)
+        assert type(real) is ModelConfig
+        assert dataclasses.asdict(real) == dataclasses.asdict(cfg)
 
 
-@pytest.mark.parametrize("key, value, kind, default, base, refusal", [
-    ("norm_topk_prob", False, bool, True, "tiny_moe", "renormalizes"),
-    ("scoring_func", "sigmoid", str, "softmax", "tiny_moe", "softmax"),
-    ("sliding_window", 4096, Optional[int], None, "tiny_dense", "whole context"),
-])
-def test_a_published_key_passes_through_where_the_port_declares_it(
-        monkeypatch, key, value, kind, default, base, refusal):
-    hf = dict(_config(DATA / f"{base}.json"), **{key: value})
-    with pytest.raises(ValueError, match=refusal):
-        program.model_config(hf)
-    monkeypatch.setattr(program, "ModelConfig", _stub(key, kind, default))
-    assert getattr(program.model_config(hf), key) == value
+# Each key of ``program.PASSED_THROUGH``: the file it is tried on, the
+# value published that the port does not follow without the field, one
+# that it follows, the field as a port would declare it, and the refusal.
+PUBLISHED = {
+    "norm_topk_prob": ("tiny_moe", False, True, bool, True, "renormalizes"),
+    "scoring_func": ("tiny_moe", "sigmoid", "softmax", str, "softmax", "softmax"),
+    "sliding_window": ("tiny_dense", 4096, None, Optional[int], None, "whole context"),
+}
+
+
+def _without(field: str):
+    """``ModelConfig`` as a port that does not declare ``field`` has it: the
+    same fields and defaults, less that one."""
+    kept = [(f.name, f.type, dataclasses.field(default=f.default,
+                                               default_factory=f.default_factory))
+            for f in dataclasses.fields(ModelConfig) if f.name != field]
+    return dataclasses.make_dataclass("ModelConfig", kept, frozen=True)
+
+
+def _declaring(field: str, kind, default):
+    """The port's ``ModelConfig`` where it declares ``field``, else the stub."""
+    if field in {f.name for f in dataclasses.fields(ModelConfig)}:
+        return ModelConfig
+    return _stub(field, kind, default)
+
+
+@pytest.mark.parametrize("branch", ["undeclared", "declared"])
+@pytest.mark.parametrize("key", list(PUBLISHED))
+def test_a_published_key_passes_through_where_the_port_declares_it(monkeypatch, key, branch):
+    base, published, followed, kind, default, refusal = PUBLISHED[key]
+    hf = dict(_config(DATA / f"{base}.json"), **{key: published})
     plain = dict(hf)
     del plain[key]
-    assert getattr(program.model_config(plain), key) == default
+    if branch == "undeclared":
+        monkeypatch.setattr(program, "ModelConfig", _without(key))
+        with pytest.raises(ValueError, match=refusal):
+            program.model_config(hf)
+        got = program.model_config(dict(hf, **{key: followed}))
+        assert not hasattr(got, key)
+        assert dataclasses.asdict(got) == dataclasses.asdict(program.model_config(plain))
+    else:
+        cls = _declaring(key, kind, default)
+        monkeypatch.setattr(program, "ModelConfig", cls)
+        got = program.model_config(hf)
+        assert type(got) is cls and getattr(got, key) == published
+        field = {f.name: f for f in dataclasses.fields(cls)}[key]
+        assert getattr(program.model_config(plain), key) == field.default
 
 
 @pytest.mark.parametrize("experts, kind", [(None, ExpertWeights), ("fp8", ExpertWeights),
